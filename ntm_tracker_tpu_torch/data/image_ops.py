@@ -1,0 +1,61 @@
+"""tf.image.crop_and_resize with TF's bilinear sampling
+(counterpart of ntm_tracker_tpu/data/image_ops.py:55-107).
+
+For output size S and normalized box [y1,x1,y2,x2] the sample rows are
+    in_y = y1*(H-1) + i * (y2-y1)*(H-1)/(S-1)
+(corner-aligned inside the box); samples outside the image get the
+extrapolation value. This is neither roi_align nor F.interpolate, which
+sample at other points.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def _sample_coords(lo: torch.Tensor, hi: torch.Tensor, out_n: int, size: int) -> torch.Tensor:
+    """[B] box edges -> [B, out_n] source coordinates along one axis."""
+    if out_n > 1:
+        step = (hi - lo) * (size - 1) / (out_n - 1)
+        ar = torch.arange(out_n, dtype=torch.float32, device=lo.device)
+        return lo[:, None] * (size - 1) + ar[None, :] * step[:, None]
+    return (0.5 * (lo + hi) * (size - 1))[:, None]
+
+
+def crop_and_resize(
+    images: torch.Tensor,
+    boxes: torch.Tensor,
+    crop_size: Tuple[int, int],
+    extrapolation_value: float = 0.0,
+) -> torch.Tensor:
+    """One box per image: images [B,H,W,C], boxes [B,4] normalized
+    [y1,x1,y2,x2] (may leave [0,1]) -> [B, out_h, out_w, C] float32."""
+    B, H, W, C = images.shape
+    out_h, out_w = crop_size
+    boxes = boxes.float()
+    in_y = _sample_coords(boxes[:, 0], boxes[:, 2], out_h, H)  # [B, oh]
+    in_x = _sample_coords(boxes[:, 1], boxes[:, 3], out_w, W)  # [B, ow]
+    valid_y = (in_y >= 0) & (in_y <= H - 1)
+    valid_x = (in_x >= 0) & (in_x <= W - 1)
+
+    fl_y, fl_x = torch.floor(in_y), torch.floor(in_x)
+    y0 = fl_y.long().clamp(0, H - 1)
+    yh = (y0 + 1).clamp(0, H - 1)
+    x0 = fl_x.long().clamp(0, W - 1)
+    xh = (x0 + 1).clamp(0, W - 1)
+    fy = (in_y - fl_y)[:, :, None, None]
+    fx = (in_x - fl_x)[:, None, :, None]
+
+    img = images.float()
+    bi = torch.arange(B, device=images.device)[:, None, None]
+
+    def at(yi, xi):
+        return img[bi, yi[:, :, None], xi[:, None, :]]  # [B, oh, ow, C]
+
+    top = at(y0, x0) * (1 - fx) + at(y0, xh) * fx
+    bot = at(yh, x0) * (1 - fx) + at(yh, xh) * fx
+    out = top * (1 - fy) + bot * fy
+    mask = (valid_y[:, :, None] & valid_x[:, None, :])[..., None]
+    return torch.where(mask, out, torch.full_like(out, extrapolation_value))

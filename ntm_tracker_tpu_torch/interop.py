@@ -1,0 +1,83 @@
+"""Carry weights between the JAX package and the port.
+
+A flat dict of numpy arrays is the interchange format (it is also what
+`np.savez` writes). NTM keys keep the JAX pytree names:
+`controller[l].kernel` [in+Hc, 4Hc] (gate order i, j, f, o),
+`controller[l].bias`, `heads_w`, `heads_b`, `out_w`, `out_b`,
+`init_M` [N, D], `init_w` [H, N], `init_read` [R, D]. VGG keys are
+`<layer>/weights` in the JAX package's HWIO layout and `<layer>/biases`
+(`conv1/conv1_1/weights`, ...); the port holds VGG weights as OIHW.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_CTRL = re.compile(r"controller\[(\d+)\]\.(kernel|bias)$")
+
+
+def flatten_ntm_params(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """NTM params (the JAX pytree, or the port's dict) -> flat float32 numpy dict."""
+    flat = {}
+    for key, value in tree.items():
+        if key == "controller":
+            for layer, p in enumerate(value):
+                flat[f"controller[{layer}].kernel"] = _np(p["kernel"])
+                flat[f"controller[{layer}].bias"] = _np(p["bias"])
+        else:
+            flat[key] = _np(value)
+    return flat
+
+
+def ntm_params_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[str, Any]:
+    """Flat numpy dict -> the port's NTM params (float32 tensors on `device`)."""
+    params: Dict[str, Any] = {}
+    layers: Dict[int, Dict[str, torch.Tensor]] = {}
+    for key, value in flat.items():
+        m = _CTRL.match(key)
+        t = torch.tensor(np.asarray(value, np.float32), device=device)
+        if m:
+            layers.setdefault(int(m.group(1)), {})[m.group(2)] = t
+        else:
+            params[key] = t
+    if sorted(layers) != list(range(len(layers))):
+        raise ValueError(f"controller layers are not numbered 0..n-1: {sorted(layers)}")
+    params["controller"] = [layers[i] for i in range(len(layers))]
+    return params
+
+
+def flatten_vgg_params(tree: Mapping[str, Mapping[str, Any]], layout: str = "HWIO") -> Dict[str, np.ndarray]:
+    """VGG params -> flat numpy dict in HWIO. layout names the weights'
+    layout in `tree`: "HWIO" for the JAX package's, "OIHW" for the port's."""
+    if layout not in ("HWIO", "OIHW"):
+        raise ValueError(f"layout must be HWIO or OIHW, got {layout!r}")
+    flat = {}
+    for name, p in tree.items():
+        w = _np(p["weights"])
+        flat[f"{name}/weights"] = w if layout == "HWIO" else w.transpose(2, 3, 1, 0)
+        flat[f"{name}/biases"] = _np(p["biases"])
+    return flat
+
+
+def vgg_params_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Flat HWIO numpy dict -> the port's VGG params (OIHW tensors)."""
+    params: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, value in flat.items():
+        name, kind = key.rsplit("/", 1)
+        arr = np.asarray(value, np.float32)
+        if kind == "weights":
+            arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+        elif kind != "biases":
+            raise ValueError(f"unexpected VGG key {key!r}")
+        params.setdefault(name, {})[kind] = torch.tensor(arr, device=device)
+    return params
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
