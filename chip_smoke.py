@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ntm_tracker_tpu_torch) on one NVIDIA
-H100: builds the CUDA kernels from csrc/, holds each against its plain
-PyTorch version on the card, drives the streaming tracker's frame step at
-full width, and times the kernel, its plain version and the frame step.
+H100: builds the CUDA kernels from csrc/ (one nvcc per source, in
+parallel), holds each against its plain PyTorch version on the card,
+drives the streaming tracker's frame step and the cached-token training
+step at full width, and times the kernels, their plain versions, the frame
+step and the train step.
 
     python3 chip_smoke.py
 
@@ -39,6 +41,14 @@ F32_TOL = 1e-4
 # gate, and the recurrence carries the flip forward.
 BF16_TOL = 5e-2
 
+# Gradients, fused BPTT vs autograd of the plain loop: max |kernel - plain|
+# <= GRAD_TOL * max |plain|, per gradient tensor. Both sum in f32 in
+# different orders: a weight gradient adds up to T*B terms (1.3e3..3.3e5),
+# whose rounding grows like sqrt(terms) * 6e-8 (2e-6..4e-5 relative); the
+# margin covers cancellation in those sums. The measured error at T=65 and
+# at T=1300 is printed beside it.
+GRAD_TOL = 1e-3
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -46,6 +56,15 @@ F32_FLOP_PER_S = 67e12
 KERNEL_NAME = "scan_cell.ntm_scan_fused"
 KERNEL_SOURCE = "ntm_tracker_tpu_torch/csrc/scan_cell.cu"
 KERNEL_REPLACES = "ntm_tracker_tpu/ops/pallas/scan_cell.py:42"
+BPTT_SOURCE = "ntm_tracker_tpu_torch/csrc/scan_bptt.cu"
+BPTT_REPLACES = {
+    "forward": "ntm_tracker_tpu/ops/pallas/scan_bptt.py:269",
+    "backward": "ntm_tracker_tpu/ops/pallas/scan_bptt.py:312",
+    "grad_reduce": "ntm_tracker_tpu/ops/pallas/scan_bptt.py:542",
+}
+# the training slice's shape: the JAX bench's cached-token train step
+# (ntm_tracker_tpu/benchmarks.py:646), B=256 rows of L=20 frames
+TRAIN_B, TRAIN_L = 256, 20
 
 
 def log(phase: str, msg: str) -> None:
@@ -74,7 +93,7 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
 
 
 def max_abs(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().double() - b.detach().double()).abs().max())
 
 
 def state_diffs(logits, state, ref_logits, ref_state) -> dict:
@@ -112,6 +131,92 @@ def scan_cell_work(cfg, B: int, T: int, IN: int) -> tuple[float, float]:
     return 4.0 * floats, float(B * T * per_step)
 
 
+def scan_bptt_work(cfg, B: int, T: int, IN: int) -> dict:
+    """(bytes, operations) per B2 kernel, as scan_cell_work counts them:
+    every input read once, every output written once (float32), matmul
+    FLOPs at 2 per multiply-add plus the element operations."""
+    N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
+    R, W, S = cfg.read_head_size, cfg.write_head_size, cfg.shift_space
+    Hc, L, O = cfg.controller_hidden_size, cfg.controller_num_layers, cfg.output_dim
+    P = H * D + 3 * H + S * H + 2 * W * D
+    k_rows = [IN + R * D + Hc] + [2 * Hc] * (L - 1)
+    weights = sum(k * 4 * Hc + 4 * Hc for k in k_rows) + Hc * P + P + Hc * O + O
+    state = N * D + H * N + R * D + 2 * L * Hc
+    fwd_bytes, fwd_ops = scan_cell_work(cfg, B, T, IN)
+    fwd_bytes += 4.0 * B * T * state                 # the residual streams
+    per_step_bwd = (
+        sum(2 * k * 4 * Hc for k in k_rows) + 2 * Hc * (P + O)  # transposed products
+        + 15 * L * Hc                                  # LSTM gate cotangents
+        + 4 * R * N * D + (4 * W + 6) * N * D         # read, erase/add
+        + (10 + 4 * S) * H * N                         # sharpen, shift, gate, softmax
+        + 5 * H * N * D + 5 * N * D                    # keys, normalizer
+    )
+    bwd_ops = B * T * per_step_bwd + fwd_ops          # plus the recompute
+    bwd_floats = (weights + B * T * (IN + state + O) + B * state      # read
+                  + B * T * (IN + sum(k_rows) + 4 * Hc * L + Hc + P) + B * state)  # written
+    reduce = []
+    for K, J in [(k, 4 * Hc) for k in k_rows] + [(Hc, P), (Hc, O)]:
+        M = B * T
+        reduce.append((4.0 * (M * K + M * J + (K + 1) * J), 2.0 * M * (K + 1) * J))
+    return {
+        "forward": (fwd_bytes, fwd_ops),
+        "backward": (4.0 * bwd_floats, float(bwd_ops)),
+        "grad_reduce": (sum(b for b, _ in reduce), sum(o for _, o in reduce)),
+    }
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """(least ms on the card, "bytes" or "operations"): HBM rate vs f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def named_leaves(params) -> dict:
+    out = {}
+    for k, v in params.items():
+        if k == "controller":
+            for l, layer in enumerate(v):
+                for kk, vv in layer.items():
+                    out[f"controller[{l}].{kk}"] = vv
+        else:
+            out[k] = v
+    return out
+
+
+def cotangent_loss(logits, final, cot):
+    """A scalar that touches every output: logits and each final state part."""
+    A, BM, Bw, Br, Bc = cot
+    out = (logits * A).sum() + (final["M"] * BM).sum() + (final["w"] * Bw).sum() + (final["read"] * Br).sum()
+    for c, h in final["controller_state"]:
+        out = out + (c * Bc).sum() + 0.5 * (h * Bc).sum()
+    return out
+
+
+def grads_of(scan, params, ncfg, tokens, cot, state_fn):
+    """(logits, final state, {name: grad}) of cotangent_loss through
+    scan(params, cfg, tokens, state), grads wrt every parameter (init_*
+    through the state) and the tokens."""
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    tok = tokens.detach().clone().requires_grad_()
+    logits, final = scan(p, ncfg, tok, state_fn(p))
+    leaves = named_leaves(p)
+    wrt = [tok, *leaves.values()]
+    grads = torch.autograd.grad(cotangent_loss(logits, final, cot), wrt, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, grads)]
+    return logits.detach(), final, dict(zip(["tokens", *leaves], grads))
+
+
+def grad_errors(g, ref) -> dict:
+    """{name: max |g - ref| / max |ref|} (absolute where ref is all zero)."""
+    out = {}
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        out[k] = max_abs(g[k], r) / (scale if scale > 0 else 1.0)
+    return out
+
+
 def synthetic_video(seed: int, frames: int, hw=(720, 1280)) -> tuple[np.ndarray, tuple]:
     """A smooth textured scene with a tinted blob drifting across it, made
     from `seed`; returns (uint8 [frames, H, W, 3], first region x,y,w,h)."""
@@ -134,6 +239,348 @@ def synthetic_video(seed: int, frames: int, hw=(720, 1280)) -> tuple[np.ndarray,
         blob = np.exp(-(((ys - cy) / (bh / 2)) ** 2 + ((xs - cx) / (bw / 2)) ** 2))
         out[t] = np.clip(base + blob[..., None] * tint, 0, 255).astype(np.uint8)
     return out, (x0, y0, bw, bh)
+
+
+def phase_bptt(dev: torch.device, IN: int) -> None:
+    """B2 against its plain version (autograd through the plain loop) on
+    the card: logits, final state and every gradient, on five cases; and
+    B1's trainable wrapper against the same plain version."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.models.ntm_cell import HEAD_PARAM_ORDER, head_param_sizes, init_ntm_params, init_ntm_state, ntm_cell_step
+    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt, ntm_scan_fused_bptt_reference
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused_trainable
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    def setup(ncfg, B, T, seed):
+        rs = np.random.RandomState(seed)
+        params = init_ntm_params(ncfg, IN, torch.Generator().manual_seed(seed))
+        # break the symmetry of the zero biases so that their grads are not trivial
+        params = tree_map(lambda t: (t + torch.tensor(
+            rs.uniform(-0.05, 0.05, tuple(t.shape)).astype(np.float32))).to(dev), params)
+        tokens = torch.tensor(rs.uniform(-1, 1, (B, T, IN)).astype(np.float32), device=dev)
+        shapes = [(B, T, ncfg.output_dim), (B, ncfg.mem_size, ncfg.mem_dim), (B, ncfg.num_heads, ncfg.mem_size),
+                  (B, ncfg.read_head_size, ncfg.mem_dim), (B, ncfg.controller_hidden_size)]
+        cot = [torch.tensor(rs.uniform(-1, 1, sh).astype(np.float32), device=dev) for sh in shapes]
+        return params, tokens, cot
+
+    def compare(name, ncfg, B, T, scan, params, tokens, cot, state_fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kl, kf, kg = grads_of(scan, params, ncfg, tokens, cot, state_fn)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pl, pf, pg = grads_of(ntm_scan_fused_bptt_reference, params, ncfg, tokens, cot, state_fn)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fwd = max(state_diffs(kl, kf, pl, pf).values())
+        gerr = grad_errors(kg, pg)
+        finite = all(bool(torch.isfinite(g).all()) for g in kg.values())
+        worst = max(gerr, key=gerr.get)
+        log("bptt", f"{name} B={B} T={T}: fwd max_abs={fwd:.3e} (tol {F32_TOL:g}); grads max rel={gerr[worst]:.3e} "
+                    f"at {worst} (tol {GRAD_TOL:g}); finite={finite}; fwd+bwd {1e3 * (t1 - t0):.1f} ms, "
+                    f"plain {1e3 * (t2 - t1):.1f} ms (host clock, first call)")
+        if not finite or fwd > F32_TOL or gerr[worst] > GRAD_TOL:
+            raise AssertionError(f"{name}: the kernels disagree with the plain version")
+        return {"grad_rel": gerr[worst], "grads": kg}
+
+    cases = {
+        "a_flagship": (NTMConfig(), 1, 1300),
+        "b_flagship": (NTMConfig(), 70, 65),
+        "c_2layer_2write_s5_writefirst": (NTMConfig(controller_num_layers=2, write_head_size=2, shift_range=2,
+                                                    write_first=True), 3, 65),
+        "d_slotwise": (NTMConfig(slotwise_cosine=True), 3, 65),
+    }
+    out = {}
+    for i, (name, (ncfg, B, T)) in enumerate(cases.items()):
+        params, tokens, cot = setup(ncfg, B, T, 300 + i)
+        out[name] = compare(name, ncfg, B, T, ntm_scan_fused_bptt, params, tokens, cot,
+                            lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B))
+    log("bptt", f"f32 gradient error vs T: T=65 (B=70) {out['b_flagship']['grad_rel']:.3e}, "
+                f"T=1300 (B=1) {out['a_flagship']['grad_rel']:.3e} relative (tol {GRAD_TOL:g})")
+
+    # e: w_conv exactly one-hot at T=1: every w_conv entry is 0 or 1, so the
+    # gamma gradient is exactly 0 (log 1 = 0, and 0 where w_conv == 0)
+    ncfg, B = NTMConfig(), 2
+    params, tokens, cot = setup(ncfg, B, 1, 320)
+    sizes, cols, o = head_param_sizes(ncfg), {}, 0
+    for key in HEAD_PARAM_ORDER:
+        cols[key] = slice(o, o + sizes[key])
+        o += sizes[key]
+    hw, hb = params["heads_w"].clone(), params["heads_b"].clone()
+    for key in ("k", "beta", "g", "sw"):
+        hw[:, cols[key]] = 0.0
+    hb[cols["k"]] = 3.0        # k_d = tanh(3) for every d
+    hb[cols["beta"]] = 1000.0  # content weights one-hot on the one live slot
+    hb[cols["g"]] = 40.0       # g = 1.0 exactly: w_g = w_c
+    hb[cols["sw"]] = torch.tensor([0.0, 300.0, 0.0] * ncfg.num_heads, device=dev)  # one shift
+    params["heads_w"], params["heads_b"] = hw, hb
+    M0 = torch.zeros(B, ncfg.mem_size, ncfg.mem_dim, device=dev)
+    M0[:, 7, :] = 1.0
+
+    def zero_state(p):
+        st = init_ntm_state(p, ncfg, B)
+        st["M"] = M0
+        return st
+
+    with torch.no_grad():
+        dbg = ntm_cell_step(params, ncfg, tokens[:, 0], zero_state(params), with_debug=True)[3]
+    n_zero, n_one = int((dbg["w_conv"] == 0).sum()), int((dbg["w_conv"] == 1).sum())
+    if n_zero + n_one != dbg["w_conv"].numel() or n_one != B * ncfg.num_heads:
+        raise AssertionError(f"the zero case does not make w_conv one-hot ({n_zero} zeros, {n_one} ones)")
+    res = compare("e_wconv_zero", ncfg, B, 1, ntm_scan_fused_bptt, params, tokens, cot, zero_state)
+    g_gamma = (res["grads"]["heads_b"][cols["gamma"]], res["grads"]["heads_w"][:, cols["gamma"]])
+    if any(bool((g != 0).any()) for g in g_gamma):
+        raise AssertionError("d/dgamma must be exactly 0 where w_conv is 0 or 1")
+    log("bptt", f"e_wconv_zero: {n_zero} w_conv entries exactly 0, {n_one} exactly 1; kernel dgamma "
+                f"(heads_b, heads_w gamma columns) exactly 0 and every gradient finite")
+
+    # B1 with gradients: the kernel's forward, autograd of the plain loop behind it
+    ncfg, B, T = NTMConfig(), 2, 65
+    params, tokens, cot = setup(ncfg, B, T, 330)
+    compare("scan_cell.ntm_scan_fused_trainable", ncfg, B, T, lambda p, c, t, st: ntm_scan_fused_trainable(p, c, t, st),
+            params, tokens, cot, lambda p: init_ntm_state(p, ncfg, B))
+
+
+def offsets_grads(exp, params, batch, dtype=torch.float32):
+    """The offsets loss of OffsetExperiment.loss_fn through exp's unroll
+    route, and its gradient: (loss, logits, grads in tree_leaves order,
+    forward ms, backward ms by CUDA events). dtype=float64 runs the plain
+    loop in double precision, as a referee for the two float32 routes."""
+    from ntm_tracker_tpu_torch.train.optim import tree_leaves, tree_map
+    from ntm_tracker_tpu_torch.train.serialize import offsets_loss, serialize_tokens
+
+    cfg, L = exp.cfg, exp.cfg.train.sequence_length
+    live = tree_map(lambda t: t.detach().to(dtype).requires_grad_(), params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    features = exp.batch_features(batch).to(dtype)
+    B = features.shape[0]
+    tokens = serialize_tokens(features, batch["gts"].to(dtype).reshape(B, L, cfg.num_features)[:, 0])
+    logits, _ = exp.core.unroll(live, tokens)
+    loss = offsets_loss(logits, exp._targets(batch, B).to(dtype), cfg.num_features)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    ev[2].record()
+    torch.cuda.synchronize()
+    return float(loss.detach()), logits.detach(), grads, ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+
+def step_errors(params, fused, plain) -> dict:
+    """Fused vs plain train step from the same params: each is (loss,
+    grads in tree_leaves order, params after, opt state after). The step
+    the optimizer applies is opt_state["mom"] (new params = params - mom);
+    new minus old params also carries the f32 rounding of that
+    subtraction, up to half an ulp of the parameter on each side, so it is
+    printed with that share beside it and not held."""
+    from ntm_tracker_tpu_torch.train.optim import tree_leaves
+
+    names = list(named_leaves(params))
+    (lf, gf, qf, sf), (lp, gp, qp, sp) = fused, plain
+    grad = grad_errors(dict(zip(names, gf)), dict(zip(names, gp)))
+    step = grad_errors(dict(zip(names, tree_leaves(sf["mom"]))), dict(zip(names, tree_leaves(sp["mom"]))))
+    p0 = tree_leaves(params)
+    diff = grad_errors({k: a - b for k, a, b in zip(names, tree_leaves(qf), p0)},
+                       {k: a - b for k, a, b in zip(names, tree_leaves(qp), p0)})
+    wd = max(diff, key=diff.get)
+    i = names.index(wd)
+    ulp = float(np.spacing(np.float32(float(p0[i].abs().max())))) / max(float(tree_leaves(sp["mom"])[i].abs().max()), 1e-30)
+    return {"loss": abs(lf - lp) / max(1.0, abs(lp)), "grad": grad, "step": step,
+            "grad_abs": max(max_abs(a, b) for a, b in zip(gf, gp)),
+            "diff": (wd, diff[wd], ulp)}
+
+
+def report_step(tag: str, err: dict) -> None:
+    gw, sw = max(err["grad"], key=err["grad"].get), max(err["step"], key=err["step"].get)
+    wd, dv, ulp = err["diff"]
+    log("train", f"{tag}: loss rel {err['loss']:.2e} (tol {F32_TOL:g}); raw gradients max rel {err['grad'][gw]:.2e} "
+                 f"at {gw}, max abs {err['grad_abs']:.3e}; optimizer step (mom) max rel {err['step'][sw]:.2e} at {sw} "
+                 f"(tol {GRAD_TOL:g} each); new minus old params max rel {dv:.2e} at {wd}, where ulp(max|p|) / "
+                 f"max|step| = {ulp:.2e} (f32 rounding of p - step, not held)")
+    if err["loss"] > F32_TOL or err["grad"][gw] > GRAD_TOL or err["step"][sw] > GRAD_TOL:
+        raise AssertionError(f"{tag}: the fused train step disagrees with the plain one")
+
+
+def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
+    """The training slice at full width: OffsetExperiment on cached tokens,
+    B=256 rows of L=20 frames (T=1300), through the fused BPTT kernels;
+    the main path's first step held against the plain autograd step from
+    the same params at the same shape (and again at B=8); then the
+    kernels' own times."""
+    from ntm_tracker_tpu_torch.config import TrackerConfig, TrainConfig
+    from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, synthetic_cached_batch
+    from ntm_tracker_tpu_torch.train.optim import tree_leaves, tree_map
+    from ntm_tracker_tpu_torch.train.serialize import serialize_tokens
+
+    base = TrackerConfig(train=TrainConfig(batch_size=TRAIN_B, sequence_length=TRAIN_L))
+    ncfg, L = base.ntm, base.ntm.controller_num_layers
+    exp = OffsetExperiment(base, None, device=dev)  # fused_bptt="auto": the kernels on cuda at f32
+    params, opt_state = exp.init(torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    batch = exp.device_batch(synthetic_cached_batch(base, np.random.RandomState(0)))
+    log("train", f"synthetic cached batch B={TRAIN_B} L={TRAIN_L} (float16 tokens {tuple(batch['features'].shape)}) "
+                 f"made and uploaded in {time.perf_counter() - t0:.1f}s")
+    train_step, eval_step = exp.make_train_step(), exp.make_eval_step()
+    kernels = (ntm_scan_fused, scan_bptt.bptt_forward, scan_bptt.bptt_backward, scan_bptt.grad_reduce)
+
+    # ---- the main path: 1 warm-up + 3 timed train steps, 1 eval step -----------
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    p1, s1, m = train_step(params, opt_state, batch)
+    p, s = p1, s1
+    losses, step_ms = [float(m["loss"])], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, s, m = train_step(p, s, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aux = eval_step(p, batch)
+    eval_loss = float(aux["loss"])
+    eval_ms = 1e3 * (time.perf_counter() - t0)
+    counts = {k.__name__: k.launches for k in kernels}
+    expected = {"ntm_scan_fused": 1, "bptt_forward": 4, "bptt_backward": 4, "grad_reduce": 4 * (L + 2)}
+    log("train", f"main path launches {counts} (expected {expected}; each grad_reduce call is two kernels, "
+                 f"the partial sums and their fixed-order sum)")
+    if counts != expected:
+        raise AssertionError("the training path did not run through the kernels as expected")
+    # an update far below a parameter's ulp leaves it as it was (init_w's
+    # gradient is small), so the check is on the parameters as a whole
+    changed = {k: int((a != b).sum()) for k, a, b in zip(named_leaves(p), tree_leaves(params), tree_leaves(p))}
+    if not (np.isfinite(losses).all() and np.isfinite(eval_loss) and changed["controller[0].kernel"] > 0):
+        raise AssertionError(f"bad training run: losses {losses}, eval {eval_loss}, elements changed {changed}")
+    log("train", f"elements changed by the 4 steps, per parameter: {changed}")
+    step = float(np.median(step_ms))
+    log("train", f"{smi}: fused train step B={TRAIN_B} T={base.total_steps} "
+                 f"steps {[round(t, 3) for t in step_ms]} ms, median {step:.3f} ms = "
+                 f"{TRAIN_B * TRAIN_L / step * 1e3:.1f} trained frames/s; losses {[round(v, 6) for v in losses]}; "
+                 f"peak {peak_gb:.2f} GB; eval step (B1, no residuals) {eval_ms:.3f} ms, loss {eval_loss:.6f}")
+    check_budget("train")
+
+    # ---- the main path's first step against the plain autograd step at B=256 ------
+    opt = exp.optimizer()
+    floss, flogits, fgrads, _, _ = offsets_grads(exp, params, batch)
+    expp = OffsetExperiment(dataclasses.replace(base, train=dataclasses.replace(base.train, fused_bptt=False)),
+                            None, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ploss, plogits, pgrads, plain_fwd, plain_bwd = offsets_grads(expp, params, batch)
+    it = iter(pgrads)
+    qp, sp = opt.update(tree_map(lambda _: next(it), params), opt_state, params)
+    torch.cuda.synchronize()
+    plain_step = 1e3 * (time.perf_counter() - t0)
+    log("train", f"{smi}: plain autograd train step B={TRAIN_B} T={base.total_steps} (remat full: each step checkpointed) "
+                 f"{plain_step:.1f} ms = {TRAIN_B * TRAIN_L / plain_step * 1e3:.1f} frames/s "
+                 f"(forward {plain_fwd:.1f} ms, backward {plain_bwd:.1f} ms, CUDA events); "
+                 f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; loss {ploss:.6f}")
+    fwd_err = max_abs(flogits, plogits)
+    err256 = step_errors(params, (losses[0], fgrads, p1, s1), (ploss, pgrads, qp, sp))
+    with torch.no_grad():
+        eval0 = float(eval_step(params, batch)["loss"])
+    eval_err = abs(eval0 - ploss) / max(1.0, abs(ploss))
+    log("train", f"B={TRAIN_B} T={base.total_steps}: fused (B2) logits vs plain max_abs {fwd_err:.3e} (tol {F32_TOL:g}); "
+                 f"B2 loss {floss:.6f}, main path's first step {losses[0]:.6f}, plain {ploss:.6f}; eval step (B1) "
+                 f"loss from the same params {eval0:.6f}, rel {eval_err:.2e} (tol {F32_TOL:g})")
+    report_step(f"B={TRAIN_B} main path's first step vs plain", err256)
+    if fwd_err > F32_TOL or eval_err > F32_TOL or abs(floss - losses[0]) > F32_TOL * max(1.0, abs(ploss)):
+        raise AssertionError("the fused forward disagrees with the plain one at the main path's shape")
+    # both float32 routes against the plain loop in float64: which of them
+    # carries the gap between them
+    t0 = time.perf_counter()
+    g64 = offsets_grads(expp, params, batch, torch.float64)[2]
+    names = list(named_leaves(params))
+    vs64 = {tag: grad_errors(dict(zip(names, g)), dict(zip(names, g64))) for tag, g in (("fused", fgrads), ("plain", pgrads))}
+    log("train", f"B={TRAIN_B} gradients vs the plain loop in float64 ({time.perf_counter() - t0:.1f}s), max rel per "
+                 f"parameter, fused / plain float32: "
+                 + ", ".join(f"{k} {vs64['fused'][k]:.2e} / {vs64['plain'][k]:.2e}" for k in names))
+    worst64 = max(vs64["fused"].values())
+    if worst64 > GRAD_TOL:
+        raise AssertionError(f"the fused gradients are {worst64:.2e} from the float64 ones (tol {GRAD_TOL:g})")
+    f64_err = {"fused": worst64, "plain": max(vs64["plain"].values())}
+    del fgrads, pgrads, g64, qp, sp
+    check_budget("train")
+
+    # ---- one fused step against one plain autograd step at B=8 --------------------
+    cfg8 = dataclasses.replace(base, train=dataclasses.replace(base.train, batch_size=8, fused_bptt=True))
+    cfg8p = dataclasses.replace(cfg8, train=dataclasses.replace(cfg8.train, fused_bptt=False))
+    batch8 = exp.device_batch(synthetic_cached_batch(cfg8, np.random.RandomState(1)))
+    runs, ms8 = {}, {}
+    for tag, c in (("fused", cfg8), ("plain", cfg8p)):
+        e = OffsetExperiment(c, None, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, s8, mm = e.make_train_step()(params, opt_state, batch8)
+        ms8[tag] = 1e3 * (time.perf_counter() - t0)
+        runs[tag] = (float(mm["loss"]), offsets_grads(e, params, batch8)[2], q, s8)
+    report_step(f"B=8 T={base.total_steps} one step fused vs plain autograd (remat full), "
+                f"step {ms8['fused']:.1f} ms fused vs {ms8['plain']:.1f} ms plain (host clock)",
+                step_errors(params, runs["fused"], runs["plain"]))
+    del runs
+    check_budget("train")
+
+    # ---- the kernels alone at the main path's shape ---------------------------------
+    with torch.no_grad():
+        feats = exp.batch_features(batch)
+        tokens = serialize_tokens(feats, batch["gts"].float().reshape(TRAIN_B, TRAIN_L, -1)[:, 0]).contiguous()
+        state = init_ntm_state(params, ncfg, TRAIN_B)
+        B, T, _ = tokens.shape
+        b1_err = max_abs(ntm_scan_fused(params, ncfg, tokens, state)[0], plogits)
+        b1_ms = cuda_ms(lambda: ntm_scan_fused(params, ncfg, tokens, state), iters=2, warmup=0)
+        fwd_ms = cuda_ms(lambda: scan_bptt.bptt_forward(params, ncfg, tokens, state), iters=2, warmup=1)
+        logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state)
+        dlogits = torch.randn_like(logits) * 1e-2
+        dfinal = tree_map(torch.zeros_like, final)
+        bwd_ms = cuda_ms(lambda: scan_bptt.bptt_backward(params, ncfg, tokens, res, dlogits, dfinal),
+                         iters=2, warmup=1)
+        _, _, (li, dgates, ctrl, dctl) = scan_bptt.bptt_backward(params, ncfg, tokens, res, dlogits, dfinal)
+        del res
+        K0, Hc = li.shape[2], ncfg.controller_hidden_size
+        dl2 = dlogits.reshape(B * T, -1)
+        products = [(li[0], dgates[0], K0), (ctrl, dctl, Hc), (ctrl, dl2, Hc)]
+        red_ms = cuda_ms(lambda: [scan_bptt.grad_reduce(a, g, k) for a, g, k in products], iters=3, warmup=1)
+        red_plain_ms = cuda_ms(lambda: [scan_bptt.grad_reduce_reference(a, g, k) for a, g, k in products],
+                               iters=3, warmup=1)
+        red_lib_ms = cuda_ms(lambda: [torch.matmul(a[:, :k].T, g) for a, g, k in products], iters=3, warmup=1)
+        red_abs = red_rel = 0.0
+        for a, g, k in products:
+            ref = scan_bptt.grad_reduce_reference(a, g, k)
+            e = max_abs(scan_bptt.grad_reduce(a, g, k), ref)
+            red_abs, red_rel = max(red_abs, e), max(red_rel, e / float(ref.abs().max()))
+        again = scan_bptt.grad_reduce(*products[0])
+        same_bits = torch.equal(again, scan_bptt.grad_reduce(*products[0]))
+    b1_bound = bound(*scan_cell_work(ncfg, B, T, IN))
+    log("times", f"{smi}: B1 (the eval step's kernel) at B={B} T={T}: {b1_ms:.3f} ms, bound {b1_bound[0]:.3f} ms "
+                 f"by {b1_bound[1]}; logits vs the plain loop's max_abs {b1_err:.3e} (tol {F32_TOL:g})")
+    if b1_err > F32_TOL:
+        raise AssertionError("B1 disagrees with the plain loop at the training shape")
+    work = scan_bptt_work(ncfg, B, T, IN)
+    log("times", f"{smi}: B2 at B={B} T={T}: forward (residuals) {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, "
+                 f"reduction (L+2={L + 2} calls, two kernels each) {red_ms:.3f} ms; plain: forward {plain_fwd:.1f} ms, "
+                 f"backward {plain_bwd:.1f} ms, reduction {red_plain_ms:.3f} ms (torch.matmul alone {red_lib_ms:.3f} ms); "
+                 f"reduction vs plain max_abs {red_abs:.3e}, rel {red_rel:.3e} (tol 1e-4), same bits on a rerun: {same_bits}")
+    for name, (nb, no) in work.items():
+        ms, by = bound(nb, no)
+        log("times", f"B2 {name} bound {ms:.3f} ms by {by} ({nb / 1e9:.3f} GB, {no / 1e9:.3f} GFLOP)")
+    if red_rel > 1e-4 or not same_bits:
+        raise AssertionError("the reduction kernel disagrees with its plain version or is not deterministic")
+    check_budget("times")
+    gw = max(err256["grad"], key=err256["grad"].get)
+    return {
+        "counts": counts, "step_ms": step, "eval_ms": eval_ms, "plain_step_ms": plain_step,
+        "forward": (fwd_ms, plain_fwd, None), "backward": (bwd_ms, plain_bwd, None),
+        "grad_reduce": (red_ms, red_plain_ms, red_lib_ms), "work": work, "grad_vs_f64": f64_err,
+        "errors": {"forward": (fwd_err, None), "backward": (err256["grad_abs"], err256["grad"][gw]),
+                   "grad_reduce": (red_abs, red_rel)},
+        "b1": {"launches": counts["ntm_scan_fused"], "B": B, "T": T, "ms": b1_ms, "bound_ms": b1_bound[0],
+               "bound_by": b1_bound[1], "max_abs_err": b1_err},
+    }
 
 
 def main() -> int:
@@ -167,9 +614,11 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = _build.build("scan_cell")
-    _build.load_library("scan_cell")
-    log("build", f"scan_cell ready in {time.perf_counter() - t0:.2f}s ({lib_path.name})")
+    paths = _build.build_all(["scan_cell", "scan_bptt"])
+    for name in paths:
+        _build.load_library(name)
+    log("build", f"scan_cell and scan_bptt ready in {time.perf_counter() - t0:.2f}s (parallel nvcc; "
+                 f"{', '.join(p.name for p in paths.values())})")
     check_budget("build")
 
     # ---- 3. kernel vs plain version on the card ----------------------------
@@ -211,6 +660,10 @@ def main() -> int:
         raise AssertionError("T=0 must echo the state without a launch")
     log("kernel", "T=0 echo ok")
     check_budget("kernel")
+
+    # ---- 3b. the training kernels (B2) vs their plain version -----------------
+    phase_bptt(dev, IN)
+    check_budget("bptt")
 
     # ---- 4. the frame step end to end ----------------------------------------
     cfg = TrackerConfig()
@@ -309,12 +762,32 @@ def main() -> int:
                  f"cudnn/matmul TF32 off) fused {fused_p50:.3f} ms, plain loop {plain_p50:.3f} ms")
     check_budget("times")
 
-    # ---- 6. result -----------------------------------------------------------
+    # ---- 6. the training slice at full width, and the B2 kernels' times -------
+    train = phase_train(dev, smi, IN)
+
+    # ---- 7. result -----------------------------------------------------------
+    # B1 runs on both main paths: `launches` is the frame path's count;
+    # the train path's (its eval step) and B1's numbers at that shape beside it
     kernels = [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": main_path_launches, "max_abs_err": flagship_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches_by_path": {"frame_step": main_path_launches, "train": train["b1"]["launches"]},
+        "train_shape": {k: v for k, v in train["b1"].items() if k != "launches"},
     }]
+    for name, launches in (("forward", "bptt_forward"), ("backward", "bptt_backward"),
+                           ("grad_reduce", "grad_reduce")):
+        ms, plain, lib = train[name]
+        b_ms, b_by = bound(*train["work"][name])
+        abs_err, rel_err = train["errors"][name]
+        kernels.append({
+            "name": f"scan_bptt.{name}", "route": "cuda", "source": BPTT_SOURCE, "replaces": BPTT_REPLACES[name],
+            "launches": train["counts"][launches], "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        })
+    # the main path's gradients against the plain loop in float64, both routes
+    kernels[2]["max_rel_err_vs_float64"] = train["grad_vs_f64"]
+    kernels[-1]["kernels_per_launch"] = 2  # ntm_grad_partial_kernel, then ntm_grad_sum_kernel
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

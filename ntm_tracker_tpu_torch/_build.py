@@ -2,8 +2,9 @@
 
 Each source is compiled on its own into a shared library with a plain C
 interface (no PyTorch headers, so nvcc takes seconds). The library lands
-in `_build/<hash>/`, keyed by a hash of the source and the flags, and is
-built at first use in a process.
+in `_build/<hash>/`, keyed by a hash of the source, the shared headers
+(csrc/*.cuh) and the flags, and is built at first use in a process.
+`build_all` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -36,31 +37,51 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from csrc/<name>.cu lives."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     return BUILD_ROOT / key / f"lib{name}.so"
 
 
+def build_all(names) -> dict:
+    """Compile csrc/<name>.cu for every name whose library is not built
+    yet, one nvcc each, all started together; prints each nvcc time and
+    ptxas's register, shared-memory and spill report. Returns
+    {name: library path}."""
+    outs = {name: library_path(name) for name in names}
+    running = []
+    for name, out in outs.items():
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((name, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, proc, t0 in running:
+        try:
+            stdout, stderr = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            failed.append(f"nvcc timed out after {NVCC_TIMEOUT_S} s building {name}.cu")
+            continue
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc exited {proc.returncode} building {name}.cu:\n{stdout}{stderr}")
+            continue
+        print(f"[build] {name}.cu: nvcc {secs:.2f} s\n{stderr.strip()}", flush=True)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library is already built; prints
-    the nvcc time and ptxas's register, shared-memory and spill report."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    src = CSRC / f"{name}.cu"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc exited {proc.returncode} building {src.name}:\n{proc.stdout}{proc.stderr}"
-        )
-    print(f"[build] {src.name}: nvcc {secs:.2f} s\n{proc.stderr.strip()}", flush=True)
-    os.replace(tmp, out)
-    return out
+    """Compile csrc/<name>.cu unless its library is already built."""
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,534 @@
+// One NTM cell step on a batch row held in shared memory, and the T-step
+// loop around it: the math shared by the streaming kernel (scan_cell.cu)
+// and the training kernels (scan_bptt.cu).
+//
+// Each step: stacked LSTM on [x | read | h], the fused head linear,
+// tanh(k), cosine against memory (across-slot or slotwise), softplus-beta
+// softmax, sigmoid gate, circular shift with the Python-2 offsets,
+// gamma-sharpen with +1e-3, erase/add write, read before or after the
+// write, and the output linear (ntm_tracker_tpu/ops/pallas/scan_cell.py:
+// _step_kernel, scan_bptt.py:_forward_math).
+//
+// One thread block of NT threads owns one batch row. The step reads its
+// input state from the *_in arrays and writes the new state to the *_out
+// arrays; the forward kernels alias the two (an in-place update, safe
+// because every phase that overwrites a state array runs after the last
+// phase that reads it), the backward kernel keeps them apart. Every
+// intermediate the backward needs stays in its own shared array.
+//
+// compute_dtype=bf16 is reproduced as the JAX package does it
+// (scan_cell.py:71-86): matmul operands rounded to bf16, products summed in
+// f32, the sum rounded to bf16; everything else stays f32.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define NT 512
+#define NWARPS (NT / 32)
+#define MAX_LAYERS 8
+
+struct Dims {
+  int IN, N, D, H, R, W, S, Hc, L, O;
+};
+
+struct Weights {
+  const float* lstm_w[MAX_LAYERS];  // layer l: [in_l + Hc, 4*Hc]
+  const float* lstm_b[MAX_LAYERS];  // [4*Hc]
+  const float* heads_w;             // [Hc, P]
+  const float* heads_b;             // [P]
+  const float* out_w;               // [Hc, O]
+  const float* out_b;               // [O]
+};
+
+struct Flags {
+  int write_first, slotwise, bf16;
+};
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// width of the fused head-parameter linear (k, beta, g, sw, gamma, erase, add)
+__host__ __device__ inline int head_width(const Dims& d) {
+  return d.H * d.D + 3 * d.H + d.S * d.H + 2 * d.W * d.D;
+}
+
+// the widest layer input [x | read | h] or [h_below | h]
+__host__ __device__ inline int kin_max(const Dims& d) {
+  return imax(d.IN + d.R * d.D + d.Hc, 2 * d.Hc);
+}
+
+// Offsets (in floats) of the shared-memory arrays; one definition serves
+// the host (sizing) and the device (carving).
+struct Layout {
+  // the step's state (in == out in the forward kernels)
+  int M_in, w_in, read_in, c_in, h_in, M_out, w_out, read_out, c_out, h_out;
+  // the step's intermediates
+  int inp, gates, ctl, mss, minv, k, kss, kinv, beta, g, gamma, sw, denom;
+  int u, sim, wc, wg, wconv, powed, erase, add;
+  // backward only: cotangent carries and scratch
+  int dM, dMp, dtmp, dw, dwh, dwconv, du, dread, dc, dh, dctl, dctrl, dli, dgates, dlogit,
+      dkss, dss;
+  int total;
+};
+
+__host__ __device__ inline int take(int& o, int n) {
+  const int at = o;
+  o += n;
+  return at;
+}
+
+__host__ __device__ inline Layout make_layout(const Dims& d, bool backward) {
+  const int ND = d.N * d.D, HN = d.H * d.N, RD = d.R * d.D, LH = d.L * d.Hc;
+  const int P = head_width(d), NDm = imax(d.N, d.D);
+  Layout s;
+  int o = 0;
+  s.M_in = take(o, ND);
+  s.w_in = take(o, HN);
+  s.read_in = take(o, RD);
+  s.c_in = take(o, LH);
+  s.h_in = take(o, LH);
+  if (backward) {
+    s.M_out = take(o, ND);
+    s.w_out = take(o, HN);
+    s.read_out = take(o, RD);
+    s.c_out = take(o, LH);
+    s.h_out = take(o, LH);
+  } else {
+    s.M_out = s.M_in;
+    s.w_out = s.w_in;
+    s.read_out = s.read_in;
+    s.c_out = s.c_in;
+    s.h_out = s.h_in;
+  }
+  s.inp = take(o, kin_max(d));
+  s.gates = take(o, d.L * 4 * d.Hc);
+  s.ctl = take(o, P);
+  s.mss = take(o, NDm);
+  s.minv = take(o, NDm);
+  s.k = take(o, d.H * d.D);
+  s.kss = take(o, d.H);
+  s.kinv = take(o, d.H);
+  s.beta = take(o, d.H);
+  s.g = take(o, d.H);
+  s.gamma = take(o, d.H);
+  s.sw = take(o, d.H * d.S);
+  s.denom = take(o, d.H);
+  s.u = take(o, HN);
+  s.sim = take(o, HN);
+  s.wc = take(o, HN);
+  s.wg = take(o, HN);
+  s.wconv = take(o, HN);
+  s.powed = take(o, HN);
+  s.erase = take(o, d.W * d.D);
+  s.add = take(o, d.W * d.D);
+  if (backward) {
+    s.dM = take(o, ND);
+    s.dMp = take(o, ND);
+    s.dtmp = take(o, ND);
+    s.dw = take(o, HN);
+    s.dwh = take(o, HN);
+    s.dwconv = take(o, HN);
+    s.du = take(o, HN);
+    s.dread = take(o, RD);
+    s.dc = take(o, LH);
+    s.dh = take(o, LH);
+    s.dctl = take(o, P);
+    s.dctrl = take(o, d.Hc);
+    s.dli = take(o, kin_max(d));
+    s.dgates = take(o, 4 * d.Hc);
+    s.dlogit = take(o, d.O);
+    s.dkss = take(o, d.H);
+    s.dss = take(o, NDm);
+  } else {
+    s.dM = s.dMp = s.dtmp = s.dw = s.dwh = s.dwconv = s.du = s.dread = s.dc = s.dh = -1;
+    s.dctl = s.dctrl = s.dli = s.dgates = s.dlogit = s.dkss = s.dss = -1;
+  }
+  s.total = o;
+  return s;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+__device__ __forceinline__ float softplus_f(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+// Python-style modulo into [0, N)
+__device__ __forceinline__ int wrap(int i, int N) {
+  i %= N;
+  return i < 0 ? i + N : i;
+}
+
+// out[j] = bias[j] + sum_k in[k] * Wm[k, j] for j < ncol, one column per
+// thread; consecutive threads read consecutive columns (coalesced).
+__device__ __forceinline__ void gemv(const float* __restrict__ Wm,
+                                     const float* __restrict__ bias,
+                                     const float* in, int K, int ncol,
+                                     float* out, int bf16) {
+  for (int j = threadIdx.x; j < ncol; j += NT) {
+    float acc = 0.f;
+    if (bf16) {
+      for (int k = 0; k < K; ++k)
+        acc = fmaf(bf16_round(in[k]), bf16_round(__ldg(Wm + (size_t)k * ncol + j)), acc);
+      acc = bf16_round(acc);
+    } else {
+#pragma unroll 8
+      for (int k = 0; k < K; ++k) acc = fmaf(in[k], __ldg(Wm + (size_t)k * ncol + j), acc);
+    }
+    out[j] = acc + __ldg(bias + j);
+  }
+}
+
+// One cell step of the block's row. x: the step's token (global, [IN]);
+// logit: where the step's output logits go (global, [O]), or nullptr.
+// Enters after a __syncthreads() that published the *_in arrays and
+// returns after one that publishes the *_out arrays and intermediates.
+__device__ void ntm_step(const Weights& wt, const Dims& dm, const Flags& fl,
+                         float* smem, const Layout& lay,
+                         const float* __restrict__ x, float* logit) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int IN = dm.IN, N = dm.N, D = dm.D, H = dm.H, R = dm.R, W = dm.W, S = dm.S;
+  const int Hc = dm.Hc, L = dm.L, O = dm.O;
+  const float* M_in = smem + lay.M_in;
+  const float* w_in = smem + lay.w_in;
+  const float* read_in = smem + lay.read_in;
+  const float* c_in = smem + lay.c_in;
+  const float* h_in = smem + lay.h_in;
+  float* M_out = smem + lay.M_out;
+  float* w_out = smem + lay.w_out;
+  float* read_out = smem + lay.read_out;
+  float* c_out = smem + lay.c_out;
+  float* h_out = smem + lay.h_out;
+  float* inp = smem + lay.inp;
+  float* ctl = smem + lay.ctl;
+  float* mss = smem + lay.mss;
+  float* minv = smem + lay.minv;
+  float* ks = smem + lay.k;
+  float* kss = smem + lay.kss;
+  float* kinv = smem + lay.kinv;
+  float* beta = smem + lay.beta;
+  float* gg = smem + lay.g;
+  float* gamma = smem + lay.gamma;
+  float* sw = smem + lay.sw;
+  float* denom = smem + lay.denom;
+  float* u = smem + lay.u;
+  float* sim = smem + lay.sim;
+  float* wc = smem + lay.wc;
+  float* wg = smem + lay.wg;
+  float* wconv = smem + lay.wconv;
+  float* powed = smem + lay.powed;
+  float* erase = smem + lay.erase;
+  float* add = smem + lay.add;
+
+  // offsets of the fused head-parameter unpack (k, beta, g, sw, gamma, erase, add)
+  const int oBeta = H * D, oG = oBeta + H, oSw = oG + H, oGamma = oSw + S * H;
+  const int oErase = oGamma + H, oAdd = oErase + W * D;
+  const int P = oAdd + W * D;
+  const int RD = R * D, shift0 = -((S + 1) / 2);
+
+  // ---- stacked LSTM controller --------------------------------------------
+  for (int i = tid; i < IN; i += NT) inp[i] = x[i];
+  for (int i = tid; i < RD; i += NT) inp[IN + i] = read_in[i];
+  for (int i = tid; i < Hc; i += NT) inp[IN + RD + i] = h_in[i];
+  __syncthreads();
+  for (int l = 0; l < L; ++l) {
+    const int K = (l == 0 ? IN + RD : Hc) + Hc;
+    float* gates = smem + lay.gates + l * 4 * Hc;
+    gemv(wt.lstm_w[l], wt.lstm_b[l], inp, K, 4 * Hc, gates, fl.bf16);
+    __syncthreads();
+    for (int j = tid; j < Hc; j += NT) {
+      const float ig = gates[j], jg = gates[Hc + j], fg = gates[2 * Hc + j],
+                  og = gates[3 * Hc + j];
+      const float c_new = c_in[l * Hc + j] * sigmoid_f(fg) + sigmoid_f(ig) * tanhf(jg);
+      const float h_new = tanhf(c_new) * sigmoid_f(og);
+      if (l + 1 < L) {
+        inp[j] = h_new;
+        inp[Hc + j] = h_in[(l + 1) * Hc + j];
+      }
+      c_out[l * Hc + j] = c_new;
+      h_out[l * Hc + j] = h_new;
+    }
+    __syncthreads();
+  }
+  const float* ctrl = h_out + (L - 1) * Hc;
+
+  // ---- head controls and the output linear ---------------------------------
+  gemv(wt.heads_w, wt.heads_b, ctrl, Hc, P, ctl, fl.bf16);
+  if (logit != nullptr) {
+    for (int o = warp; o < O; o += NWARPS) {
+      float acc = 0.f;
+      for (int k = lane; k < Hc; k += 32) {
+        const float wv = __ldg(wt.out_w + (size_t)k * O + o);
+        acc = fl.bf16 ? fmaf(bf16_round(ctrl[k]), bf16_round(wv), acc) : fmaf(ctrl[k], wv, acc);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) logit[o] = (fl.bf16 ? bf16_round(acc) : acc) + __ldg(wt.out_b + o);
+    }
+  }
+  __syncthreads();
+
+  // ---- squashed head parameters and the memory normalizer ----------------
+  for (int i = tid; i < H * D; i += NT) ks[i] = tanhf(ctl[i]);
+  for (int i = tid; i < W * D; i += NT) {
+    erase[i] = sigmoid_f(ctl[oErase + i]);
+    add[i] = tanhf(ctl[oAdd + i]);
+  }
+  for (int hh = tid; hh < H; hh += NT) {
+    beta[hh] = softplus_f(ctl[oBeta + hh]);
+    gg[hh] = sigmoid_f(ctl[oG + hh]);
+    gamma[hh] = softplus_f(ctl[oGamma + hh]) + 1.f;
+    const float* s_raw = ctl + oSw + hh * S;
+    float mx = s_raw[0];
+    for (int j = 1; j < S; ++j) mx = fmaxf(mx, s_raw[j]);
+    float tot = 0.f;
+    for (int j = 0; j < S; ++j) tot += expf(s_raw[j] - mx);
+    for (int j = 0; j < S; ++j) sw[hh * S + j] = expf(s_raw[j] - mx) / tot;
+  }
+  if (fl.slotwise) {
+    // rsqrt(max(|M[n,:]|^2, 1e-12)) per slot
+    for (int n = tid; n < N; n += NT) {
+      float sq = 0.f;
+      for (int d = 0; d < D; ++d) sq = fmaf(M_in[n * D + d], M_in[n * D + d], sq);
+      mss[n] = sq;
+      minv[n] = rsqrtf(fmaxf(sq, 1e-12f));
+    }
+  } else {
+    // the executed reference: each mem_dim row normalized across slots
+    for (int d = warp; d < D; d += NWARPS) {
+      float sq = 0.f;
+      for (int n = lane; n < N; n += 32) sq = fmaf(M_in[n * D + d], M_in[n * D + d], sq);
+      sq = warp_sum(sq);
+      if (lane == 0) {
+        mss[d] = sq;
+        minv[d] = rsqrtf(fmaxf(sq, 1e-12f));
+      }
+    }
+  }
+  __syncthreads();
+  for (int hh = tid; hh < H; hh += NT) {
+    float sq = 0.f;
+    for (int d = 0; d < D; ++d) sq = fmaf(ks[hh * D + d], ks[hh * D + d], sq);
+    kss[hh] = sq;
+    kinv[hh] = rsqrtf(fmaxf(sq, 1e-12f));
+  }
+  __syncthreads();
+
+  // ---- content similarity: u = k . Mtn, sim = u * |k|^-1 ----------------------
+  for (int i = tid; i < H * N; i += NT) {
+    const int hh = i / N, n = i - hh * N;
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float m = M_in[n * D + d] * (fl.slotwise ? minv[n] : minv[d]);
+      acc = fmaf(ks[hh * D + d], m, acc);
+    }
+    u[i] = acc;
+    sim[i] = acc * kinv[hh];
+  }
+  __syncthreads();
+
+  // ---- softplus-beta softmax and the interpolation gate (warp per head) --
+  for (int hh = warp; hh < H; hh += NWARPS) {
+    const float* row = sim + hh * N;
+    const float bt = beta[hh], gt = gg[hh];
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int n = lane; n < N; n += 32) mx = fmaxf(mx, row[n] * bt);
+    mx = warp_max(mx);
+    float tot = 0.f;
+    for (int n = lane; n < N; n += 32) tot += expf(row[n] * bt - mx);
+    tot = warp_sum(tot);
+    for (int n = lane; n < N; n += 32) {
+      const float wcv = expf(row[n] * bt - mx) / tot;
+      wc[hh * N + n] = wcv;
+      wg[hh * N + n] = wcv * gt + w_in[hh * N + n] * (1.f - gt);
+    }
+  }
+  __syncthreads();
+
+  // ---- circular shift and gamma-sharpen (warp per head) -------------------
+  for (int hh = warp; hh < H; hh += NWARPS) {
+    const float gm = gamma[hh];
+    float tot = 0.f;
+    for (int n = lane; n < N; n += 32) {
+      float conv = 0.f;
+      for (int j = 0; j < S; ++j)
+        conv = fmaf(sw[hh * S + j], wg[hh * N + wrap(n + shift0 + j, N)], conv);
+      const float p = powf(conv, gm);
+      wconv[hh * N + n] = conv;
+      powed[hh * N + n] = p;
+      tot += p;
+    }
+    tot = warp_sum(tot) + 1e-3f;
+    if (lane == 0) denom[hh] = tot;
+    for (int n = lane; n < N; n += 32) w_out[hh * N + n] = powed[hh * N + n] / tot;
+  }
+  __syncthreads();
+
+  // ---- read (before or after the write) and the erase/add write -----------
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool do_read = (pass == 0) != (fl.write_first != 0);
+    if (do_read) {
+      const float* src = fl.write_first ? M_out : M_in;
+      for (int o = warp; o < RD; o += NWARPS) {
+        const int r = o / D, d = o - r * D;
+        float acc = 0.f;
+        for (int n = lane; n < N; n += 32) acc = fmaf(w_out[r * N + n], src[n * D + d], acc);
+        acc = warp_sum(acc);
+        if (lane == 0) read_out[o] = acc;
+      }
+    } else {
+      for (int i = tid; i < N * D; i += NT) {
+        const int n = i / D, d = i - n * D;
+        float er = 1.f, ad = 0.f;
+        for (int wh = 0; wh < W; ++wh) {
+          const float ww = w_out[(R + wh) * N + n];
+          er *= 1.f - ww * erase[wh * D + d];
+          ad = fmaf(ww, add[wh * D + d], ad);
+        }
+        M_out[i] = M_in[i] * er + ad;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+struct ScanArgs {
+  const float* tokens;          // [B, T, IN]
+  Weights wt;
+  const float* M0;              // [B, N, D]
+  const float* w0;              // [B, H, N]
+  const float* read0;           // [B, R, D]
+  const float* c0[MAX_LAYERS];  // [B, Hc]
+  const float* h0[MAX_LAYERS];  // [B, Hc]
+  float* logits;                // [B, T, O]
+  float* M;                     // [B, N, D]
+  float* w;                     // [B, H, N]
+  float* read;                  // [B, R, D]
+  float* c;                     // [L, B, Hc]
+  float* h;                     // [L, B, Hc]
+  // residual streams of each step's INPUT state (kResiduals only)
+  float* res_M;                 // [B, T, N, D]
+  float* res_w;                 // [B, T, H, N]
+  float* res_read;              // [B, T, R*D]
+  float* res_c;                 // [B, T, L, Hc]
+  float* res_h;                 // [B, T, L, Hc]
+  Dims dm;
+  Flags fl;
+  int B, T;
+};
+
+// T cell steps of batch row blockIdx.x with the state resident in shared
+// memory. kResiduals also streams each step's input state to global
+// memory, which is all the backward kernel needs to recompute the step.
+template <bool kResiduals>
+__global__ void __launch_bounds__(NT, 1) ntm_scan_kernel(const ScanArgs a) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const Dims dm = a.dm;
+  const int IN = dm.IN, N = dm.N, D = dm.D, H = dm.H, Hc = dm.Hc, L = dm.L, O = dm.O;
+  const int RD = dm.R * D, T = a.T;
+  const Layout lay = make_layout(dm, false);
+  float* Ms = smem + lay.M_in;
+  float* ws = smem + lay.w_in;
+  float* rd = smem + lay.read_in;
+  float* cs = smem + lay.c_in;
+  float* hs = smem + lay.h_in;
+
+  for (int i = tid; i < N * D; i += NT) Ms[i] = a.M0[(size_t)b * N * D + i];
+  for (int i = tid; i < H * N; i += NT) ws[i] = a.w0[(size_t)b * H * N + i];
+  for (int i = tid; i < RD; i += NT) rd[i] = a.read0[(size_t)b * RD + i];
+  for (int l = 0; l < L; ++l)
+    for (int i = tid; i < Hc; i += NT) {
+      cs[l * Hc + i] = a.c0[l][(size_t)b * Hc + i];
+      hs[l * Hc + i] = a.h0[l][(size_t)b * Hc + i];
+    }
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const size_t bt = (size_t)b * T + t;
+    if (kResiduals) {
+      // the step's input state; the step overwrites these arrays only
+      // after its first two barriers
+      for (int i = tid; i < N * D; i += NT) a.res_M[bt * N * D + i] = Ms[i];
+      for (int i = tid; i < H * N; i += NT) a.res_w[bt * H * N + i] = ws[i];
+      for (int i = tid; i < RD; i += NT) a.res_read[bt * RD + i] = rd[i];
+      for (int i = tid; i < L * Hc; i += NT) {
+        a.res_c[bt * L * Hc + i] = cs[i];
+        a.res_h[bt * L * Hc + i] = hs[i];
+      }
+    }
+    ntm_step(a.wt, dm, a.fl, smem, lay, a.tokens + bt * IN, a.logits + bt * O);
+  }
+
+  for (int i = tid; i < N * D; i += NT) a.M[(size_t)b * N * D + i] = Ms[i];
+  for (int i = tid; i < H * N; i += NT) a.w[(size_t)b * H * N + i] = ws[i];
+  for (int i = tid; i < RD; i += NT) a.read[(size_t)b * RD + i] = rd[i];
+  for (int l = 0; l < L; ++l)
+    for (int i = tid; i < Hc; i += NT) {
+      a.c[((size_t)l * a.B + b) * Hc + i] = cs[l * Hc + i];
+      a.h[((size_t)l * a.B + b) * Hc + i] = hs[l * Hc + i];
+    }
+}
+
+// Fill ScanArgs from the plain-C launch arguments shared by both forward
+// entry points. The pointer arrays are host arrays of L device pointers.
+inline ScanArgs make_scan_args(
+    const void* tokens, const void* const* lstm_w, const void* const* lstm_b,
+    const void* heads_w, const void* heads_b, const void* out_w, const void* out_b,
+    const void* M0, const void* w0, const void* read0, const void* const* c0,
+    const void* const* h0, void* logits, void* M, void* w, void* read, void* c,
+    void* h, int B, int T, const Dims& dm, const Flags& fl) {
+  ScanArgs a;
+  a.tokens = (const float*)tokens;
+  for (int l = 0; l < MAX_LAYERS; ++l) {
+    a.wt.lstm_w[l] = l < dm.L ? (const float*)lstm_w[l] : nullptr;
+    a.wt.lstm_b[l] = l < dm.L ? (const float*)lstm_b[l] : nullptr;
+    a.c0[l] = l < dm.L ? (const float*)c0[l] : nullptr;
+    a.h0[l] = l < dm.L ? (const float*)h0[l] : nullptr;
+  }
+  a.wt.heads_w = (const float*)heads_w;
+  a.wt.heads_b = (const float*)heads_b;
+  a.wt.out_w = (const float*)out_w;
+  a.wt.out_b = (const float*)out_b;
+  a.M0 = (const float*)M0;
+  a.w0 = (const float*)w0;
+  a.read0 = (const float*)read0;
+  a.logits = (float*)logits;
+  a.M = (float*)M;
+  a.w = (float*)w;
+  a.read = (float*)read;
+  a.c = (float*)c;
+  a.h = (float*)h;
+  a.res_M = a.res_w = a.res_read = a.res_c = a.res_h = nullptr;
+  a.dm = dm;
+  a.fl = fl;
+  a.B = B;
+  a.T = T;
+  return a;
+}
+
+// Launches ntm_scan_kernel<kResiduals> with one block per batch row on
+// `stream`; returns the CUDA error code of the launch (0 = launched).
+template <bool kResiduals>
+inline int launch_scan(const ScanArgs& a, int device, void* stream) {
+  if (a.dm.L < 1 || a.dm.L > MAX_LAYERS || a.B < 1 || a.T < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = make_layout(a.dm, false).total * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(ntm_scan_kernel<kResiduals>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ntm_scan_kernel<kResiduals><<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -1,11 +1,13 @@
-"""tf.image.crop_and_resize with TF's bilinear sampling
-(counterpart of ntm_tracker_tpu/data/image_ops.py:55-107).
+"""tf.image.crop_and_resize and TF-1 resize_images with TF's bilinear
+sampling, and the reference's frame pipeline (counterpart of
+ntm_tracker_tpu/data/image_ops.py:30-107, :171-190).
 
 For output size S and normalized box [y1,x1,y2,x2] the sample rows are
     in_y = y1*(H-1) + i * (y2-y1)*(H-1)/(S-1)
 (corner-aligned inside the box); samples outside the image get the
 extrapolation value. This is neither roi_align nor F.interpolate, which
-sample at other points.
+sample at other points. TF-1 resize_images (bilinear, align_corners=False)
+samples in_y = i * (H_in / H_out), not at half-pixel centres.
 """
 
 from __future__ import annotations
@@ -13,6 +15,30 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN
+
+
+def tf1_resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """TF-1.x resize_images(..., BILINEAR, align_corners=False) of
+    [H, W, C] or [B, H, W, C] images, clamped at the bottom/right edge;
+    returns float32."""
+    H, W = image.shape[-3], image.shape[-2]
+    out_h, out_w = out_hw
+    dev = image.device
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev) * (H / out_h)
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev) * (W / out_w)
+    y0 = torch.floor(ys).long().clamp(0, H - 1)
+    y1 = (y0 + 1).clamp(0, H - 1)
+    fy = (ys - torch.floor(ys))[:, None, None]
+    x0 = torch.floor(xs).long().clamp(0, W - 1)
+    x1 = (x0 + 1).clamp(0, W - 1)
+    fx = (xs - torch.floor(xs))[None, :, None]
+    img = image.float()
+    rows0, rows1 = img[..., y0, :, :], img[..., y1, :, :]
+    top = rows0[..., x0, :] * (1 - fx) + rows0[..., x1, :] * fx
+    bot = rows1[..., x0, :] * (1 - fx) + rows1[..., x1, :] * fx
+    return top * (1 - fy) + bot * fy
 
 
 def _sample_coords(lo: torch.Tensor, hi: torch.Tensor, out_n: int, size: int) -> torch.Tensor:
@@ -59,3 +85,23 @@ def crop_and_resize(
     out = top * (1 - fy) + bot * fy
     mask = (valid_y[:, :, None] & valid_x[:, None, :])[..., None]
     return torch.where(mask, out, torch.full_like(out, extrapolation_value))
+
+
+def preprocess_frame(
+    image: torch.Tensor,
+    cropbox: torch.Tensor,
+    resize_hw: Tuple[int, int] = (720, 1280),
+    crop_size: int = 224,
+    do_resize: bool = True,
+) -> torch.Tensor:
+    """The reference's frame pipeline (direct_offset_output.py:194-201):
+    resize to 720x1280, subtract the VGG mean, crop_and_resize to 224.
+    image [H, W, 3] (uint8 or float) with cropbox [4], or a batch
+    [B, H, W, 3] with [B, 4]; returns float32 mean-subtracted crops."""
+    if image.dim() == 3:
+        return preprocess_frame(image[None], cropbox[None], resize_hw, crop_size, do_resize)[0]
+    img = image.float()
+    if do_resize:
+        img = tf1_resize_bilinear(img, resize_hw)
+    img = img - torch.as_tensor(VGG_MEAN, device=img.device)
+    return crop_and_resize(img, cropbox, (crop_size, crop_size))

@@ -7,6 +7,8 @@ A flat dict of numpy arrays is the interchange format (it is also what
 `init_M` [N, D], `init_w` [H, N], `init_read` [R, D]. VGG keys are
 `<layer>/weights` in the JAX package's HWIO layout and `<layer>/biases`
 (`conv1/conv1_1/weights`, ...); the port holds VGG weights as OIHW.
+Optimizer state (TF RMSProp's `ms` and `mom`, trees shaped like the NTM
+params) flattens to `ms/<param key>` and `mom/<param key>`.
 """
 
 from __future__ import annotations
@@ -48,6 +50,39 @@ def ntm_params_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[st
         raise ValueError(f"controller layers are not numbered 0..n-1: {sorted(layers)}")
     params["controller"] = [layers[i] for i in range(len(layers))]
     return params
+
+
+def _rmsprop_trees(opt_state: Any):
+    """(ms, mom) of the port's {"ms", "mom"} dict, or of the JAX package's
+    optimizer state: a TFRMSPropState, or an optax chain holding one."""
+    if isinstance(opt_state, Mapping):
+        return opt_state["ms"], opt_state["mom"]
+    if hasattr(opt_state, "ms") and hasattr(opt_state, "mom"):
+        return opt_state.ms, opt_state.mom
+    for part in opt_state:
+        if hasattr(part, "ms") and hasattr(part, "mom"):
+            return part.ms, part.mom
+    raise ValueError("no TF RMSProp state (ms, mom) found in the optimizer state")
+
+
+def flatten_opt_state(opt_state: Any) -> Dict[str, np.ndarray]:
+    """TF RMSProp state (the port's or the JAX package's) -> flat float32
+    numpy dict with `ms/...` and `mom/...` keys."""
+    ms, mom = _rmsprop_trees(opt_state)
+    flat = {f"ms/{k}": v for k, v in flatten_ntm_params(ms).items()}
+    flat.update({f"mom/{k}": v for k, v in flatten_ntm_params(mom).items()})
+    return flat
+
+
+def opt_state_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[str, Any]:
+    """Flat numpy dict -> the port's optimizer state {"ms", "mom"}."""
+    out = {}
+    for name in ("ms", "mom"):
+        prefix = f"{name}/"
+        out[name] = ntm_params_from_flat(
+            {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}, device
+        )
+    return out
 
 
 def flatten_vgg_params(tree: Mapping[str, Mapping[str, Any]], layout: str = "HWIO") -> Dict[str, np.ndarray]:

@@ -10,6 +10,7 @@ import torch
 
 from ntm_tracker_tpu_torch.config import TrackerConfig
 from ntm_tracker_tpu_torch.models import ntm_cell
+from ntm_tracker_tpu_torch.models.ntm_tracker import ntm_tracker_unroll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +23,8 @@ class MemoryCore:
     init_state: Callable[[Any, int], Any]
     # step(params, x [B,D], state) -> (logit [B,out], state)
     step: Callable[..., Tuple[torch.Tensor, Any]]
-    # unroll(params, inputs [B,T,D], state=None) -> (logits [B,T,out], state)
+    # unroll(params, inputs [B,T,D], state=None, remat=True, fused_bptt=None)
+    #   -> (logits [B,T,out], state)
     unroll: Callable[..., Tuple[torch.Tensor, Any]]
 
 
@@ -45,13 +47,18 @@ def make_core(cfg: TrackerConfig) -> MemoryCore:
         )
         return logit, new_state
 
-    def unroll(params, inputs, state=None):
-        if state is None:
-            state = init_state(params, inputs.shape[0])
-        logits = [inputs.new_zeros(inputs.shape[0], 0, ncfg.output_dim)]
-        for t in range(inputs.shape[1]):
-            logit, state = step(params, inputs[:, t], state)
-            logits.append(logit[:, None])
-        return torch.cat(logits, dim=1), state
+    def unroll(params, inputs, state=None, remat=True, fused_bptt=None):
+        # remat=True defers to the config's policy; False stays False.
+        # fused_bptt=None defers to the config (cfg.train.fused_bptt).
+        # cfg.train.scan_unroll is jax.lax.scan's unroll factor: the eager
+        # loop has none, so it is not read.
+        _, logits, final = ntm_tracker_unroll(
+            params, ncfg, inputs, state=state,
+            remat=cfg.train.remat_policy if remat is True else remat,
+            compute_dtype=cfg.compute_dtype,
+            layout=cfg.train.scan_layout,
+            fused_bptt=cfg.train.fused_bptt if fused_bptt is None else fused_bptt,
+        )
+        return logits, final
 
     return MemoryCore(init_params, init_state, step, unroll)

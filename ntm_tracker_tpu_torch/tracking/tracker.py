@@ -104,7 +104,7 @@ def build_frame_step(
             )
             return torch.tanh(logits[:, -1]), final_state
         with _float32_matmul_precision(cfg.cell_matmul_precision):
-            logits, final_state = core.unroll(params, stream, state)
+            logits, final_state = core.unroll(params, stream, state, remat=False, fused_bptt=False)
         return torch.tanh(logits[:, -1]), final_state
 
     def step_rest(crops: torch.Tensor, state):

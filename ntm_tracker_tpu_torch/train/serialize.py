@@ -1,5 +1,5 @@
-"""Token-stream serialization for the offset tracker
-(counterpart of ntm_tracker_tpu/train/serialize.py:25-92).
+"""Token-stream serialization and the offsets loss for the offset tracker
+(counterpart of ntm_tracker_tpu/train/serialize.py:25-106).
 
 Channel layout [C features | delimiter bit | target bit]; one delimiter
 token per frame; the target channel carries frame 0's gt heatmap on its
@@ -56,3 +56,21 @@ def serialize_streaming_frame(
     """Unbatched streaming order (delimiter first); [F, C] -> [F+1, C+2]."""
     tgt = None if target_heatmap is None else target_heatmap[None]
     return serialize_streaming_batch(features[None], tgt, delimiter_first=True)[0]
+
+
+def gather_delimiter_outputs(logits: torch.Tensor, num_features: int) -> torch.Tensor:
+    """Predictions at each frame's delimiter step, frames 1..L-1
+    (direct_offset_output.py:581-593): [B, L*(F+1), out] -> [B, L-1, out]."""
+    B, T, out = logits.shape
+    F1 = num_features + 1
+    L = T // F1
+    rest = logits[:, F1:, :].reshape(B, L - 1, F1, out)
+    return rest[:, :, num_features, :]
+
+
+def offsets_loss(logits: torch.Tensor, offsets: torch.Tensor, num_features: int) -> torch.Tensor:
+    """0.5 * sum((tanh(delimiter_logits) - offsets[:, 1:])^2)
+    (direct_offset_output.py:593-606); offsets [B, L, out]."""
+    pred = torch.tanh(gather_delimiter_outputs(logits, num_features))
+    diff = pred - offsets[:, 1:, :]
+    return 0.5 * torch.sum(diff * diff)

@@ -1,5 +1,5 @@
-"""The port's memory, LSTM and crop ops vs the JAX package and the executed
-TF goldens, on the CPU."""
+"""The port's memory, LSTM and image ops (crop, TF-1 resize, the frame
+pipeline) vs the JAX package and the executed TF goldens, on the CPU."""
 
 import os
 
@@ -125,3 +125,18 @@ def test_crop_and_resize_extrapolates_outside_the_image():
     ref = np.asarray(jimage.crop_and_resize(jnp.asarray(img), jnp.asarray(box), (6, 6), extrapolation_value=-1.0))
     np.testing.assert_allclose(got, ref, atol=1e-5)
     assert (got == -1.0).any() and (got == 7.0).any()
+
+
+def test_image_ops_match_jax():
+    rs = np.random.RandomState(7)
+    img = (rs.rand(13, 21, 3) * 255).astype(np.uint8)
+    for hw in [(26, 42), (7, 9), (13, 21)]:
+        np.testing.assert_allclose(timage.tf1_resize_bilinear(torch.tensor(img), hw).numpy(),
+                                   np.asarray(jimage.tf1_resize_bilinear(jnp.asarray(img), hw)), atol=1e-4)
+    batch = np.stack([img, img[::-1]])
+    np.testing.assert_allclose(timage.tf1_resize_bilinear(torch.tensor(batch), (5, 8)).numpy(),
+                               np.asarray(jimage.tf1_resize_bilinear(jnp.asarray(batch), (5, 8))), atol=1e-4)
+    box = np.array([0.1, -0.1, 0.8, 0.9], np.float32)
+    got = timage.preprocess_frame(torch.tensor(img), torch.tensor(box), resize_hw=(26, 42), crop_size=10)
+    want = jimage.preprocess_frame(jnp.asarray(img), jnp.asarray(box), resize_hw=(26, 42), crop_size=10)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)

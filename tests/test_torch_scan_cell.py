@@ -1,7 +1,7 @@
 """The fused NTM scan's plain version vs the JAX package's Pallas kernel in
-interpret mode, on the CPU, plus the wrapper's device routing. The CUDA
-kernel itself is held against the plain version on the card by
-chip_smoke.py."""
+interpret mode, on the CPU, plus the wrapper's device routing, and its
+trainable wrapper's gradients against the JAX one's. The CUDA kernel
+itself is held against the plain version on the card by chip_smoke.py."""
 
 import pathlib
 
@@ -14,11 +14,18 @@ import torch
 from ntm_tracker_tpu.config import NTMConfig as JNTMConfig
 from ntm_tracker_tpu.models.ntm_cell import init_ntm_params, init_ntm_state as jinit_state
 from ntm_tracker_tpu.ops.pallas.scan_cell import ntm_scan_fused as jax_scan_fused
+from ntm_tracker_tpu.ops.pallas.scan_cell import ntm_scan_fused_trainable as jax_trainable
 from ntm_tracker_tpu_torch import _build
 from ntm_tracker_tpu_torch.config import NTMConfig
 from ntm_tracker_tpu_torch.interop import flatten_ntm_params, ntm_params_from_flat
 from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
-from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused, ntm_scan_fused_reference
+from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
+    ntm_scan_fused,
+    ntm_scan_fused_reference,
+    ntm_scan_fused_trainable,
+)
+
+from tests import torch_grad_parity as parity
 
 # the three configs of tests/test_pallas_scan.py
 CONFIGS = {
@@ -108,3 +115,25 @@ def test_kernel_source_builds_without_pytorch_headers():
     # the build directory is git-ignored
     ignore = (pathlib.Path(__file__).resolve().parents[1] / ".gitignore").read_text().split()
     assert "ntm_tracker_tpu_torch/_build/" in ignore
+
+
+@pytest.mark.parametrize("bwd_remat", [False, True], ids=["saved", "remat"])
+@pytest.mark.parametrize("name", sorted(parity.CONFIGS))
+def test_trainable_matches_jax(name, bwd_remat):
+    jcfg, tcfg, params, tokens, cot = parity.case(name)
+    scan = lambda p, c, t, s: ntm_scan_fused_trainable(p, c, t, s, bwd_remat=bwd_remat)
+    value, _, _, grads = parity.port_value_and_grad(scan, tcfg, params, tokens, cot)
+    v_ref, g_ref = parity.jax_value_and_grad(
+        lambda p, t, s: jax_trainable(p, jcfg, t, s, interpret=True, bwd_remat=bwd_remat),
+        jcfg, params, tokens, cot,
+    )
+    np.testing.assert_allclose(value, v_ref, rtol=parity.LOSS_RTOL)
+    parity.assert_grads(grads, g_ref)
+
+
+def test_trainable_zero_steps_echo_the_state():
+    _, tcfg, params, tokens, _ = parity.case("flagship_shape")
+    tp = ntm_params_from_flat(flatten_ntm_params(params))
+    state = init_ntm_state(tp, tcfg, parity.B)
+    logits, out = ntm_scan_fused_trainable(tp, tcfg, torch.zeros(parity.B, 0, 10), state)
+    assert out is state and tuple(logits.shape) == (parity.B, 0, tcfg.output_dim)
