@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (ntm_tracker_tpu_torch) on one NVIDIA
 H100: builds the CUDA kernels from csrc/ (one nvcc per source, in
 parallel), holds each against its plain PyTorch version on the card,
-drives the streaming tracker's frame step and the cached-token training
-step at full width, and times the kernels, their plain versions, the frame
-step and the train step.
+drives the streaming tracker's frame step, the batched fleet and the
+device-resident loop with NTMConfig.use_pallas (the addressing kernel at
+every cell step) and the cached-token training step at full width, and
+times the kernels, their plain versions, the frame step, the fleet step
+on three cell routes, the device loop and the train step.
 
     python3 chip_smoke.py
 
@@ -65,6 +67,22 @@ BPTT_REPLACES = {
 # the training slice's shape: the JAX bench's cached-token train step
 # (ntm_tracker_tpu/benchmarks.py:646), B=256 rows of L=20 frames
 TRAIN_B, TRAIN_L = 256, 20
+ADDR_NAME = "addressing.fused_ntm_addressing"
+ADDR_SOURCE = "ntm_tracker_tpu_torch/csrc/addressing.cu"
+ADDR_REPLACES = "ntm_tracker_tpu/ops/pallas/addressing.py:45"
+# the fleet slice: raw 360x640 frames, the JAX device loop's frame size
+# (ntm_tracker_tpu/benchmarks.py:572); the main path at capacity 64
+FLEET_HW = (360, 640)
+FLEET_CAP, FLEET_STEPS = 64, 10
+FLEET_TIME_CAPS = (8, 64, 256)
+# fleet (matmul crop, B3 at B=64) vs StreamingTracker (gather crop, B1 at
+# B=1) on the first frame, in pixels: float32 rounding of two crop forms,
+# two cell routes and cuDNN at two batch sizes, through one frame step
+REGION_TOL_PX = 1e-2
+# the device loop vs StreamingTracker over its first three recrops, in
+# pixels: float32 device geometry against float64 host geometry
+# (tests/test_tracking.py's bound for the JAX package's loop)
+LOOP_TOL_PX = 5e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -163,6 +181,58 @@ def scan_bptt_work(cfg, B: int, T: int, IN: int) -> dict:
         "backward": (4.0 * bwd_floats, float(bwd_ops)),
         "grad_reduce": (sum(b for b, _ in reduce), sum(o for _, o in reduce)),
     }
+
+
+def addressing_work(cfg, B: int) -> tuple[float, float]:
+    """(bytes, operations) of one B3 call, as scan_cell_work counts them:
+    the raw head controls, M and w read once, M, w and read written once
+    (float32); the addressing's element operations."""
+    N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
+    R, W, S = cfg.read_head_size, cfg.write_head_size, cfg.shift_space
+    controls = H * D + 3 * H + S * H + 2 * W * D
+    floats = B * (controls + N * D + H * N) + B * (N * D + H * N + R * D)
+    per_row = (
+        H * D + 2 * W * D + 3 * H + 3 * S * H  # squashed controls
+        + 2 * N * D + 2 * H * D                # memory and key norms
+        + 3 * H * N * D                        # normalized similarity
+        + 6 * H * N                            # softmax and gate
+        + 2 * S * H * N + 3 * H * N            # shift and sharpen
+        + 4 * W * N * D + 2 * N * D            # erase/add
+        + 2 * R * N * D                        # read
+    )
+    return 4.0 * floats, float(B * per_row)
+
+
+def device_profile(fn, reps: int) -> dict:
+    """torch.profiler over `reps` calls of fn (after one warm-up call):
+    per call, the device time of every kernel (busy_ms), of the copies
+    (copy_ms), and the kernels with the most device time. busy_ms is None
+    when the profiler records no device activity on this machine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_name, copy_us, n_kernels = {}, 0.0, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        if "memcpy" in e.name.lower() or "memset" in e.name.lower():
+            copy_us += us
+            continue
+        per_name[e.name] = per_name.get(e.name, 0.0) + us
+        n_kernels += 1
+    if not per_name:
+        return {"busy_ms": None, "copy_ms": None, "kernels_per_call": 0, "top": []}
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"busy_ms": sum(per_name.values()) / reps / 1e3, "copy_ms": copy_us / reps / 1e3,
+            "kernels_per_call": n_kernels / reps,
+            "top": [(name[:60], round(us / reps / 1e3, 4)) for name, us in top]}
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -339,6 +409,325 @@ def phase_bptt(dev: torch.device, IN: int) -> None:
     params, tokens, cot = setup(ncfg, B, T, 330)
     compare("scan_cell.ntm_scan_fused_trainable", ncfg, B, T, lambda p, c, t, st: ntm_scan_fused_trainable(p, c, t, st),
             params, tokens, cot, lambda p: init_ntm_state(p, ncfg, B))
+
+
+def addressing_inputs(ncfg, B: int, seed: int, dev: torch.device) -> list:
+    """B3's nine inputs as the cell step hands them over: the head controls
+    are views into one [B, P] tensor (torch.split, then reshape), M_prev
+    and w_prev a plausible memory and softmaxed weights."""
+    from ntm_tracker_tpu_torch.models.ntm_cell import HEAD_PARAM_ORDER, head_param_sizes
+
+    rs = np.random.RandomState(seed)
+    N, D, H = ncfg.mem_size, ncfg.mem_dim, ncfg.num_heads
+    W, S = ncfg.write_head_size, ncfg.shift_space
+    sizes = head_param_sizes(ncfg)
+    ctl = torch.tensor(rs.randn(B, sum(sizes.values())).astype(np.float32), device=dev)
+    k, beta, g, sw, gamma, erase, add = torch.split(ctl, [sizes[n] for n in HEAD_PARAM_ORDER], dim=1)
+    M = torch.tensor(np.tanh(rs.randn(B, N, D)).astype(np.float32), device=dev)
+    w = torch.softmax(torch.tensor(rs.randn(B, H, N).astype(np.float32), device=dev), dim=-1)
+    return [k.reshape(B, H, D), beta, g, sw.reshape(B, H, S), gamma, erase.reshape(B, W, D),
+            add.reshape(B, W, D), M, w]
+
+
+def phase_addressing(dev: torch.device, smi: str) -> dict:
+    """B3 against its plain version on the card: the flagship shape at
+    B = 1, 64 and 256 and four variants (M, w and read within F32_TOL, the
+    same bits on a rerun); its gradient through the autograd Function
+    against autograd of the plain version; then its time alone beside the
+    plain version's and the bound."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.ops.kernels.addressing import (
+        fused_ntm_addressing,
+        fused_ntm_addressing_reference,
+    )
+
+    def kw(ncfg):
+        return dict(read_heads=ncfg.read_head_size, write_first=ncfg.write_first, slotwise=ncfg.slotwise_cosine)
+
+    cases = {
+        "a_flagship_b1": (NTMConfig(), 1),
+        "b_flagship_b64": (NTMConfig(), 64),
+        "c_flagship_b256": (NTMConfig(), 256),
+        "d_write_first": (NTMConfig(write_first=True), 8),
+        "e_slotwise": (NTMConfig(slotwise_cosine=True), 8),
+        "f_2write_s5": (NTMConfig(write_head_size=2, shift_range=2), 8),
+        "g_n16_d8": (NTMConfig(mem_size=16, mem_dim=8, read_head_size=2), 8),
+    }
+    worst, failed = 0.0, []
+    with torch.no_grad():
+        for i, (name, (ncfg, B)) in enumerate(cases.items()):
+            args = addressing_inputs(ncfg, B, 400 + i, dev)
+            got = fused_ntm_addressing(*args, **kw(ncfg))
+            torch.cuda.synchronize()
+            again = fused_ntm_addressing(*args, **kw(ncfg))
+            ref = fused_ntm_addressing_reference(*args, **kw(ncfg))
+            errs = [max_abs(a, b) for a, b in zip(got, ref)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            log("addressing", f"{name} B={B} N={ncfg.mem_size} D={ncfg.mem_dim} H={ncfg.num_heads} W={ncfg.write_head_size} "
+                              f"S={ncfg.shift_space}: max_abs M {errs[0]:.3e} w {errs[1]:.3e} read {errs[2]:.3e} "
+                              f"(tol {F32_TOL:g}); same bits on a rerun {same}; finite {finite}")
+            if name.startswith(("a_", "b_", "c_")):
+                worst = max(worst, *errs)
+            if max(errs) > F32_TOL or not same or not finite:
+                failed.append(name)
+
+    # the gradient: the Function's backward is autograd of the plain version
+    ncfg, B = NTMConfig(), 8
+    args = addressing_inputs(ncfg, B, 420, dev)
+    rs = np.random.RandomState(421)
+    cot = [torch.tensor(rs.randn(*shape).astype(np.float32), device=dev)
+           for shape in ((B, ncfg.mem_size, ncfg.mem_dim), (B, ncfg.num_heads, ncfg.mem_size),
+                         (B, ncfg.read_head_size, ncfg.mem_dim))]
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        loss = sum((o * c).sum() for o, c in zip(fn(*leaves, **kw(ncfg)), cot))
+        return torch.autograd.grad(loss, leaves)
+
+    before = fused_ntm_addressing.launches
+    gk = grads(fused_ntm_addressing)
+    through_kernel = fused_ntm_addressing.launches - before
+    gp = grads(fused_ntm_addressing_reference)
+    gerr = max(max_abs(a, b) for a, b in zip(gk, gp))
+    log("addressing", f"gradient B={B} through the autograd Function ({through_kernel} launch) vs autograd of the plain "
+                      f"version, every input: max_abs {gerr:.3e} (tol {F32_TOL:g})")
+    if through_kernel != 1 or gerr > F32_TOL:
+        failed.append("gradient")
+    if failed:
+        raise AssertionError(f"B3 disagrees with its plain version: {failed}")
+
+    times = {}
+    with torch.no_grad():
+        for B in (1, 64, 256):
+            args = addressing_inputs(NTMConfig(), B, 430, dev)
+            k_ms = cuda_ms(lambda: fused_ntm_addressing(*args, **kw(NTMConfig())), iters=200, warmup=10)
+            p_ms = cuda_ms(lambda: fused_ntm_addressing_reference(*args, **kw(NTMConfig())), iters=50, warmup=5)
+            b_ms, b_by = bound(*addressing_work(NTMConfig(), B))
+            prof = device_profile(lambda: fused_ntm_addressing(*args, **kw(NTMConfig())), reps=50)
+            dev_ms = prof["busy_ms"]
+            times[B] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_ms}
+            log("times", f"{smi}: B3 at B={B} (flagship): {k_ms:.4f} ms per call (CUDA events over 200 calls, "
+                         f"the wrapper's host work included), kernel alone on the card "
+                         f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (torch.profiler, 50 calls), "
+                         f"plain {p_ms:.4f} ms, bound {b_ms * 1e3:.4f} us by {b_by}")
+    return {"max_abs_err": worst, "grad_err": gerr, "times": times}
+
+
+def fleet_regions(n: int, hw=FLEET_HW) -> list:
+    """n (x, y, w, h) regions on a grid over the frame, 16 to a row."""
+    H, W = hw
+    return [(16.0 + (i % 16) * (W - 96) / 16, 16.0 + (i // 16 % 16) * (H - 80) / 16, 64.0, 48.0)
+            for i in range(n)]
+
+
+def normalized_bboxes(regions, hw=FLEET_HW) -> np.ndarray:
+    """(x, y, w, h) pixel regions -> [n, 4] y1x1y2x2 in the tracker's
+    /(dim-1) normalization, the device loop's input."""
+    H, W = hw
+    return np.asarray([[y / (H - 1), x / (W - 1), (y + h) / (H - 1), (x + w) / (W - 1)]
+                       for x, y, w, h in regions], np.float32)
+
+
+def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
+    """The fleet slice at full width with NTMConfig.use_pallas: FleetTracker
+    at capacity 64 on 360x640 frames (64 adds, 10 fleet steps) and
+    make_device_track_step at B=64 (init and 10 steps), each run with the
+    launch counts set to 0 before it and read after it. Then the first
+    fleet step against the plain per-step route on the same crops and
+    state, two slots against StreamingTracker, the device loop's drift
+    against StreamingTracker, and the times of the fleet step on three
+    cell routes and of the device loop."""
+    import copy
+
+    from ntm_tracker_tpu_torch.models.core import make_core
+    from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+    from ntm_tracker_tpu_torch.tracking.fleet import FleetTracker
+    from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker, build_frame_step, make_device_track_step
+
+    T = cfg.tokens_per_frame
+    cfg_p = dataclasses.replace(cfg, ntm=dataclasses.replace(cfg.ntm, use_pallas=True))
+    video, _ = synthetic_video(seed=1, frames=1 + FLEET_STEPS, hw=FLEET_HW)
+    regions = fleet_regions(FLEET_CAP)
+    kernels = (ntm_scan_fused, fused_ntm_addressing)
+    failed = []
+
+    # ---- the main path: the fleet at capacity 64 --------------------------------
+    fleet = FleetTracker(cfg_p, vgg, params, capacity=FLEET_CAP, device=dev)
+    first_call = []
+    rest = fleet._step_rest
+
+    def recording_rest(crops, state):
+        out = rest(crops, state)
+        if not first_call:
+            first_call.append((crops, state, out))
+        return out
+
+    fleet._step_rest = recording_rest
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = [fleet.add(video[0], r) for r in regions]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = [fleet.step({s: video[t] for s in slots}) for t in range(1, 1 + FLEET_STEPS)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    fleet_counts = {k.__name__: k.launches for k in kernels}
+    expected = {"ntm_scan_fused": FLEET_CAP, "fused_ntm_addressing": T * FLEET_STEPS}
+    arr = np.asarray([[out[s] for s in slots] for out in outs], np.float64)
+    log("fleet", f"FleetTracker use_pallas=True capacity {FLEET_CAP} on {FLEET_HW[0]}x{FLEET_HW[1]} frames: {FLEET_CAP} adds "
+                 f"{t1 - t0:.2f}s, {FLEET_STEPS} steps {t2 - t1:.2f}s; launches {fleet_counts} (expected {expected}: B1 once "
+                 f"per add at B=1, B3 {T} times per fleet step); regions {arr.shape}, finite {bool(np.isfinite(arr).all())}, "
+                 f"slot 0 {[round(v, 2) for v in arr[-1, 0]]}")
+    if fleet_counts != expected or not np.isfinite(arr).all():
+        failed.append("fleet launches or regions")
+
+    # the first fleet step against the plain per-step route (use_pallas off)
+    # on the same weights, crops and state
+    crops0, state0, (off0, st0) = first_call[0]
+    cfg_plain = dataclasses.replace(cfg, fused_inference=False)
+    _, rest_plain = build_frame_step(cfg_plain, make_core(cfg_plain), vgg, params, device=dev)
+    off_p, st_p = rest_plain(crops0, state0)
+    diffs = state_diffs(off0[:, None], st0, off_p[:, None], st_p)
+    log("fleet", f"first fleet step, B3 route vs the plain per-step route on the same crops and state: "
+                 + " ".join(f"{k}={v:.2e}" for k, v in diffs.items()) + f" (tol {F32_TOL:g}; logits = offsets)")
+    if max(diffs.values()) > F32_TOL:
+        failed.append("fleet step vs plain route")
+
+    # ---- the main path: the device-resident loop at B=64 ------------------------
+    frames = [torch.as_tensor(np.stack([video[t]] * FLEET_CAP)).to(dev) for t in range(1 + FLEET_STEPS)]
+    core_p = make_core(cfg_p)
+    init_fn, step_fn = make_device_track_step(cfg_p, core_p, vgg, params, device=dev)
+    bbox = torch.as_tensor(normalized_bboxes(regions), device=dev)
+    state = core_p.init_state(params, FLEET_CAP)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_fn(frames[0], bbox, state)
+    loop_regions = []
+    for t in range(1, 1 + FLEET_STEPS):
+        region, bbox, state = step_fn(frames[t], bbox, state)
+        loop_regions.append(region)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_counts = {k.__name__: k.launches for k in kernels}
+    loop_expected = {"ntm_scan_fused": 0, "fused_ntm_addressing": T * (1 + FLEET_STEPS)}
+    loop_arr = torch.stack(loop_regions).cpu().double().numpy()
+    log("fleet", f"make_device_track_step use_pallas=True B={FLEET_CAP}: init + {FLEET_STEPS} steps {loop_s:.2f}s; "
+                 f"launches {loop_counts} (expected {loop_expected}); finite {bool(np.isfinite(loop_arr).all())}")
+    if loop_counts != loop_expected or not np.isfinite(loop_arr).all():
+        failed.append("device loop launches or regions")
+
+    # two slots against a StreamingTracker each (B1 at B=1, gather crop)
+    drift = {}
+    for slot in (0, FLEET_CAP * 37 // 64):
+        trk = StreamingTracker(cfg_p, vgg, params, device=dev)
+        trk.init(video[0], regions[slot])
+        host = np.asarray([trk.track(video[t]) for t in range(1, 1 + FLEET_STEPS)], np.float64)
+        fleet_err = float(np.abs(arr[0, slot] - host[0]).max())
+        loop_err = float(np.abs(loop_arr[:3, slot] - host[:3]).max())
+        drift[slot] = np.abs(loop_arr[:, slot] - host).max(axis=1)
+        log("fleet", f"slot {slot} vs StreamingTracker: fleet first frame max |region diff| {fleet_err:.3e} px "
+                     f"(tol {REGION_TOL_PX:g}); device loop first 3 frames {loop_err:.3e} px (tol {LOOP_TOL_PX:g}); "
+                     f"device loop drift per frame over {FLEET_STEPS} frames (px, not held) "
+                     f"{[float(f'{v:.3g}') for v in drift[slot]]}; fleet drift {np.abs(arr[:, slot] - host).max():.3e} px")
+        if fleet_err > REGION_TOL_PX or loop_err > LOOP_TOL_PX:
+            failed.append(f"slot {slot} vs StreamingTracker")
+    if failed:
+        raise AssertionError(f"fleet phase: {failed}")
+    check_budget("fleet")
+
+    # ---- times: the fleet step on three cell routes, and the device loop --------
+    routes = {
+        "B1": dataclasses.replace(cfg, fused_inference=True),
+        "plain": dataclasses.replace(cfg, fused_inference=False),
+        "B3": dataclasses.replace(cfg_p, fused_inference=False),
+    }
+    fleet_ms = {}
+    for cap in FLEET_TIME_CAPS:
+        regs = fleet_regions(cap)
+        base = FleetTracker(routes["B1"], vgg, params, capacity=cap, device=dev)
+        caps_slots = [base.add(video[0], r) for r in regs]
+        fleets = {}
+        for name, c in routes.items():
+            f = FleetTracker(c, vgg, params, capacity=cap, device=dev)
+            f.state, f._tracks = base.state, copy.deepcopy(base._tracks)
+            f.step({s: video[1] for s in caps_slots})  # warm-up
+            fleets[name] = f
+        ms = {name: [] for name in routes}
+        for rep in range(3):  # routes in turns, so drift in the card's clocks spreads evenly
+            for name in (list(routes) if rep % 2 == 0 else list(routes)[::-1]):
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                fleets[name].step({s: video[1 + (1 + rep) % FLEET_STEPS] for s in caps_slots})
+                torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.perf_counter() - s0))
+        fleet_ms[cap] = {name: float(np.median(v)) for name, v in ms.items()}
+        log("times", f"{smi}: fleet step at capacity {cap} (np.stack + upload + crop + VGG + 65 cell steps + decode), "
+                     f"median of 3: " + ", ".join(f"{n} {fleet_ms[cap][n]:.2f} ms = {cap / fleet_ms[cap][n] * 1e3:.1f} "
+                                                  f"tracked frames/s" for n in routes))
+        if cap == FLEET_CAP:
+            for name, f in fleets.items():
+                prof = device_profile(lambda f=f: f.step({s: video[1] for s in caps_slots}), reps=2)
+                idle = None if prof["busy_ms"] is None else 1 - prof["busy_ms"] / fleet_ms[cap][name]
+                log("profile", f"{smi}: fleet step capacity {cap} route {name}: kernels {prof['busy_ms']} ms and copies "
+                               f"{prof['copy_ms']} ms of device time per step ({prof['kernels_per_call']:.0f} kernels), "
+                               f"idle share {idle} of the {fleet_ms[cap][name]:.2f} ms step; top kernels {prof['top']}")
+        del base, fleets
+        check_budget("fleet times")
+
+    # the frame step alone, crops already on the card: the cell route's
+    # share without the fleet's host work (stack, upload, decode)
+    steps = {name: build_frame_step(c, make_core(c), vgg, params, device=dev)[1] for name, c in routes.items()}
+    frame_ms = {}
+    for cap in FLEET_TIME_CAPS:
+        crops = torch.tensor(np.random.RandomState(cap).uniform(-120, 120, (cap, cfg.data.crop_size, cfg.data.crop_size, 3)).astype(np.float32),
+                             device=dev)
+        st0 = core_p.init_state(params, cap)
+        ms = {name: [] for name in routes}
+        for name in routes:
+            steps[name](crops, st0)  # warm-up
+        for rep in range(3):
+            for name in (list(routes) if rep % 2 == 0 else list(routes)[::-1]):
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                steps[name](crops, st0)
+                torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.perf_counter() - s0))
+        frame_ms[cap] = {name: float(np.median(v)) for name, v in ms.items()}
+        log("times", f"{smi}: frame step alone at B={cap} (crops on the card: VGG + 65 cell steps), median of 3: "
+                     + ", ".join(f"{n} {frame_ms[cap][n]:.2f} ms" for n in routes))
+        del crops
+
+    loop_ms = {}
+    for cap in (64, 256):
+        dframes = [torch.as_tensor(np.stack([video[t % len(video)]] * cap)).to(dev) for t in range(4)]
+        init_fn, step_fn = make_device_track_step(cfg_p, core_p, vgg, params, device=dev)
+        bb = torch.as_tensor(normalized_bboxes(fleet_regions(cap)), device=dev)
+        st = init_fn(dframes[0], bb, core_p.init_state(params, cap))
+        _, bb, st = step_fn(dframes[1], bb, st)  # warm-up
+        times = []
+        for t in range(3):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            _, bb, st = step_fn(dframes[1 + t], bb, st)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - s0))
+        loop_ms[cap] = float(np.median(times))
+        prof = device_profile(lambda: step_fn(dframes[2], bb, st), reps=2)
+        idle = None if prof["busy_ms"] is None else 1 - prof["busy_ms"] / loop_ms[cap]
+        log("times", f"{smi}: device loop step (B3 route) at B={cap}, frames on the card: median of 3 "
+                     f"{loop_ms[cap]:.2f} ms = {cap / loop_ms[cap] * 1e3:.1f} frames/s; kernels {prof['busy_ms']} ms of "
+                     f"device time per step ({prof['kernels_per_call']:.0f} kernels), idle share {idle}; "
+                     f"top kernels {prof['top']}")
+        del dframes
+    check_budget("fleet times")
+    return {"fleet_counts": fleet_counts, "loop_counts": loop_counts, "fleet_ms": fleet_ms, "loop_ms": loop_ms,
+            "frame_ms": frame_ms}
 
 
 def offsets_grads(exp, params, batch, dtype=torch.float32):
@@ -614,10 +1003,10 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    paths = _build.build_all(["scan_cell", "scan_bptt"])
+    paths = _build.build_all(["scan_cell", "scan_bptt", "addressing"])
     for name in paths:
         _build.load_library(name)
-    log("build", f"scan_cell and scan_bptt ready in {time.perf_counter() - t0:.2f}s (parallel nvcc; "
+    log("build", f"scan_cell, scan_bptt and addressing ready in {time.perf_counter() - t0:.2f}s (parallel nvcc; "
                  f"{', '.join(p.name for p in paths.values())})")
     check_budget("build")
 
@@ -664,6 +1053,10 @@ def main() -> int:
     # ---- 3b. the training kernels (B2) vs their plain version -----------------
     phase_bptt(dev, IN)
     check_budget("bptt")
+
+    # ---- 3c. the addressing kernel (B3) vs its plain version, and its times ----
+    addr = phase_addressing(dev, smi)
+    check_budget("addressing")
 
     # ---- 4. the frame step end to end ----------------------------------------
     cfg = TrackerConfig()
@@ -762,17 +1155,22 @@ def main() -> int:
                  f"cudnn/matmul TF32 off) fused {fused_p50:.3f} ms, plain loop {plain_p50:.3f} ms")
     check_budget("times")
 
-    # ---- 6. the training slice at full width, and the B2 kernels' times -------
+    # ---- 6. the fleet slice at full width (use_pallas: B3), and its times -----
+    fleet = phase_fleet(dev, smi, cfg, vgg, params)
+
+    # ---- 7. the training slice at full width, and the B2 kernels' times -------
     train = phase_train(dev, smi, IN)
 
-    # ---- 7. result -----------------------------------------------------------
-    # B1 runs on both main paths: `launches` is the frame path's count;
-    # the train path's (its eval step) and B1's numbers at that shape beside it
+    # ---- 8. result -----------------------------------------------------------
+    # B1 runs on every main path: `launches` is the frame path's count; the
+    # fleet's (its adds at B=1), the device loop's, the train path's (its
+    # eval step) and B1's numbers at the training shape beside it
     kernels = [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": main_path_launches, "max_abs_err": flagship_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "launches_by_path": {"frame_step": main_path_launches, "train": train["b1"]["launches"]},
+        "launches_by_path": {"frame_step": main_path_launches, "fleet": fleet["fleet_counts"]["ntm_scan_fused"],
+                             "device_loop": fleet["loop_counts"]["ntm_scan_fused"], "train": train["b1"]["launches"]},
         "train_shape": {k: v for k, v in train["b1"].items() if k != "launches"},
     }]
     for name, launches in (("forward", "bptt_forward"), ("backward", "bptt_backward"),
@@ -788,6 +1186,18 @@ def main() -> int:
     # the main path's gradients against the plain loop in float64, both routes
     kernels[2]["max_rel_err_vs_float64"] = train["grad_vs_f64"]
     kernels[-1]["kernels_per_launch"] = 2  # ntm_grad_partial_kernel, then ntm_grad_sum_kernel
+    # B3 at the fleet's batch (64); its times at B=1 and 256 beside them
+    at64 = addr["times"][FLEET_CAP]
+    kernels.append({
+        "name": ADDR_NAME, "route": "cuda", "source": ADDR_SOURCE, "replaces": ADDR_REPLACES,
+        "launches": fleet["fleet_counts"]["fused_ntm_addressing"],
+        "launches_by_path": {"fleet": fleet["fleet_counts"]["fused_ntm_addressing"],
+                             "device_loop": fleet["loop_counts"]["fused_ntm_addressing"]},
+        "max_abs_err": addr["max_abs_err"], "grad_max_abs_err": addr["grad_err"], "ms": at64["ms"],
+        "plain_ms": at64["plain_ms"], "bound_ms": at64["bound_ms"], "bound_by": at64["bound_by"], "library_ms": None,
+        "device_ms": at64["device_ms"],
+        "times_by_batch": {str(b): t for b, t in addr["times"].items()},
+    })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,6 +7,7 @@ but the port has no DNC core yet (models/core.py raises for it).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -27,8 +28,9 @@ class NTMConfig:
     write_head_size: int = 1
     write_first: bool = False
     init_scale: float = 0.05  # direct_offset_output.py:42
-    # the single-step fused addressing kernel (ops/pallas/addressing.py in
-    # the JAX package); not ported yet, so True raises in ntm_cell_step
+    # each cell step's addressing and memory update through the single-step
+    # kernel ops/kernels/addressing.py (csrc/addressing.cu on cuda; the JAX
+    # package's ops/pallas/addressing.py); the whole-sequence kernels ignore it
     use_pallas: bool = False
     # False reproduces the reference's EXECUTED content addressing, which
     # l2-normalizes each mem_dim row ACROSS slots (ops.py:147-150); True is
@@ -171,3 +173,18 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch path on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def float32_matmul_precision(precision: Optional[str]):
+    """Set torch.set_float32_matmul_precision for the block (None: leave
+    it as set); "highest" keeps float32 products out of TF32."""
+    if precision is None:
+        yield
+        return
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)

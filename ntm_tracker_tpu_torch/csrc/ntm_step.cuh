@@ -189,28 +189,23 @@ __device__ __forceinline__ void gemv(const float* __restrict__ Wm,
   }
 }
 
-// One cell step of the block's row. x: the step's token (global, [IN]);
-// logit: where the step's output logits go (global, [O]), or nullptr.
-// Enters after a __syncthreads() that published the *_in arrays and
-// returns after one that publishes the *_out arrays and intermediates.
-__device__ void ntm_step(const Weights& wt, const Dims& dm, const Flags& fl,
-                         float* smem, const Layout& lay,
-                         const float* __restrict__ x, float* logit) {
+// The addressing phases of one step, everything after the head linear:
+// from the raw head controls in ctl (the fused linear's column order k,
+// beta, g, sw, gamma, erase, add) and M_in / w_in, the new w_out, read_out
+// and M_out, with every intermediate kept in its shared array. ntm_step()
+// and the single-step addressing kernel (addressing.cu) both run it. Enters
+// after a __syncthreads() that published ctl, M_in and w_in; returns after
+// one that publishes the outputs.
+__device__ __forceinline__ void ntm_addressing(const Dims& dm, const Flags& fl, float* smem,
+                                               const Layout& lay) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int IN = dm.IN, N = dm.N, D = dm.D, H = dm.H, R = dm.R, W = dm.W, S = dm.S;
-  const int Hc = dm.Hc, L = dm.L, O = dm.O;
+  const int N = dm.N, D = dm.D, H = dm.H, R = dm.R, W = dm.W, S = dm.S;
   const float* M_in = smem + lay.M_in;
   const float* w_in = smem + lay.w_in;
-  const float* read_in = smem + lay.read_in;
-  const float* c_in = smem + lay.c_in;
-  const float* h_in = smem + lay.h_in;
   float* M_out = smem + lay.M_out;
   float* w_out = smem + lay.w_out;
   float* read_out = smem + lay.read_out;
-  float* c_out = smem + lay.c_out;
-  float* h_out = smem + lay.h_out;
-  float* inp = smem + lay.inp;
-  float* ctl = smem + lay.ctl;
+  const float* ctl = smem + lay.ctl;
   float* mss = smem + lay.mss;
   float* minv = smem + lay.minv;
   float* ks = smem + lay.k;
@@ -233,49 +228,7 @@ __device__ void ntm_step(const Weights& wt, const Dims& dm, const Flags& fl,
   // offsets of the fused head-parameter unpack (k, beta, g, sw, gamma, erase, add)
   const int oBeta = H * D, oG = oBeta + H, oSw = oG + H, oGamma = oSw + S * H;
   const int oErase = oGamma + H, oAdd = oErase + W * D;
-  const int P = oAdd + W * D;
   const int RD = R * D, shift0 = -((S + 1) / 2);
-
-  // ---- stacked LSTM controller --------------------------------------------
-  for (int i = tid; i < IN; i += NT) inp[i] = x[i];
-  for (int i = tid; i < RD; i += NT) inp[IN + i] = read_in[i];
-  for (int i = tid; i < Hc; i += NT) inp[IN + RD + i] = h_in[i];
-  __syncthreads();
-  for (int l = 0; l < L; ++l) {
-    const int K = (l == 0 ? IN + RD : Hc) + Hc;
-    float* gates = smem + lay.gates + l * 4 * Hc;
-    gemv(wt.lstm_w[l], wt.lstm_b[l], inp, K, 4 * Hc, gates, fl.bf16);
-    __syncthreads();
-    for (int j = tid; j < Hc; j += NT) {
-      const float ig = gates[j], jg = gates[Hc + j], fg = gates[2 * Hc + j],
-                  og = gates[3 * Hc + j];
-      const float c_new = c_in[l * Hc + j] * sigmoid_f(fg) + sigmoid_f(ig) * tanhf(jg);
-      const float h_new = tanhf(c_new) * sigmoid_f(og);
-      if (l + 1 < L) {
-        inp[j] = h_new;
-        inp[Hc + j] = h_in[(l + 1) * Hc + j];
-      }
-      c_out[l * Hc + j] = c_new;
-      h_out[l * Hc + j] = h_new;
-    }
-    __syncthreads();
-  }
-  const float* ctrl = h_out + (L - 1) * Hc;
-
-  // ---- head controls and the output linear ---------------------------------
-  gemv(wt.heads_w, wt.heads_b, ctrl, Hc, P, ctl, fl.bf16);
-  if (logit != nullptr) {
-    for (int o = warp; o < O; o += NWARPS) {
-      float acc = 0.f;
-      for (int k = lane; k < Hc; k += 32) {
-        const float wv = __ldg(wt.out_w + (size_t)k * O + o);
-        acc = fl.bf16 ? fmaf(bf16_round(ctrl[k]), bf16_round(wv), acc) : fmaf(ctrl[k], wv, acc);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) logit[o] = (fl.bf16 ? bf16_round(acc) : acc) + __ldg(wt.out_b + o);
-    }
-  }
-  __syncthreads();
 
   // ---- squashed head parameters and the memory normalizer ----------------
   for (int i = tid; i < H * D; i += NT) ks[i] = tanhf(ctl[i]);
@@ -399,6 +352,69 @@ __device__ void ntm_step(const Weights& wt, const Dims& dm, const Flags& fl,
     }
     __syncthreads();
   }
+}
+
+// One cell step of the block's row. x: the step's token (global, [IN]);
+// logit: where the step's output logits go (global, [O]), or nullptr.
+// Enters after a __syncthreads() that published the *_in arrays and
+// returns after one that publishes the *_out arrays and intermediates.
+__device__ void ntm_step(const Weights& wt, const Dims& dm, const Flags& fl,
+                         float* smem, const Layout& lay,
+                         const float* __restrict__ x, float* logit) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int IN = dm.IN, Hc = dm.Hc, L = dm.L, O = dm.O;
+  const float* read_in = smem + lay.read_in;
+  const float* c_in = smem + lay.c_in;
+  const float* h_in = smem + lay.h_in;
+  float* c_out = smem + lay.c_out;
+  float* h_out = smem + lay.h_out;
+  float* inp = smem + lay.inp;
+  float* ctl = smem + lay.ctl;
+  const int P = head_width(dm), RD = dm.R * dm.D;
+
+  // ---- stacked LSTM controller --------------------------------------------
+  for (int i = tid; i < IN; i += NT) inp[i] = x[i];
+  for (int i = tid; i < RD; i += NT) inp[IN + i] = read_in[i];
+  for (int i = tid; i < Hc; i += NT) inp[IN + RD + i] = h_in[i];
+  __syncthreads();
+  for (int l = 0; l < L; ++l) {
+    const int K = (l == 0 ? IN + RD : Hc) + Hc;
+    float* gates = smem + lay.gates + l * 4 * Hc;
+    gemv(wt.lstm_w[l], wt.lstm_b[l], inp, K, 4 * Hc, gates, fl.bf16);
+    __syncthreads();
+    for (int j = tid; j < Hc; j += NT) {
+      const float ig = gates[j], jg = gates[Hc + j], fg = gates[2 * Hc + j],
+                  og = gates[3 * Hc + j];
+      const float c_new = c_in[l * Hc + j] * sigmoid_f(fg) + sigmoid_f(ig) * tanhf(jg);
+      const float h_new = tanhf(c_new) * sigmoid_f(og);
+      if (l + 1 < L) {
+        inp[j] = h_new;
+        inp[Hc + j] = h_in[(l + 1) * Hc + j];
+      }
+      c_out[l * Hc + j] = c_new;
+      h_out[l * Hc + j] = h_new;
+    }
+    __syncthreads();
+  }
+  const float* ctrl = h_out + (L - 1) * Hc;
+
+  // ---- head controls and the output linear ---------------------------------
+  gemv(wt.heads_w, wt.heads_b, ctrl, Hc, P, ctl, fl.bf16);
+  if (logit != nullptr) {
+    for (int o = warp; o < O; o += NWARPS) {
+      float acc = 0.f;
+      for (int k = lane; k < Hc; k += 32) {
+        const float wv = __ldg(wt.out_w + (size_t)k * O + o);
+        acc = fl.bf16 ? fmaf(bf16_round(ctrl[k]), bf16_round(wv), acc) : fmaf(ctrl[k], wv, acc);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) logit[o] = (fl.bf16 ? bf16_round(acc) : acc) + __ldg(wt.out_b + o);
+    }
+  }
+  __syncthreads();
+
+  // ---- addressing, read and the erase/add write ----------------------------
+  ntm_addressing(dm, fl, smem, lay);
 }
 
 struct ScanArgs {

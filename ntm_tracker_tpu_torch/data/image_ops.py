@@ -1,6 +1,7 @@
 """tf.image.crop_and_resize and TF-1 resize_images with TF's bilinear
-sampling, and the reference's frame pipeline (counterpart of
-ntm_tracker_tpu/data/image_ops.py:30-107, :171-190).
+sampling, the same crop as two batched matrix products, and the
+reference's frame pipeline (counterpart of
+ntm_tracker_tpu/data/image_ops.py:30-190).
 
 For output size S and normalized box [y1,x1,y2,x2] the sample rows are
     in_y = y1*(H-1) + i * (y2-y1)*(H-1)/(S-1)
@@ -16,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from ntm_tracker_tpu_torch.config import float32_matmul_precision
 from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN
 
 
@@ -84,6 +86,53 @@ def crop_and_resize(
     bot = at(yh, x0) * (1 - fx) + at(yh, xh) * fx
     out = top * (1 - fy) + bot * fy
     mask = (valid_y[:, :, None] & valid_x[:, None, :])[..., None]
+    return torch.where(mask, out, torch.full_like(out, extrapolation_value))
+
+
+def _interp_matrix(lo: torch.Tensor, hi: torch.Tensor, out_n: int, size: int):
+    """[B, out_n, size] bilinear weights along one axis at the gather
+    path's sample coordinates, zero for samples outside the image, and the
+    [B, out_n] validity of each sample."""
+    coords = _sample_coords(lo, hi, out_n, size)
+    grid = torch.arange(size, dtype=torch.float32, device=lo.device)
+    w = torch.clamp_min(1.0 - (coords[..., None] - grid).abs(), 0.0)
+    valid = (coords >= 0) & (coords <= size - 1)
+    return w * valid[..., None], valid
+
+
+def crop_and_resize_mm(
+    images: torch.Tensor,
+    boxes: torch.Tensor,
+    crop_size: Tuple[int, int],
+    extrapolation_value: float = 0.0,
+) -> torch.Tensor:
+    """`crop_and_resize` as two batched matrix products (the device-loop
+    and fleet crop; ntm_tracker_tpu/data/image_ops.py:110-169).
+
+    An axis-aligned bilinear crop is separable: out = Wy @ img @ Wx^T, with
+    Wy [out_h, H] and Wx [out_w, W] holding each output row's and column's
+    two bilinear weights (max(0, 1 - |in - grid|) is the gather path's
+    (1-f, f) pair in exact arithmetic) at the gather path's exact sample
+    coordinates. The products read the frame once, where the gather form
+    reads it with four dependent gathers per output pixel. They run at
+    float32 matmul precision "highest" (no TF32), which keeps the crop
+    within float32 rounding of the gather form: a lower-precision crop
+    breached the tracker's drift tripwire in the JAX package.
+
+    images [B,H,W,C], boxes [B,4] normalized [y1,x1,y2,x2] ->
+    [B, out_h, out_w, C] float32."""
+    B, H, W, C = images.shape
+    out_h, out_w = crop_size
+    boxes = boxes.float()
+    Wy, vy = _interp_matrix(boxes[:, 0], boxes[:, 2], out_h, H)  # [B, out_h, H]
+    Wx, vx = _interp_matrix(boxes[:, 1], boxes[:, 3], out_w, W)  # [B, out_w, W]
+    img = images.float()
+    with float32_matmul_precision("highest"):
+        tmp = torch.einsum("biy,byxc->bixc", Wy, img)
+        out = torch.einsum("bjx,bixc->bijc", Wx, tmp)
+    mask = (vy[:, :, None] & vx[:, None, :])[..., None]
+    if extrapolation_value == 0.0:
+        return out * mask
     return torch.where(mask, out, torch.full_like(out, extrapolation_value))
 
 

@@ -15,17 +15,22 @@ from ntm_tracker_tpu_torch.models.ntm_tracker import ntm_tracker_unroll
 
 @dataclasses.dataclass(frozen=True)
 class MemoryCore:
-    """Functional bundle: params/state constructors, single step, unroll."""
+    """Functional bundle: params/state constructors, unroll, single step,
+    in the JAX package's field order (build it by keyword)."""
 
     # init_params(input_size, generator=None, device=None) -> params
     init_params: Callable[..., Any]
     # init_state(params, batch) -> state
     init_state: Callable[[Any, int], Any]
-    # step(params, x [B,D], state) -> (logit [B,out], state)
-    step: Callable[..., Tuple[torch.Tensor, Any]]
     # unroll(params, inputs [B,T,D], state=None, remat=True, fused_bptt=None)
     #   -> (logits [B,T,out], state)
     unroll: Callable[..., Tuple[torch.Tensor, Any]]
+    # step(params, x [B,D], state) -> (logit [B,out], state)
+    step: Callable[..., Tuple[torch.Tensor, Any]]
+    # JAX's state_view(state) -> {"M", "w", "read"}, the memory observables
+    # its dashboards read: None until the dashboards are ported (ROADMAP.md,
+    # item A6)
+    state_view: Callable[[Any], dict] = None  # type: ignore[assignment]
 
 
 def make_core(cfg: TrackerConfig) -> MemoryCore:
@@ -61,4 +66,4 @@ def make_core(cfg: TrackerConfig) -> MemoryCore:
         )
         return logits, final
 
-    return MemoryCore(init_params, init_state, step, unroll)
+    return MemoryCore(init_params=init_params, init_state=init_state, unroll=unroll, step=step)

@@ -10,11 +10,13 @@ State is {'M' [B,N,D], 'w' [B,H,N], 'read' [B,R,D],
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ntm_tracker_tpu_torch.config import NTMConfig
+from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
 from ntm_tracker_tpu_torch.ops.lstm import init_lstm_params, matmul, multi_lstm_step, zero_lstm_state
 from ntm_tracker_tpu_torch.ops.memory import (
     batched_circular_convolution,
@@ -104,14 +106,15 @@ def ntm_cell_step(
     Args:
       inputs: [B, input_size] serialized token.
       compute_dtype: matmul dtype (ops/lstm.matmul); None = float32.
-      with_debug: also return a dict of the addressing intermediates.
+      with_debug: also return a dict of the addressing intermediates
+        (always the eager math, as in JAX, even with cfg.use_pallas).
     Returns:
       (output [B,out] softmaxed, logit [B,out], new_state[, debug]).
+
+    cfg.use_pallas sends the addressing and memory update after the head
+    linear to ops/kernels/addressing.fused_ntm_addressing (the kernel on
+    cuda, its plain version on the CPU).
     """
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas: the single-step fused addressing kernel is not ported"
-        )
     M_prev, w_prev, read_prev = state["M"], state["w"], state["read"]
     B = inputs.shape[0]
     R, W, H, D = cfg.read_head_size, cfg.write_head_size, cfg.num_heads, cfg.mem_dim
@@ -129,6 +132,14 @@ def ntm_cell_step(
     )
     logit = matmul(ctrl_out, params["out_w"], compute_dtype) + params["out_b"]
     output = torch.softmax(logit, dim=-1)
+
+    if cfg.use_pallas and not with_debug:
+        M, w, read = fused_ntm_addressing(
+            k.reshape(B, H, D), beta, g, sw.reshape(B, H, cfg.shift_space), gamma,
+            erase.reshape(B, W, D), add.reshape(B, W, D), M_prev, w_prev,
+            read_heads=R, write_first=cfg.write_first, slotwise=cfg.slotwise_cosine,
+        )
+        return output, logit, {"M": M, "w": w, "read": read, "controller_state": ctrl_state}
 
     k = torch.tanh(k.reshape(B, H, D))
     cos_fn = (
@@ -169,3 +180,32 @@ def ntm_cell_step(
         }
         return output, logit, new_state, debug
     return output, logit, new_state
+
+
+def cell_loop(
+    params: Dict[str, Any],
+    cfg: NTMConfig,
+    tokens: torch.Tensor,
+    state: NTMState,
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, NTMState]:
+    """T cell steps over tokens [B, T, IN] as a Python loop over
+    ntm_cell_step with cfg as given (use_pallas included): (logits
+    [B, T, out], final state). remat=True wraps each step in
+    torch.utils.checkpoint when gradients are recorded (the backward
+    recomputes the step instead of keeping its activations)."""
+
+    def step(x, carry):
+        _, logit, new_state = ntm_cell_step(params, cfg, x, carry, compute_dtype)
+        return logit, new_state
+
+    checkpointed = remat and torch.is_grad_enabled()
+    logits = [tokens.new_zeros(tokens.shape[0], 0, cfg.output_dim)]
+    for t in range(tokens.shape[1]):
+        if checkpointed:
+            logit, state = torch.utils.checkpoint.checkpoint(step, tokens[:, t], state, use_reentrant=False)
+        else:
+            logit, state = step(tokens[:, t], state)
+        logits.append(logit[:, None])
+    return torch.cat(logits, dim=1), state

@@ -2,7 +2,9 @@
 ntm_tracker_tpu/models/ntm_tracker.py).
 
 `ntm_tracker_unroll` runs the cell over a serialized token stream: an
-eager loop over ntm_cell_step, with torch.utils.checkpoint standing in for
+eager loop over ntm_cell_step (models/ntm_cell.cell_loop, which keeps
+`use_pallas`, so each step's addressing goes to the B3 kernel when the
+config asks for it), with torch.utils.checkpoint standing in for
 jax.checkpoint, or the whole-sequence training kernels
 (ops/kernels/scan_bptt.py) when `fused_bptt` routes there.
 """
@@ -15,9 +17,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ntm_tracker_tpu_torch.config import NTMConfig
-from ntm_tracker_tpu_torch.models.ntm_cell import NTMState, init_ntm_params, init_ntm_state, ntm_cell_step
+from ntm_tracker_tpu_torch.models.ntm_cell import NTMState, cell_loop, init_ntm_params, init_ntm_state, ntm_cell_step
 from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt
-from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused_reference
 
 
 def use_fused_bptt(fused_bptt, inputs: torch.Tensor, compute_dtype=None) -> bool:
@@ -74,7 +75,8 @@ def ntm_tracker_unroll(
     if use_fused_bptt(fused_bptt, inputs, compute_dtype):
         logits, final_state = ntm_scan_fused_bptt(params, cfg, inputs, state)
     else:
-        logits, final_state = ntm_scan_fused_reference(
+        # the per-step route keeps cfg as given: use_pallas reaches B3
+        logits, final_state = cell_loop(
             params, cfg, inputs, state, compute_dtype, remat=remat in (True, "full")
         )
     return torch.softmax(logits, dim=-1), logits, final_state

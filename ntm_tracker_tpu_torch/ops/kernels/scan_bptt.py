@@ -48,7 +48,8 @@ REDUCE_TARGET_BLOCKS = 8 * 132
 
 
 # The plain version: autograd through the plain loop over ntm_cell_step
-# (torch's pow also gives 0 for d/dgamma where w_conv == 0).
+# (torch's pow also gives 0 for d/dgamma where w_conv == 0), with
+# use_pallas stripped as JAX's is (ntm_tracker_tpu/ops/pallas/scan_bptt.py:914-917).
 ntm_scan_fused_bptt_reference = ntm_scan_fused_reference
 
 

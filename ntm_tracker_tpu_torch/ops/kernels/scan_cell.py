@@ -17,10 +17,9 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from ntm_tracker_tpu_torch.config import NTMConfig
-from ntm_tracker_tpu_torch.models.ntm_cell import head_param_sizes, ntm_cell_step
+from ntm_tracker_tpu_torch.models.ntm_cell import cell_loop, head_param_sizes
 
 # the kernel's limits: layer pointers travel in fixed arrays, and one
 # block's dynamic shared memory is capped by the card (H100: 227 KB)
@@ -36,25 +35,13 @@ def ntm_scan_fused_reference(
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """The plain version: a Python loop over ntm_cell_step. remat=True
-    wraps each step in torch.utils.checkpoint when gradients are recorded
-    (the backward recomputes the step instead of keeping its activations)."""
+    """The plain version: models/ntm_cell.cell_loop with use_pallas off,
+    as the JAX kernel's own reference strips it (the whole-sequence kernels
+    ignore the flag). remat=True checkpoints each step when gradients are
+    recorded."""
     if cfg.use_pallas:
         cfg = dataclasses.replace(cfg, use_pallas=False)
-
-    def step(x, carry):
-        _, logit, new_state = ntm_cell_step(params, cfg, x, carry, compute_dtype)
-        return logit, new_state
-
-    checkpointed = remat and torch.is_grad_enabled()
-    logits = [tokens.new_zeros(tokens.shape[0], 0, cfg.output_dim)]
-    for t in range(tokens.shape[1]):
-        if checkpointed:
-            logit, state = torch.utils.checkpoint.checkpoint(step, tokens[:, t], state, use_reentrant=False)
-        else:
-            logit, state = step(tokens[:, t], state)
-        logits.append(logit[:, None])
-    return torch.cat(logits, dim=1), state
+    return cell_loop(params, cfg, tokens, state, compute_dtype, remat)
 
 
 def flatten_scan_args(params: Dict[str, Any], state: Dict[str, Any]) -> List[torch.Tensor]:

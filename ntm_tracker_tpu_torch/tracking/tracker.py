@@ -1,27 +1,29 @@
 """Streaming online tracker: one frame step per frame
-(counterpart of ntm_tracker_tpu/tracking/tracker.py:33-181, :304-469).
+(counterpart of ntm_tracker_tpu/tracking/tracker.py).
 
     frame step: (crop [B,224,224,3], state) ->
         VGG conv4_3 -> 64 tokens -> 65-token stream
-        -> 65 NTM cell steps (one kernel launch on cuda)
+        -> 65 NTM cell steps (one B1 launch, or 65 cell steps each with
+           one B3 launch under NTMConfig.use_pallas)
         -> tanh(last logit) = (dy, dx), new state
 
-The bbox decode and re-crop geometry stays on the host (numpy), as in
-the reference's test_tracker.py:252-329.
+StreamingTracker keeps the bbox decode and re-crop geometry on the host
+(numpy), as the reference's test_tracker.py:252-329 does;
+make_device_track_step runs the same geometry on the device.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from ntm_tracker_tpu_torch.config import TrackerConfig, resolve_device, validate_head
+from ntm_tracker_tpu_torch.config import TrackerConfig, float32_matmul_precision, resolve_device, validate_head
 from ntm_tracker_tpu_torch.data import geometry
-from ntm_tracker_tpu_torch.data.image_ops import crop_and_resize
+from ntm_tracker_tpu_torch.data.geometry_jnp import canonical_box, cropbox_of, scale_box, to_image_space
+from ntm_tracker_tpu_torch.data.image_ops import crop_and_resize, crop_and_resize_mm
 from ntm_tracker_tpu_torch.models.core import MemoryCore, make_core
 from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN
 from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
@@ -37,19 +39,6 @@ def _to_device(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
     return tree
-
-
-@contextlib.contextmanager
-def _float32_matmul_precision(precision: Optional[str]):
-    if precision is None:
-        yield
-        return
-    before = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision(precision)
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(before)
 
 
 def use_fused_kernel(cfg: TrackerConfig, batch: int, device: torch.device) -> bool:
@@ -103,7 +92,7 @@ def build_frame_step(
                 params, cfg.ntm, stream, state, compute_dtype=cfg.compute_dtype
             )
             return torch.tanh(logits[:, -1]), final_state
-        with _float32_matmul_precision(cfg.cell_matmul_precision):
+        with float32_matmul_precision(cfg.cell_matmul_precision):
             logits, final_state = core.unroll(params, stream, state, remat=False, fused_bptt=False)
         return torch.tanh(logits[:, -1]), final_state
 
@@ -111,6 +100,77 @@ def build_frame_step(
         return step_first(crops, None, state)
 
     return step_first, step_rest
+
+
+def make_device_track_step(
+    cfg: TrackerConfig,
+    core: MemoryCore,
+    vgg_params: Any,
+    params: Any,
+    delimiter_first: bool = False,
+    device=None,
+):
+    """Device-resident per-frame tracking: the crop geometry, the crop
+    (crop_and_resize_mm), the frame step and the recrop all on the device,
+    for frames that already live there; no host round trip per frame
+    (counterpart of ntm_tracker_tpu/tracking/tracker.py:183-298).
+
+    The geometry follows StreamingTracker's, including the reference's
+    (dim-1)/dim decode quirk (regions are decoded with *dim and
+    re-normalized with /(dim-1), so each recrop scales the box by
+    dim/(dim-1)) and the predict_scale decode. Runs on cuda unless
+    `device` names another device.
+
+    Returns (init_fn, step_fn):
+      init_fn(frames [B,H,W,3] raw RGB, bbox0 [B,4] y1x1y2x2 in the
+              tracker's /(dim-1) normalization, state) -> state
+      step_fn(frames, bbox, state) ->
+              (region [B,4] x,y,w,h pixels, next_bbox [B,4], state)
+    Frames may be tensors (uint8 or float) or numpy arrays.
+    """
+    dev = resolve_device(device)
+    d = cfg.data
+    canon = canonical_box(d.cropbox_grid, d.bbox_grid, device=dev)
+    heat0 = torch.as_tensor(canonical_first_frame_gt(cfg), device=dev)
+    mean = torch.as_tensor(VGG_MEAN, device=dev)
+    step_first, _ = build_frame_step(cfg, core, vgg_params, params, delimiter_first=delimiter_first,
+                                     device=dev)
+
+    def crop(frames: torch.Tensor, cropbox: torch.Tensor) -> torch.Tensor:
+        return crop_and_resize_mm(frames.float() - mean, cropbox, (d.crop_size, d.crop_size))
+
+    @torch.no_grad()
+    def init_fn(frames, bbox0, state):
+        frames = torch.as_tensor(frames, device=dev)
+        bbox0 = torch.as_tensor(bbox0, dtype=torch.float32, device=dev)
+        crops = crop(frames, cropbox_of(bbox0, d.cropbox_grid, d.bbox_grid))
+        _, state = step_first(crops, heat0[None].expand(crops.shape[0], -1), state)
+        return state
+
+    @torch.no_grad()
+    def step_fn(frames, bbox, state):
+        frames = torch.as_tensor(frames, device=dev)
+        bbox = torch.as_tensor(bbox, dtype=torch.float32, device=dev)
+        H, W = frames.shape[1:3]
+        cb = cropbox_of(bbox, d.cropbox_grid, d.bbox_grid)
+        offsets, state = step_first(crop(frames, cb), None, state)
+        # the device twin of decode_head: optional scale about the canonical
+        # center, then the (dy, dx) shift
+        if cfg.predict_scale:
+            base = scale_box(canon.expand(offsets.shape[0], 4), torch.exp(offsets[:, 2] * cfg.scale_range))
+            offsets = offsets[:, :2]
+        else:
+            base = canon[None]
+        img_box = to_image_space(base + torch.cat([offsets, offsets], dim=-1), cb)
+        y1, x1, y2, x2 = img_box.unbind(-1)
+        region = torch.stack([x1 * W, y1 * H, (x2 - x1) * W, (y2 - y1) * H], dim=-1)
+        # the reference's decode/renormalize round trip: pixels = box * dim,
+        # the next normalization divides by (dim - 1)
+        quirk = torch.tensor([H / (H - 1.0), W / (W - 1.0), H / (H - 1.0), W / (W - 1.0)],
+                             dtype=torch.float32, device=dev)
+        return region, img_box * quirk, state
+
+    return init_fn, step_fn
 
 
 # -- host-side crop/decode geometry ----------------------------------------

@@ -4,7 +4,8 @@ ntm_tracker_tpu/train/optim.py).
 The reference trains with tf.train.RMSPropOptimizer(lr, decay, momentum)
 after tf.clip_by_global_norm (direct_offset_output.py:611-626):
 
-    g   <- (g / ||g||) * max_norm    unless ||g|| < max_norm (optax's rule)
+    g   <- (g / ||g||) * max_norm    unless ||g|| < max_norm (optax's rule,
+                                      selected on the device)
     ms  <- decay * ms + (1 - decay) * g^2        ms starts at ONES, as in TF
     mom <- momentum * mom + lr * g / sqrt(ms + eps)      eps INSIDE the sqrt
     p   <- p - mom
@@ -49,11 +50,11 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
     """optax.clip_by_global_norm: (g / norm) * max_norm, unless the global
-    norm is below max_norm."""
+    norm is below max_norm. Selected on the device, leaf by leaf, as optax
+    does (no host sync; a NaN norm clips, and so gives NaN)."""
     norm = global_norm(grads)
-    if bool(norm < max_norm):
-        return grads
-    return tree_map(lambda g: (g / norm) * max_norm, grads)
+    keep = norm < max_norm
+    return tree_map(lambda g: torch.where(keep, g, (g / norm) * max_norm), grads)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,6 +2,7 @@
 on the CPU. Weights always cross over through interop (seeded inits
 differ between the frameworks)."""
 
+import dataclasses
 import os
 
 import jax
@@ -87,9 +88,17 @@ def test_unroll_matches_jax(name):
 
 
 def test_use_pallas_is_not_ported():
+    """(Named when use_pallas raised.) The flag is ported now: on CPU
+    tensors the step takes the addressing kernel's plain version, which
+    gives the flag-off step's numbers (tests/test_torch_addressing.py holds
+    it against JAX's kernel)."""
     _, tcfg, _, tp = _pair(dict(CONFIGS["default-ish"], use_pallas=True))
-    with pytest.raises(NotImplementedError):
-        tcell.ntm_cell_step(tp, tcfg, torch.zeros(1, 10), tcell.init_ntm_state(tp, tcfg, 1))
+    x = torch.tensor(np.random.RandomState(5).randn(2, 10).astype(np.float32))
+    state = tcell.init_ntm_state(tp, tcfg, 2)
+    got = tcell.ntm_cell_step(tp, tcfg, x, state)
+    want = tcell.ntm_cell_step(tp, dataclasses.replace(tcfg, use_pallas=False), x, state)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), atol=F32_TOL)
+    _assert_state_close(got[2], want[2], F32_TOL)
 
 
 def _golden(fixture):
