@@ -4,9 +4,11 @@ H100: builds the CUDA kernels from csrc/ (one nvcc per source, in
 parallel), holds each against its plain PyTorch version on the card,
 drives the streaming tracker's frame step, the batched fleet and the
 device-resident loop with NTMConfig.use_pallas (the addressing kernel at
-every cell step) and the cached-token training step at full width, and
-times the kernels, their plain versions, the frame step, the fleet step
-on three cell routes, the device loop and the train step.
+every cell step) and the cached-token training step at full width, holds
+the lane-packed kernels against their plain version, B1 and B2 at the
+frame and train shapes, and times the kernels, their plain versions, the
+frame step, the fleet step on three cell routes, the device loop and the
+train step.
 
     python3 chip_smoke.py
 
@@ -23,7 +25,9 @@ Output ends with the card's name and power limit (nvidia-smi), one
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -67,6 +71,7 @@ BPTT_REPLACES = {
 # the training slice's shape: the JAX bench's cached-token train step
 # (ntm_tracker_tpu/benchmarks.py:646), B=256 rows of L=20 frames
 TRAIN_B, TRAIN_L = 256, 20
+PACKED_SOURCE = "ntm_tracker_tpu_torch/csrc/scan_packed.cu"
 ADDR_NAME = "addressing.fused_ntm_addressing"
 ADDR_SOURCE = "ntm_tracker_tpu_torch/csrc/addressing.cu"
 ADDR_REPLACES = "ntm_tracker_tpu/ops/pallas/addressing.py:45"
@@ -311,67 +316,35 @@ def synthetic_video(seed: int, frames: int, hw=(720, 1280)) -> tuple[np.ndarray,
     return out, (x0, y0, bw, bh)
 
 
-def phase_bptt(dev: torch.device, IN: int) -> None:
-    """B2 against its plain version (autograd through the plain loop) on
-    the card: logits, final state and every gradient, on five cases; and
-    B1's trainable wrapper against the same plain version."""
-    from ntm_tracker_tpu_torch.config import NTMConfig
-    from ntm_tracker_tpu_torch.models.ntm_cell import HEAD_PARAM_ORDER, head_param_sizes, init_ntm_params, init_ntm_state, ntm_cell_step
-    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt, ntm_scan_fused_bptt_reference
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused_trainable
+def scan_case(ncfg, B: int, T: int, seed: int, dev: torch.device, IN: int) -> tuple:
+    """(params, tokens [B, T, IN], cotangents) for a whole-sequence scan
+    case, made from `seed`: the seeded init with every parameter nudged so
+    that the zero biases' gradients are not trivial."""
+    from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_params
     from ntm_tracker_tpu_torch.train.optim import tree_map
 
-    def setup(ncfg, B, T, seed):
-        rs = np.random.RandomState(seed)
-        params = init_ntm_params(ncfg, IN, torch.Generator().manual_seed(seed))
-        # break the symmetry of the zero biases so that their grads are not trivial
-        params = tree_map(lambda t: (t + torch.tensor(
-            rs.uniform(-0.05, 0.05, tuple(t.shape)).astype(np.float32))).to(dev), params)
-        tokens = torch.tensor(rs.uniform(-1, 1, (B, T, IN)).astype(np.float32), device=dev)
-        shapes = [(B, T, ncfg.output_dim), (B, ncfg.mem_size, ncfg.mem_dim), (B, ncfg.num_heads, ncfg.mem_size),
-                  (B, ncfg.read_head_size, ncfg.mem_dim), (B, ncfg.controller_hidden_size)]
-        cot = [torch.tensor(rs.uniform(-1, 1, sh).astype(np.float32), device=dev) for sh in shapes]
-        return params, tokens, cot
+    rs = np.random.RandomState(seed)
+    params = init_ntm_params(ncfg, IN, torch.Generator().manual_seed(seed))
+    # break the symmetry of the zero biases so that their grads are not trivial
+    params = tree_map(lambda t: (t + torch.tensor(
+        rs.uniform(-0.05, 0.05, tuple(t.shape)).astype(np.float32))).to(dev), params)
+    tokens = torch.tensor(rs.uniform(-1, 1, (B, T, IN)).astype(np.float32), device=dev)
+    shapes = [(B, T, ncfg.output_dim), (B, ncfg.mem_size, ncfg.mem_dim), (B, ncfg.num_heads, ncfg.mem_size),
+              (B, ncfg.read_head_size, ncfg.mem_dim), (B, ncfg.controller_hidden_size)]
+    cot = [torch.tensor(rs.uniform(-1, 1, sh).astype(np.float32), device=dev) for sh in shapes]
+    return params, tokens, cot
 
-    def compare(name, ncfg, B, T, scan, params, tokens, cot, state_fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        kl, kf, kg = grads_of(scan, params, ncfg, tokens, cot, state_fn)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        pl, pf, pg = grads_of(ntm_scan_fused_bptt_reference, params, ncfg, tokens, cot, state_fn)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        fwd = max(state_diffs(kl, kf, pl, pf).values())
-        gerr = grad_errors(kg, pg)
-        finite = all(bool(torch.isfinite(g).all()) for g in kg.values())
-        worst = max(gerr, key=gerr.get)
-        log("bptt", f"{name} B={B} T={T}: fwd max_abs={fwd:.3e} (tol {F32_TOL:g}); grads max rel={gerr[worst]:.3e} "
-                    f"at {worst} (tol {GRAD_TOL:g}); finite={finite}; fwd+bwd {1e3 * (t1 - t0):.1f} ms, "
-                    f"plain {1e3 * (t2 - t1):.1f} ms (host clock, first call)")
-        if not finite or fwd > F32_TOL or gerr[worst] > GRAD_TOL:
-            raise AssertionError(f"{name}: the kernels disagree with the plain version")
-        return {"grad_rel": gerr[worst], "grads": kg}
 
-    cases = {
-        "a_flagship": (NTMConfig(), 1, 1300),
-        "b_flagship": (NTMConfig(), 70, 65),
-        "c_2layer_2write_s5_writefirst": (NTMConfig(controller_num_layers=2, write_head_size=2, shift_range=2,
-                                                    write_first=True), 3, 65),
-        "d_slotwise": (NTMConfig(slotwise_cosine=True), 3, 65),
-    }
-    out = {}
-    for i, (name, (ncfg, B, T)) in enumerate(cases.items()):
-        params, tokens, cot = setup(ncfg, B, T, 300 + i)
-        out[name] = compare(name, ncfg, B, T, ntm_scan_fused_bptt, params, tokens, cot,
-                            lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B))
-    log("bptt", f"f32 gradient error vs T: T=65 (B=70) {out['b_flagship']['grad_rel']:.3e}, "
-                f"T=1300 (B=1) {out['a_flagship']['grad_rel']:.3e} relative (tol {GRAD_TOL:g})")
+def wconv_zero_case(dev: torch.device, IN: int) -> tuple:
+    """The flagship at B=2, T=1 with heads that make w_conv exactly one-hot
+    (one live memory slot, a huge beta, g = 1, one shift weight): (cfg, B,
+    params, tokens, cot, state_fn, head-control column slices, (entries
+    exactly 0, entries exactly 1))."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.models.ntm_cell import HEAD_PARAM_ORDER, head_param_sizes, init_ntm_state, ntm_cell_step
 
-    # e: w_conv exactly one-hot at T=1: every w_conv entry is 0 or 1, so the
-    # gamma gradient is exactly 0 (log 1 = 0, and 0 where w_conv == 0)
     ncfg, B = NTMConfig(), 2
-    params, tokens, cot = setup(ncfg, B, 1, 320)
+    params, tokens, cot = scan_case(ncfg, B, 1, 320, dev, IN)
     sizes, cols, o = head_param_sizes(ncfg), {}, 0
     for key in HEAD_PARAM_ORDER:
         cols[key] = slice(o, o + sizes[key])
@@ -397,6 +370,63 @@ def phase_bptt(dev: torch.device, IN: int) -> None:
     n_zero, n_one = int((dbg["w_conv"] == 0).sum()), int((dbg["w_conv"] == 1).sum())
     if n_zero + n_one != dbg["w_conv"].numel() or n_one != B * ncfg.num_heads:
         raise AssertionError(f"the zero case does not make w_conv one-hot ({n_zero} zeros, {n_one} ones)")
+    return ncfg, B, params, tokens, cot, zero_state, cols, (n_zero, n_one)
+
+
+def bptt_cases() -> dict:
+    """The training kernels' cases: {name: (cfg, B, T)}."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+
+    return {
+        "a_flagship": (NTMConfig(), 1, 1300),
+        "b_flagship": (NTMConfig(), 70, 65),
+        "c_2layer_2write_s5_writefirst": (NTMConfig(controller_num_layers=2, write_head_size=2, shift_range=2,
+                                                    write_first=True), 3, 65),
+        "d_slotwise": (NTMConfig(slotwise_cosine=True), 3, 65),
+    }
+
+
+def phase_bptt(dev: torch.device, IN: int) -> None:
+    """B2 against its plain version (autograd through the plain loop) on
+    the card: logits, final state and every gradient, on five cases; and
+    B1's trainable wrapper against the same plain version."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
+    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt, ntm_scan_fused_bptt_reference
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused_trainable
+
+    def compare(name, ncfg, B, T, scan, params, tokens, cot, state_fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kl, kf, kg = grads_of(scan, params, ncfg, tokens, cot, state_fn)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pl, pf, pg = grads_of(ntm_scan_fused_bptt_reference, params, ncfg, tokens, cot, state_fn)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fwd = max(state_diffs(kl, kf, pl, pf).values())
+        gerr = grad_errors(kg, pg)
+        finite = all(bool(torch.isfinite(g).all()) for g in kg.values())
+        worst = max(gerr, key=gerr.get)
+        log("bptt", f"{name} B={B} T={T}: fwd max_abs={fwd:.3e} (tol {F32_TOL:g}); grads max rel={gerr[worst]:.3e} "
+                    f"at {worst} (tol {GRAD_TOL:g}); finite={finite}; fwd+bwd {1e3 * (t1 - t0):.1f} ms, "
+                    f"plain {1e3 * (t2 - t1):.1f} ms (host clock, first call)")
+        if not finite or fwd > F32_TOL or gerr[worst] > GRAD_TOL:
+            raise AssertionError(f"{name}: the kernels disagree with the plain version")
+        return {"grad_rel": gerr[worst], "grads": kg}
+
+    cases = bptt_cases()
+    out = {}
+    for i, (name, (ncfg, B, T)) in enumerate(cases.items()):
+        params, tokens, cot = scan_case(ncfg, B, T, 300 + i, dev, IN)
+        out[name] = compare(name, ncfg, B, T, ntm_scan_fused_bptt, params, tokens, cot,
+                            lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B))
+    log("bptt", f"f32 gradient error vs T: T=65 (B=70) {out['b_flagship']['grad_rel']:.3e}, "
+                f"T=1300 (B=1) {out['a_flagship']['grad_rel']:.3e} relative (tol {GRAD_TOL:g})")
+
+    # e: w_conv exactly one-hot at T=1: every w_conv entry is 0 or 1, so the
+    # gamma gradient is exactly 0 (log 1 = 0, and 0 where w_conv == 0)
+    ncfg, B, params, tokens, cot, zero_state, cols, (n_zero, n_one) = wconv_zero_case(dev, IN)
     res = compare("e_wconv_zero", ncfg, B, 1, ntm_scan_fused_bptt, params, tokens, cot, zero_state)
     g_gamma = (res["grads"]["heads_b"][cols["gamma"]], res["grads"]["heads_w"][:, cols["gamma"]])
     if any(bool((g != 0).any()) for g in g_gamma):
@@ -406,7 +436,7 @@ def phase_bptt(dev: torch.device, IN: int) -> None:
 
     # B1 with gradients: the kernel's forward, autograd of the plain loop behind it
     ncfg, B, T = NTMConfig(), 2, 65
-    params, tokens, cot = setup(ncfg, B, T, 330)
+    params, tokens, cot = scan_case(ncfg, B, T, 330, dev, IN)
     compare("scan_cell.ntm_scan_fused_trainable", ncfg, B, T, lambda p, c, t, st: ntm_scan_fused_trainable(p, c, t, st),
             params, tokens, cot, lambda p: init_ntm_state(p, ncfg, B))
 
@@ -969,7 +999,217 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
                    "grad_reduce": (red_abs, red_rel)},
         "b1": {"launches": counts["ntm_scan_fused"], "B": B, "T": T, "ms": b1_ms, "bound_ms": b1_bound[0],
                "bound_by": b1_bound[1], "max_abs_err": b1_err},
+        "inputs": (params, ncfg, tokens),
     }
+
+
+def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
+    """The lane-packed kernels (B4) against their plain version and against
+    the row kernels, the counterpart of tests/hw_check_pallas.py's
+    check_packed: (a) phase_bptt's five cases, forward and every gradient,
+    at rows_per_block 1 and the default; (b) the frame path's shape B=1,
+    T=65 against B1; (c) the train path's shape B=256, T=1300 on
+    phase_train's params and tokens against B2's kernels, the same bits on
+    a rerun, and the times at both tiles beside B2's, the plain version's
+    and the bounds. No main path launches B4: the launches are this
+    phase's own."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt, scan_packed
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    fwd_rows, bwd_rows = max(scan_packed.FORWARD_ROWS), max(scan_packed.BACKWARD_ROWS)
+    tiles = ((1, 1), (fwd_rows, bwd_rows))
+    kernels = (scan_packed.packed_forward, scan_packed.packed_forward_residuals, scan_packed.packed_backward)
+    for k in kernels:
+        k.launches = 0
+    smem = {f"{'backward' if bwd else 'forward'}_rows_{rows}": scan_packed.smem_bytes(NTMConfig(), IN, bwd, rows)
+            for bwd, sizes in ((False, scan_packed.FORWARD_ROWS), (True, scan_packed.BACKWARD_ROWS)) for rows in sizes}
+    log("packed", f"shared memory per block at the flagship config (bytes): {smem}")
+    worst = {"fwd_abs": 0.0, "grad_rel": 0.0}
+
+    # ---- (a) the kernels against the plain version ---------------------------------
+    def compare(name, ncfg, B, T, params, tokens, cot, state_fn):
+        pl, pf, pg = grads_of(scan_packed.ntm_scan_packed_reference, params, ncfg, tokens, cot, state_fn)
+        out = []
+        for rows, brows in ((1, 1), (None, None)):  # the control, then the default tiles
+            scan = functools.partial(scan_packed.ntm_scan_packed_bptt, rows_per_block=rows,
+                                     backward_rows_per_block=brows)
+            kl, kf, kg = grads_of(scan, params, ncfg, tokens, cot, state_fn)
+            with torch.no_grad():
+                nl, nf = scan_packed.ntm_scan_packed(params, ncfg, tokens, state_fn(params), rows_per_block=rows)
+            fwd = max(max(state_diffs(kl, kf, pl, pf).values()), max(state_diffs(nl, nf, pl, pf).values()))
+            gerr = grad_errors(kg, pg)
+            finite = all(bool(torch.isfinite(g).all()) for g in [kl, nl, *kg.values()])
+            gw = max(gerr, key=gerr.get)
+            tile = f"{scan_packed.tile_for(ncfg, IN, rows, False)}/{scan_packed.tile_for(ncfg, IN, brows, True)}"
+            log("packed", f"{name} B={B} T={T} rows {tile}: forward max_abs {fwd:.3e} (tol {F32_TOL:g}); "
+                          f"grads max rel {gerr[gw]:.3e} at {gw} (tol {GRAD_TOL:g}); finite {finite}")
+            if not finite or fwd > F32_TOL or gerr[gw] > GRAD_TOL:
+                raise AssertionError(f"{name}: the packed kernels disagree with their plain version")
+            worst["fwd_abs"] = max(worst["fwd_abs"], fwd)
+            worst["grad_rel"] = max(worst["grad_rel"], gerr[gw])
+            out.append(kg)
+        return out
+
+    for i, (name, (ncfg, B, T)) in enumerate(bptt_cases().items()):
+        params, tokens, cot = scan_case(ncfg, B, T, 300 + i, dev, IN)
+        compare(name, ncfg, B, T, params, tokens, cot, lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B))
+    ncfg, B, params, tokens, cot, zero_state, cols, _ = wconv_zero_case(dev, IN)
+    for kg in compare("e_wconv_zero", ncfg, B, 1, params, tokens, cot, zero_state):
+        if (kg["heads_b"][cols["gamma"]] != 0).any() or (kg["heads_w"][:, cols["gamma"]] != 0).any():
+            raise AssertionError("packed: d/dgamma must be exactly 0 where w_conv is 0 or 1")
+    log("packed", "e_wconv_zero: packed dgamma exactly 0 at both tiles")
+    check_budget("packed")
+
+    # ---- (b) the frame path's shape: B=1, T=65, against B1 -------------------------
+    ncfg = NTMConfig()
+    params, tokens, _ = scan_case(ncfg, 1, 65, 340, dev, IN)
+    state = init_ntm_state(params, ncfg, 1)
+    frame = {}
+    with torch.no_grad():
+        b1_logits, b1_final = ntm_scan_fused(params, ncfg, tokens, state)
+        for rows in scan_packed.FORWARD_ROWS:
+            lo, fi = scan_packed.ntm_scan_packed(params, ncfg, tokens, state, rows_per_block=rows)
+            err = max(state_diffs(lo, fi, b1_logits, b1_final).values())
+            worst["fwd_abs"] = max(worst["fwd_abs"], err)
+            if err > F32_TOL:
+                raise AssertionError(f"packed forward at rows {rows} disagrees with B1 at B=1, T=65: {err:.3e}")
+            frame[rows] = {"max_abs_err_vs_b1": err}
+        # in turns: B1, packed 1, packed default, and back
+        order = ["b1", *scan_packed.FORWARD_ROWS]
+        ms = {k: [] for k in order}
+        for rep in range(2):
+            for key in (order if rep == 0 else order[::-1]):
+                fn = (lambda: ntm_scan_fused(params, ncfg, tokens, state)) if key == "b1" else (
+                    lambda r=key: scan_packed.ntm_scan_packed(params, ncfg, tokens, state, rows_per_block=r))
+                ms[key].append(cuda_ms(fn, iters=50, warmup=3))
+        plain = cuda_ms(lambda: scan_packed.ntm_scan_packed_reference(params, ncfg, tokens, state), iters=3, warmup=1)
+    b_ms, b_by = bound(*scan_cell_work(ncfg, 1, 65, IN))
+    for rows in scan_packed.FORWARD_ROWS:
+        frame[rows]["ms"] = float(np.mean(ms[rows]))
+    frame_out = {"B": 1, "T": 65, "ms": frame[fwd_rows]["ms"], "ms_rows_1": frame[1]["ms"],
+                 "ms_by_rows_per_block": {str(r): f["ms"] for r, f in frame.items()},
+                 "row_kernel_ms": float(np.mean(ms["b1"])), "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                 "max_abs_err_vs_b1": max(f["max_abs_err_vs_b1"] for f in frame.values())}
+    log("times", f"{smi}: B=1 T=65: packed forward " + ", ".join(f"rows {r} {f['ms']:.4f} ms" for r, f in frame.items())
+                 + f", B1 {frame_out['row_kernel_ms']:.4f} ms (CUDA events, 50 launches, "
+                 f"two turns); plain {plain:.3f} ms; bound {b_ms:.6f} ms by {b_by}; vs B1 max_abs "
+                 f"{frame_out['max_abs_err_vs_b1']:.3e} (tol {F32_TOL:g})")
+    check_budget("packed")
+
+    # ---- (c) the train path's shape: B=256, T=1300, against B2 ---------------------
+    params, ncfg, tokens = train["inputs"]
+    B, T, _ = tokens.shape
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        state = init_ntm_state(params, ncfg, B)
+        logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state)
+        dlogits = torch.randn(logits.shape, generator=gen, device=dev) * 1e-2
+        dfinal = tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev) * 1e-2, final)
+        dtok, dst, ops = scan_bptt.bptt_backward(params, ncfg, tokens, res, dlogits, dfinal)
+        del res
+        ref = [dtok, *scan_bptt.flatten_state(dst), *scan_packed.weight_grads(ncfg, IN, ops, dlogits)]
+        del ops
+        L = ncfg.controller_num_layers
+        grad_names = ["tokens", "M0", "w0", "read0", *[f"c0[{l}]" for l in range(L)], *[f"h0[{l}]" for l in range(L)],
+                      *[f"controller[{l}].kernel" for l in range(L)], *[f"controller[{l}].bias" for l in range(L)],
+                      "heads_w", "heads_b", "out_w", "out_b"]
+
+        def packed_run(rows, brows):
+            lo, fi, res = scan_packed.packed_forward_residuals(params, ncfg, tokens, state, rows)
+            dt, ds, ops = scan_packed.packed_backward(params, ncfg, tokens, res, dlogits, dfinal, brows)
+            del res
+            return lo, fi, [dt, *scan_bptt.flatten_state(ds), *scan_packed.weight_grads(ncfg, IN, ops, dlogits)]
+
+        train_out = {}
+        for rows, brows in tiles:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            lo, fi, got = packed_run(rows, brows)
+            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+            fwd = max(state_diffs(lo, fi, logits, final).values())
+            rel = {name: max_abs(g, r) / max(float(r.abs().max()), 1e-30) for name, g, r in zip(grad_names, got, ref)}
+            gw = max(rel, key=rel.get)
+            gerr = rel[gw]
+            gabs = max(max_abs(g, r) for g, r in zip(got, ref))
+            again = packed_run(rows, brows)
+            same = (torch.equal(lo, again[0]) and all(torch.equal(a, b) for a, b in zip(got, again[2]))
+                    and all(torch.equal(a, b) for a, b in zip(scan_bptt.flatten_state(fi),
+                                                              scan_bptt.flatten_state(again[1]))))
+            del again
+            finite = bool(torch.isfinite(lo).all()) and all(bool(torch.isfinite(g).all()) for g in got)
+            log("packed", f"B={B} T={T} rows {rows}/{brows} vs B2's kernels: forward max_abs {fwd:.3e} (tol {F32_TOL:g}); "
+                          f"gradients (tokens, initial state, weights) max rel {gerr:.3e} at {gw} (tol {GRAD_TOL:g}); "
+                          f"same bits on a rerun {same}; finite {finite}; peak {peak_gb:.2f} GB above the inputs "
+                          f"(forward with residuals + backward + reduction)")
+            if fwd > F32_TOL or gerr > GRAD_TOL or not same or not finite:
+                raise AssertionError(f"packed kernels at rows {rows}/{brows} disagree with B2 at B={B}, T={T}")
+            worst["fwd_abs"] = max(worst["fwd_abs"], fwd)
+            worst["grad_rel"] = max(worst["grad_rel"], gerr)
+            worst["grad_abs_train"] = max(worst.get("grad_abs_train", 0.0), gabs)
+            del got, lo, fi
+            train_out[(rows, brows)] = {"peak_gb": peak_gb, "fwd_abs": fwd, "grad_rel": gerr}
+            check_budget("packed")
+        # every instantiated tile, each kernel's launches back to back
+        ms = {"forward": {}, "forward_residuals": {}, "backward": {}}
+        for rows in scan_packed.FORWARD_ROWS:
+            ms["forward"][rows] = cuda_ms(lambda: scan_packed.packed_forward(params, ncfg, tokens, state, rows),
+                                          iters=2, warmup=1)
+            ms["forward_residuals"][rows] = cuda_ms(lambda: scan_packed.packed_forward_residuals(
+                params, ncfg, tokens, state, rows), iters=2, warmup=0)
+        _, _, res = scan_packed.packed_forward_residuals(params, ncfg, tokens, state, fwd_rows)
+        for brows in scan_packed.BACKWARD_ROWS:
+            ms["backward"][brows] = cuda_ms(lambda: scan_packed.packed_backward(
+                params, ncfg, tokens, res, dlogits, dfinal, brows), iters=2, warmup=0)
+        _, _, ops = scan_packed.packed_backward(params, ncfg, tokens, res, dlogits, dfinal, bwd_rows)
+        del res
+        ms["reduction"] = cuda_ms(lambda: scan_packed.weight_grads(ncfg, IN, ops, dlogits), iters=2, warmup=0)
+        del ops
+        log("times", f"{smi}: B={B} T={T} packed kernels by rows per block (CUDA events, 2 launches each): "
+                     + "; ".join(f"{k} " + ", ".join(f"{r}: {v:.3f} ms" for r, v in ms[k].items())
+                                 for k in ("forward", "forward_residuals", "backward"))
+                     + f"; reduction {ms['reduction']:.3f} ms; SMs used at B={B}: "
+                     + ", ".join(f"{r} rows {math.ceil(B / r)}" for r in sorted(set(scan_packed.FORWARD_ROWS)
+                                                                                | set(scan_packed.BACKWARD_ROWS))))
+        del ref, dtok, dst, logits, final
+
+    # the plain version at the same shape: forward without gradients, and
+    # forward and backward of its autograd
+    with torch.no_grad():
+        plain_fwd = cuda_ms(lambda: scan_packed.ntm_scan_packed_reference(params, ncfg, tokens, state), iters=1, warmup=0)
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda.reset_peak_memory_stats()
+    lo, fi = scan_packed.ntm_scan_packed_reference(live, ncfg, tokens, init_ntm_state(live, ncfg, B))
+    loss = (lo * dlogits).sum() + sum((a * b).sum() for a, b in zip(scan_bptt.flatten_state(fi),
+                                                                    scan_bptt.flatten_state(dfinal)))
+    ev[1].record()
+    torch.autograd.grad(loss, [live["heads_w"], live["controller"][0]["kernel"]])
+    ev[2].record()
+    torch.cuda.synchronize()
+    plain_res_fwd, plain_bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    plain_peak = torch.cuda.max_memory_allocated() / 1e9
+    del lo, fi, loss, live
+    work = scan_bptt_work(ncfg, B, T, IN)
+    bounds = {"forward": bound(*scan_cell_work(ncfg, B, T, IN)), "forward_residuals": bound(*work["forward"]),
+              "backward": bound(*work["backward"]), "reduction": bound(*work["grad_reduce"])}
+    log("times", f"{smi}: B={B} T={T} plain packed version: forward {plain_fwd:.1f} ms (no gradients); recording "
+                 f"gradients forward {plain_res_fwd:.1f} ms, backward {plain_bwd:.1f} ms (CUDA events, peak "
+                 f"{plain_peak:.1f} GB); bounds "
+                 + ", ".join(f"{k} {v[0]:.3f} ms by {v[1]}" for k, v in bounds.items())
+                 + f"; B2: forward {train['forward'][0]:.3f} ms, backward {train['backward'][0]:.3f} ms, reduction "
+                 f"{train['grad_reduce'][0]:.3f} ms; B1 {train['b1']['ms']:.3f} ms (phase train)")
+    counts = {k.__name__: k.launches for k in kernels}
+    log("packed", f"launches in this phase {counts}")
+    if min(counts.values()) == 0:
+        raise AssertionError("a packed kernel was not launched")
+    check_budget("packed")
+    return {"counts": counts, "frame": frame_out, "train": train_out, "ms": ms, "tiles": tiles, "worst": worst,
+            "plain": {"forward": plain_fwd, "forward_residuals": plain_res_fwd, "backward": plain_bwd},
+            "bounds": bounds, "smem": smem, "B": B, "T": T}
 
 
 def main() -> int:
@@ -1003,10 +1243,10 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    paths = _build.build_all(["scan_cell", "scan_bptt", "addressing"])
+    paths = _build.build_all(["scan_cell", "scan_bptt", "addressing", "scan_packed"])
     for name in paths:
         _build.load_library(name)
-    log("build", f"scan_cell, scan_bptt and addressing ready in {time.perf_counter() - t0:.2f}s (parallel nvcc; "
+    log("build", f"scan_cell, scan_bptt, addressing and scan_packed ready in {time.perf_counter() - t0:.2f}s (parallel nvcc; "
                  f"{', '.join(p.name for p in paths.values())})")
     check_budget("build")
 
@@ -1161,6 +1401,9 @@ def main() -> int:
     # ---- 7. the training slice at full width, and the B2 kernels' times -------
     train = phase_train(dev, smi, IN)
 
+    # ---- 7b. the lane-packed kernels (B4) at the frame and train shapes -------
+    packed = phase_packed(dev, smi, IN, train)
+
     # ---- 8. result -----------------------------------------------------------
     # B1 runs on every main path: `launches` is the frame path's count; the
     # fleet's (its adds at B=1), the device loop's, the train path's (its
@@ -1198,6 +1441,33 @@ def main() -> int:
         "device_ms": at64["device_ms"],
         "times_by_batch": {str(b): t for b, t in addr["times"].items()},
     })
+    # B4 at the train path's shape (B=256, T=1300) and the default tile;
+    # no main path launches it: `launches` is phase_packed's count
+    (_, _), default = packed["tiles"]
+    at = packed["train"]
+    for name, line, row_ms in (("forward", 225, train["b1"]["ms"]), ("forward_residuals", 290, train["forward"][0]),
+                               ("backward", 336, train["backward"][0])):
+        b_ms, b_by = packed["bounds"][name]
+        fn = {"forward": "packed_forward", "forward_residuals": "packed_forward_residuals",
+              "backward": "packed_backward"}[name]
+        rows = default[1] if name == "backward" else default[0]
+        entry = {
+            "name": f"scan_packed.{name}", "route": "cuda", "source": PACKED_SOURCE,
+            "replaces": f"ntm_tracker_tpu/ops/pallas/scan_packed.py:{line}", "launches": packed["counts"][fn],
+            "max_abs_err": packed["worst"]["grad_abs_train"] if name == "backward" else packed["worst"]["fwd_abs"],
+            "max_rel_err": packed["worst"]["grad_rel"], "ms": packed["ms"][name][rows],
+            "plain_ms": packed["plain"][name], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "rows_per_block": rows, "ms_rows_1": packed["ms"][name][1], "row_kernel_ms": row_ms,
+            "ms_by_rows_per_block": {str(r): v for r, v in packed["ms"][name].items()},
+            "B": packed["B"], "T": packed["T"],
+        }
+        if name == "forward":
+            entry["frame_shape"] = packed["frame"]
+        if name == "backward":
+            entry["reduction_ms"] = {"packed_operands": packed["ms"]["reduction"], "row_kernels": train["grad_reduce"][0]}
+            entry["peak_gb"] = {"rows_1": at[(1, 1)]["peak_gb"], f"rows_{rows}": at[default]["peak_gb"]}
+            entry["smem_bytes"] = packed["smem"]
+        kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
