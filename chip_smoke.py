@@ -65,9 +65,14 @@ KERNEL_REPLACES = "ntm_tracker_tpu/ops/pallas/scan_cell.py:42"
 BPTT_SOURCE = "ntm_tracker_tpu_torch/csrc/scan_bptt.cu"
 BPTT_REPLACES = {
     "forward": "ntm_tracker_tpu/ops/pallas/scan_bptt.py:269",
+    "token_projection": "ntm_tracker_tpu/ops/pallas/scan_bptt.py:372",
     "backward": "ntm_tracker_tpu/ops/pallas/scan_bptt.py:312",
     "grad_reduce": "ntm_tracker_tpu/ops/pallas/scan_bptt.py:542",
 }
+# B2's backward and reduction before this design (PERF.md, NVIDIA H100
+# 80GB HBM3 at 700 W): one row per block, no projection, dtokens always,
+# and the 64 x 64 reduction
+PREVIOUS_MS = {"backward": 383.4, "grad_reduce": 24.7}
 # the training slice's shape: the JAX bench's cached-token train step
 # (ntm_tracker_tpu/benchmarks.py:646), B=256 rows of L=20 frames
 TRAIN_B, TRAIN_L = 256, 20
@@ -154,10 +159,13 @@ def scan_cell_work(cfg, B: int, T: int, IN: int) -> tuple[float, float]:
     return 4.0 * floats, float(B * T * per_step)
 
 
-def scan_bptt_work(cfg, B: int, T: int, IN: int) -> dict:
+def scan_bptt_work(cfg, B: int, T: int, IN: int, need_dtokens: bool = False) -> dict:
     """(bytes, operations) per B2 kernel, as scan_cell_work counts them:
     every input read once, every output written once (float32), matmul
-    FLOPs at 2 per multiply-add plus the element operations."""
+    FLOPs at 2 per multiply-add plus the element operations. The backward
+    is counted as the call does it: the token projection and the
+    recurrence together (the projection's output is internal), and without
+    dtokens no token rows in the transposed product and no dtokens write."""
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
     R, W, S = cfg.read_head_size, cfg.write_head_size, cfg.shift_space
     Hc, L, O = cfg.controller_hidden_size, cfg.controller_num_layers, cfg.output_dim
@@ -167,8 +175,9 @@ def scan_bptt_work(cfg, B: int, T: int, IN: int) -> dict:
     state = N * D + H * N + R * D + 2 * L * Hc
     fwd_bytes, fwd_ops = scan_cell_work(cfg, B, T, IN)
     fwd_bytes += 4.0 * B * T * state                 # the residual streams
+    t_rows = [k_rows[0] - (0 if need_dtokens else IN)] + k_rows[1:]
     per_step_bwd = (
-        sum(2 * k * 4 * Hc for k in k_rows) + 2 * Hc * (P + O)  # transposed products
+        sum(2 * k * 4 * Hc for k in t_rows) + 2 * Hc * (P + O)  # transposed products
         + 15 * L * Hc                                  # LSTM gate cotangents
         + 4 * R * N * D + (4 * W + 6) * N * D         # read, erase/add
         + (10 + 4 * S) * H * N                         # sharpen, shift, gate, softmax
@@ -176,13 +185,16 @@ def scan_bptt_work(cfg, B: int, T: int, IN: int) -> dict:
     )
     bwd_ops = B * T * per_step_bwd + fwd_ops          # plus the recompute
     bwd_floats = (weights + B * T * (IN + state + O) + B * state      # read
-                  + B * T * (IN + sum(k_rows) + 4 * Hc * L + Hc + P) + B * state)  # written
+                  + B * T * ((IN if need_dtokens else 0) + sum(k_rows) + 4 * Hc * L + Hc + P + O)
+                  + B * state)                                       # written
     reduce = []
-    for K, J in [(k, 4 * Hc) for k in k_rows] + [(Hc, P), (Hc, O)]:
+    for K, J in [(k, 4 * Hc) for k in k_rows] + [(Hc, P + O)]:
         M = B * T
         reduce.append((4.0 * (M * K + M * J + (K + 1) * J), 2.0 * M * (K + 1) * J))
+    proj = (4.0 * (B * T * IN + IN * 4 * Hc + 4 * Hc + B * T * 4 * Hc), 2.0 * B * T * IN * 4 * Hc)
     return {
         "forward": (fwd_bytes, fwd_ops),
+        "token_projection": proj,
         "backward": (4.0 * bwd_floats, float(bwd_ops)),
         "grad_reduce": (sum(b for b, _ in reduce), sum(o for _, o in reduce)),
     }
@@ -267,26 +279,30 @@ def cotangent_loss(logits, final, cot):
     return out
 
 
-def grads_of(scan, params, ncfg, tokens, cot, state_fn):
+def grads_of(scan, params, ncfg, tokens, cot, state_fn, token_grads=True):
     """(logits, final state, {name: grad}) of cotangent_loss through
     scan(params, cfg, tokens, state), grads wrt every parameter (init_*
-    through the state) and the tokens."""
+    through the state) and, with token_grads, the tokens (else the tokens
+    need no gradient, as the training path's cached features)."""
     from ntm_tracker_tpu_torch.train.optim import tree_map
 
     p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
-    tok = tokens.detach().clone().requires_grad_()
+    tok = tokens.detach().clone().requires_grad_(token_grads)
     logits, final = scan(p, ncfg, tok, state_fn(p))
     leaves = named_leaves(p)
-    wrt = [tok, *leaves.values()]
+    wrt = [tok, *leaves.values()] if token_grads else list(leaves.values())
     grads = torch.autograd.grad(cotangent_loss(logits, final, cot), wrt, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, grads)]
-    return logits.detach(), final, dict(zip(["tokens", *leaves], grads))
+    return logits.detach(), final, dict(zip(["tokens", *leaves] if token_grads else list(leaves), grads))
 
 
 def grad_errors(g, ref) -> dict:
-    """{name: max |g - ref| / max |ref|} (absolute where ref is all zero)."""
+    """{name: max |g - ref| / max |ref|} (absolute where ref is all zero),
+    over the names g has."""
     out = {}
     for k, r in ref.items():
+        if k not in g:
+            continue
         scale = float(r.abs().max())
         out[k] = max_abs(g[k], r) / (scale if scale > 0 else 1.0)
     return out
@@ -386,59 +402,80 @@ def bptt_cases() -> dict:
     }
 
 
-def phase_bptt(dev: torch.device, IN: int) -> None:
+def phase_bptt(dev: torch.device, IN: int) -> dict:
     """B2 against its plain version (autograd through the plain loop) on
-    the card: logits, final state and every gradient, on five cases; and
-    B1's trainable wrapper against the same plain version."""
+    the card: logits, final state and every gradient, on five cases, with
+    the backward at one and two rows per block (where two fit), and the
+    flagship cases also with tokens that need no gradient (the backward
+    then computes no dtokens); and B1's trainable wrapper against the same
+    plain version. Returns the tiles each case ran at."""
     from ntm_tracker_tpu_torch.config import NTMConfig
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
     from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt, ntm_scan_fused_bptt_reference
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused_trainable
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import MAX_SMEM_BYTES, ntm_scan_fused_trainable
 
-    def compare(name, ncfg, B, T, scan, params, tokens, cot, state_fn):
+    def compare(name, ncfg, B, T, scan, params, tokens, cot, state_fn, variants=((None, True),)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        kl, kf, kg = grads_of(scan, params, ncfg, tokens, cot, state_fn)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         pl, pf, pg = grads_of(ntm_scan_fused_bptt_reference, params, ncfg, tokens, cot, state_fn)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        fwd = max(state_diffs(kl, kf, pl, pf).values())
-        gerr = grad_errors(kg, pg)
-        finite = all(bool(torch.isfinite(g).all()) for g in kg.values())
-        worst = max(gerr, key=gerr.get)
-        log("bptt", f"{name} B={B} T={T}: fwd max_abs={fwd:.3e} (tol {F32_TOL:g}); grads max rel={gerr[worst]:.3e} "
-                    f"at {worst} (tol {GRAD_TOL:g}); finite={finite}; fwd+bwd {1e3 * (t1 - t0):.1f} ms, "
-                    f"plain {1e3 * (t2 - t1):.1f} ms (host clock, first call)")
-        if not finite or fwd > F32_TOL or gerr[worst] > GRAD_TOL:
-            raise AssertionError(f"{name}: the kernels disagree with the plain version")
-        return {"grad_rel": gerr[worst], "grads": kg}
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        worst, kg = 0.0, None
+        for rows, token_grads in variants:
+            kscan = scan if rows is None else functools.partial(scan, backward_rows_per_block=rows)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kl, kf, kg = grads_of(kscan, params, ncfg, tokens, cot, state_fn, token_grads)
+            torch.cuda.synchronize()
+            kernel_ms = 1e3 * (time.perf_counter() - t0)
+            fwd = max(state_diffs(kl, kf, pl, pf).values())
+            gerr = grad_errors(kg, pg)
+            finite = all(bool(torch.isfinite(g).all()) for g in kg.values())
+            gw = max(gerr, key=gerr.get)
+            tag = "" if rows is None else f" rows {rows}, token grads {token_grads}"
+            log("bptt", f"{name} B={B} T={T}{tag}: fwd max_abs={fwd:.3e} (tol {F32_TOL:g}); grads max rel={gerr[gw]:.3e} "
+                        f"at {gw} (tol {GRAD_TOL:g}, {len(gerr)} gradients); finite={finite}; fwd+bwd {kernel_ms:.1f} ms, "
+                        f"plain {plain_ms:.1f} ms (host clock, first call)")
+            if not finite or fwd > F32_TOL or gerr[gw] > GRAD_TOL:
+                raise AssertionError(f"{name}{tag}: the kernels disagree with the plain version")
+            worst = max(worst, gerr[gw])
+        return {"grad_rel": worst, "grads": kg}
+
+    def tiles(ncfg):
+        return [r for r in scan_bptt.BACKWARD_ROWS if scan_bptt.smem_bytes(ncfg, IN, True, r) <= MAX_SMEM_BYTES]
 
     cases = bptt_cases()
-    out = {}
+    out, ran = {}, {}
     for i, (name, (ncfg, B, T)) in enumerate(cases.items()):
         params, tokens, cot = scan_case(ncfg, B, T, 300 + i, dev, IN)
+        ran[name] = tiles(ncfg)
+        variants = [(r, g) for r in ran[name] for g in ((True, False) if "flagship" in name else (True,))]
         out[name] = compare(name, ncfg, B, T, ntm_scan_fused_bptt, params, tokens, cot,
-                            lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B))
+                            lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B), variants)
     log("bptt", f"f32 gradient error vs T: T=65 (B=70) {out['b_flagship']['grad_rel']:.3e}, "
-                f"T=1300 (B=1) {out['a_flagship']['grad_rel']:.3e} relative (tol {GRAD_TOL:g})")
+                f"T=1300 (B=1) {out['a_flagship']['grad_rel']:.3e} relative (tol {GRAD_TOL:g}); backward rows per "
+                f"block run per case {ran} (two rows do not fit the two-layer case's shared memory)")
 
     # e: w_conv exactly one-hot at T=1: every w_conv entry is 0 or 1, so the
     # gamma gradient is exactly 0 (log 1 = 0, and 0 where w_conv == 0)
     ncfg, B, params, tokens, cot, zero_state, cols, (n_zero, n_one) = wconv_zero_case(dev, IN)
-    res = compare("e_wconv_zero", ncfg, B, 1, ntm_scan_fused_bptt, params, tokens, cot, zero_state)
-    g_gamma = (res["grads"]["heads_b"][cols["gamma"]], res["grads"]["heads_w"][:, cols["gamma"]])
-    if any(bool((g != 0).any()) for g in g_gamma):
-        raise AssertionError("d/dgamma must be exactly 0 where w_conv is 0 or 1")
+    ran["e_wconv_zero"] = tiles(ncfg)
+    for rows in ran["e_wconv_zero"]:
+        res = compare(f"e_wconv_zero rows {rows}", ncfg, B, 1, functools.partial(
+            ntm_scan_fused_bptt, backward_rows_per_block=rows), params, tokens, cot, zero_state)
+        g_gamma = (res["grads"]["heads_b"][cols["gamma"]], res["grads"]["heads_w"][:, cols["gamma"]])
+        if any(bool((g != 0).any()) for g in g_gamma):
+            raise AssertionError("d/dgamma must be exactly 0 where w_conv is 0 or 1")
     log("bptt", f"e_wconv_zero: {n_zero} w_conv entries exactly 0, {n_one} exactly 1; kernel dgamma "
-                f"(heads_b, heads_w gamma columns) exactly 0 and every gradient finite")
+                f"(heads_b, heads_w gamma columns) exactly 0 and every gradient finite at rows {ran['e_wconv_zero']}")
 
     # B1 with gradients: the kernel's forward, autograd of the plain loop behind it
     ncfg, B, T = NTMConfig(), 2, 65
     params, tokens, cot = scan_case(ncfg, B, T, 330, dev, IN)
     compare("scan_cell.ntm_scan_fused_trainable", ncfg, B, T, lambda p, c, t, st: ntm_scan_fused_trainable(p, c, t, st),
             params, tokens, cot, lambda p: init_ntm_state(p, ncfg, B))
+    return ran
 
 
 def addressing_inputs(ncfg, B: int, seed: int, dev: torch.device) -> list:
@@ -842,7 +879,8 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     log("train", f"synthetic cached batch B={TRAIN_B} L={TRAIN_L} (float16 tokens {tuple(batch['features'].shape)}) "
                  f"made and uploaded in {time.perf_counter() - t0:.1f}s")
     train_step, eval_step = exp.make_train_step(), exp.make_eval_step()
-    kernels = (ntm_scan_fused, scan_bptt.bptt_forward, scan_bptt.bptt_backward, scan_bptt.grad_reduce)
+    kernels = (ntm_scan_fused, scan_bptt.bptt_forward, scan_bptt.token_projection, scan_bptt.bptt_backward,
+               scan_bptt.grad_reduce)
 
     # ---- the main path: 1 warm-up + 3 timed train steps, 1 eval step -----------
     for k in kernels:
@@ -864,9 +902,11 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     eval_loss = float(aux["loss"])
     eval_ms = 1e3 * (time.perf_counter() - t0)
     counts = {k.__name__: k.launches for k in kernels}
-    expected = {"ntm_scan_fused": 1, "bptt_forward": 4, "bptt_backward": 4, "grad_reduce": 4 * (L + 2)}
+    expected = {"ntm_scan_fused": 1, "bptt_forward": 4, "token_projection": 4, "bptt_backward": 4,
+                "grad_reduce": 4 * (L + 1)}
     log("train", f"main path launches {counts} (expected {expected}; each grad_reduce call is two kernels, "
-                 f"the partial sums and their fixed-order sum)")
+                 f"the partial sums and their fixed-order sum; one call per LSTM layer and one for the head and "
+                 f"output linears together)")
     if counts != expected:
         raise AssertionError("the training path did not run through the kernels as expected")
     # an update far below a parameter's ulp leaves it as it was (init_w's
@@ -956,47 +996,88 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
         logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state)
         dlogits = torch.randn_like(logits) * 1e-2
         dfinal = tree_map(torch.zeros_like, final)
-        bwd_ms = cuda_ms(lambda: scan_bptt.bptt_backward(params, ncfg, tokens, res, dlogits, dfinal),
-                         iters=2, warmup=1)
-        _, _, (li, dgates, ctrl, dctl) = scan_bptt.bptt_backward(params, ncfg, tokens, res, dlogits, dfinal)
-        del res
-        K0, Hc = li.shape[2], ncfg.controller_hidden_size
-        dl2 = dlogits.reshape(B * T, -1)
-        products = [(li[0], dgates[0], K0), (ctrl, dctl, Hc), (ctrl, dl2, Hc)]
-        red_ms = cuda_ms(lambda: [scan_bptt.grad_reduce(a, g, k) for a, g, k in products], iters=3, warmup=1)
+        # the token projection alone, its plain version and one library call
+        W0, b0 = params["controller"][0]["kernel"], params["controller"][0]["bias"]
+        proj = scan_bptt.token_projection(tokens, W0, b0)
+        proj_err = max_abs(proj, scan_bptt.token_projection_reference(tokens, W0, b0))
+        proj_ms = cuda_ms(lambda: scan_bptt.token_projection(tokens, W0, b0), iters=5, warmup=1)
+        proj_plain_ms = cuda_ms(lambda: scan_bptt.token_projection_reference(tokens, W0, b0), iters=5, warmup=1)
+        proj_lib_ms = cuda_ms(lambda: torch.addmm(b0, tokens.reshape(B * T, IN), W0[:IN]), iters=5, warmup=1)
+        # the backward as the route runs it (the projection, then the
+        # recurrence without dtokens at the route's tile), and the recurrence
+        # alone on the projection computed above: at the route's tile and at
+        # one row per block, without and with dtokens
+        rows = scan_bptt.backward_tile(ncfg, IN, B, dev)
+        bwd_ms = cuda_ms(lambda: scan_bptt.bptt_backward(
+            params, ncfg, tokens, scan_bptt.token_projection(tokens, W0, b0), res, dlogits, dfinal,
+            need_dtokens=False), iters=2, warmup=1)
+        variants = {f"rows {rows}, no dtokens (the route)": (rows, False), f"rows {rows}, dtokens": (rows, True),
+                    "rows 1, no dtokens": (1, False), "rows 1, dtokens": (1, True)}
+        rec_variants = {}
+        for name, (r, need) in variants.items():
+            rec_variants[name] = cuda_ms(lambda: scan_bptt.bptt_backward(
+                params, ncfg, tokens, proj, res, dlogits, dfinal, need_dtokens=need, rows_per_block=r),
+                iters=2, warmup=1)
+        rec_ms = rec_variants[list(variants)[0]]
+        _, dst, ops = scan_bptt.bptt_backward(params, ncfg, tokens, proj, res, dlogits, dfinal, need_dtokens=False)
+        _, dst2, ops2 = scan_bptt.bptt_backward(params, ncfg, tokens, proj, res, dlogits, dfinal, need_dtokens=False)
+        KIN = IN + ncfg.read_head_size * ncfg.mem_dim + ncfg.controller_hidden_size
+        # li's last columns are row padding the kernel never writes
+        bwd_same = (all(torch.equal(a, b) for a, b in zip(scan_bptt.flatten_state(dst), scan_bptt.flatten_state(dst2)))
+                    and torch.equal(ops[0][..., :KIN], ops2[0][..., :KIN])
+                    and all(torch.equal(a, b) for a, b in zip(ops[1:], ops2[1:])))
+        del dst2, ops2, res, proj
+        li, dgates, ctrl, dctl = ops
+        Hc = ncfg.controller_hidden_size
+        products = [(li[0], dgates[0], KIN), (ctrl, dctl, Hc)]
+        red_ms = cuda_ms(lambda: [scan_bptt.grad_reduce(a, g, k) for a, g, k in products], iters=5, warmup=1)
         red_plain_ms = cuda_ms(lambda: [scan_bptt.grad_reduce_reference(a, g, k) for a, g, k in products],
-                               iters=3, warmup=1)
-        red_lib_ms = cuda_ms(lambda: [torch.matmul(a[:, :k].T, g) for a, g, k in products], iters=3, warmup=1)
+                               iters=5, warmup=1)
+        red_lib_ms = cuda_ms(lambda: [torch.matmul(a[:, :k].T, g) for a, g, k in products], iters=5, warmup=1)
         red_abs = red_rel = 0.0
+        red_same = True
         for a, g, k in products:
             ref = scan_bptt.grad_reduce_reference(a, g, k)
-            e = max_abs(scan_bptt.grad_reduce(a, g, k), ref)
+            got = scan_bptt.grad_reduce(a, g, k)
+            e = max_abs(got, ref)
             red_abs, red_rel = max(red_abs, e), max(red_rel, e / float(ref.abs().max()))
-        again = scan_bptt.grad_reduce(*products[0])
-        same_bits = torch.equal(again, scan_bptt.grad_reduce(*products[0]))
+            red_same = red_same and torch.equal(got, scan_bptt.grad_reduce(a, g, k))
+        tiles = {f"{k + 1}x{g.shape[1]}": list(scan_bptt.gemm_tile(k + 1, g.shape[1])) for _, g, k in products}
+        del ops, li, dgates, ctrl, dctl, products
     b1_bound = bound(*scan_cell_work(ncfg, B, T, IN))
     log("times", f"{smi}: B1 (the eval step's kernel) at B={B} T={T}: {b1_ms:.3f} ms, bound {b1_bound[0]:.3f} ms "
                  f"by {b1_bound[1]}; logits vs the plain loop's max_abs {b1_err:.3e} (tol {F32_TOL:g})")
     if b1_err > F32_TOL:
         raise AssertionError("B1 disagrees with the plain loop at the training shape")
     work = scan_bptt_work(ncfg, B, T, IN)
-    log("times", f"{smi}: B2 at B={B} T={T}: forward (residuals) {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, "
-                 f"reduction (L+2={L + 2} calls, two kernels each) {red_ms:.3f} ms; plain: forward {plain_fwd:.1f} ms, "
-                 f"backward {plain_bwd:.1f} ms, reduction {red_plain_ms:.3f} ms (torch.matmul alone {red_lib_ms:.3f} ms); "
-                 f"reduction vs plain max_abs {red_abs:.3e}, rel {red_rel:.3e} (tol 1e-4), same bits on a rerun: {same_bits}")
+    log("times", f"{smi}: B2 at B={B} T={T}: forward (residuals) {fwd_ms:.3f} ms; token projection {proj_ms:.3f} ms "
+                 f"(plain {proj_plain_ms:.3f} ms, torch.addmm {proj_lib_ms:.3f} ms, max_abs vs plain {proj_err:.3e}); "
+                 f"backward (projection + recurrence, the route) {bwd_ms:.3f} ms (before: {PREVIOUS_MS['backward']} ms: "
+                 f"one row per block, no projection, dtokens); the recurrence alone "
+                 + "; ".join(f"{k} {v:.3f} ms" for k, v in rec_variants.items())
+                 + f"; backward same bits on a rerun: {bwd_same}; its shared memory per block "
+                 + ", ".join(f"{r} rows {scan_bptt.smem_bytes(ncfg, IN, True, r)} B" for r in scan_bptt.BACKWARD_ROWS))
+    log("times", f"{smi}: B2 reduction (L+1={L + 1} calls, two kernels each; tiles {tiles}) {red_ms:.3f} ms "
+                 f"(before: {PREVIOUS_MS['grad_reduce']} ms); torch.matmul on the same products {red_lib_ms:.3f} ms; "
+                 f"plain {red_plain_ms:.3f} ms; plain train step: forward {plain_fwd:.1f} ms, backward {plain_bwd:.1f} ms; "
+                 f"reduction vs plain max_abs {red_abs:.3e}, rel {red_rel:.3e} (tol 1e-4), same bits on a rerun: {red_same}")
     for name, (nb, no) in work.items():
         ms, by = bound(nb, no)
         log("times", f"B2 {name} bound {ms:.3f} ms by {by} ({nb / 1e9:.3f} GB, {no / 1e9:.3f} GFLOP)")
-    if red_rel > 1e-4 or not same_bits:
+    if red_rel > 1e-4 or not red_same:
         raise AssertionError("the reduction kernel disagrees with its plain version or is not deterministic")
+    if proj_err > F32_TOL or not bwd_same:
+        raise AssertionError("the token projection disagrees with its plain version, or the backward is not deterministic")
     check_budget("times")
     gw = max(err256["grad"], key=err256["grad"].get)
     return {
         "counts": counts, "step_ms": step, "eval_ms": eval_ms, "plain_step_ms": plain_step,
         "forward": (fwd_ms, plain_fwd, None), "backward": (bwd_ms, plain_bwd, None),
+        "token_projection": (proj_ms, proj_plain_ms, proj_lib_ms),
         "grad_reduce": (red_ms, red_plain_ms, red_lib_ms), "work": work, "grad_vs_f64": f64_err,
         "errors": {"forward": (fwd_err, None), "backward": (err256["grad_abs"], err256["grad"][gw]),
-                   "grad_reduce": (red_abs, red_rel)},
+                   "token_projection": (proj_err, None), "grad_reduce": (red_abs, red_rel)},
+        "backward_rows": rows, "recurrence_ms": rec_ms, "recurrence_variants": rec_variants, "reduce_tiles": tiles,
         "b1": {"launches": counts["ntm_scan_fused"], "B": B, "T": T, "ms": b1_ms, "bound_ms": b1_bound[0],
                "bound_by": b1_bound[1], "max_abs_err": b1_err},
         "inputs": (params, ncfg, tokens),
@@ -1108,9 +1189,10 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
         logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state)
         dlogits = torch.randn(logits.shape, generator=gen, device=dev) * 1e-2
         dfinal = tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev) * 1e-2, final)
-        dtok, dst, ops = scan_bptt.bptt_backward(params, ncfg, tokens, res, dlogits, dfinal)
-        del res
-        ref = [dtok, *scan_bptt.flatten_state(dst), *scan_packed.weight_grads(ncfg, IN, ops, dlogits)]
+        proj = scan_bptt.token_projection(tokens, params["controller"][0]["kernel"], params["controller"][0]["bias"])
+        dtok, dst, ops = scan_bptt.bptt_backward(params, ncfg, tokens, proj, res, dlogits, dfinal)
+        del res, proj
+        ref = [dtok, *scan_bptt.flatten_state(dst), *scan_bptt.weight_grads(ncfg, IN, ops)]
         del ops
         L = ncfg.controller_num_layers
         grad_names = ["tokens", "M0", "w0", "read0", *[f"c0[{l}]" for l in range(L)], *[f"h0[{l}]" for l in range(L)],
@@ -1121,7 +1203,7 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
             lo, fi, res = scan_packed.packed_forward_residuals(params, ncfg, tokens, state, rows)
             dt, ds, ops = scan_packed.packed_backward(params, ncfg, tokens, res, dlogits, dfinal, brows)
             del res
-            return lo, fi, [dt, *scan_bptt.flatten_state(ds), *scan_packed.weight_grads(ncfg, IN, ops, dlogits)]
+            return lo, fi, [dt, *scan_bptt.flatten_state(ds), *scan_bptt.weight_grads(ncfg, IN, ops)]
 
         train_out = {}
         for rows, brows in tiles:
@@ -1165,7 +1247,7 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
                 params, ncfg, tokens, res, dlogits, dfinal, brows), iters=2, warmup=0)
         _, _, ops = scan_packed.packed_backward(params, ncfg, tokens, res, dlogits, dfinal, bwd_rows)
         del res
-        ms["reduction"] = cuda_ms(lambda: scan_packed.weight_grads(ncfg, IN, ops, dlogits), iters=2, warmup=0)
+        ms["reduction"] = cuda_ms(lambda: scan_bptt.weight_grads(ncfg, IN, ops), iters=2, warmup=0)
         del ops
         log("times", f"{smi}: B={B} T={T} packed kernels by rows per block (CUDA events, 2 launches each): "
                      + "; ".join(f"{k} " + ", ".join(f"{r}: {v:.3f} ms" for r, v in ms[k].items())
@@ -1193,7 +1275,7 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
     plain_res_fwd, plain_bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     plain_peak = torch.cuda.max_memory_allocated() / 1e9
     del lo, fi, loss, live
-    work = scan_bptt_work(ncfg, B, T, IN)
+    work = scan_bptt_work(ncfg, B, T, IN, need_dtokens=True)  # B4's backward writes dtokens
     bounds = {"forward": bound(*scan_cell_work(ncfg, B, T, IN)), "forward_residuals": bound(*work["forward"]),
               "backward": bound(*work["backward"]), "reduction": bound(*work["grad_reduce"])}
     log("times", f"{smi}: B={B} T={T} plain packed version: forward {plain_fwd:.1f} ms (no gradients); recording "
@@ -1291,7 +1373,7 @@ def main() -> int:
     check_budget("kernel")
 
     # ---- 3b. the training kernels (B2) vs their plain version -----------------
-    phase_bptt(dev, IN)
+    bptt_tiles = phase_bptt(dev, IN)
     check_budget("bptt")
 
     # ---- 3c. the addressing kernel (B3) vs its plain version, and its times ----
@@ -1416,19 +1498,29 @@ def main() -> int:
                              "device_loop": fleet["loop_counts"]["ntm_scan_fused"], "train": train["b1"]["launches"]},
         "train_shape": {k: v for k, v in train["b1"].items() if k != "launches"},
     }]
-    for name, launches in (("forward", "bptt_forward"), ("backward", "bptt_backward"),
-                           ("grad_reduce", "grad_reduce")):
+    bptt = {}
+    for name, launches in (("forward", "bptt_forward"), ("token_projection", "token_projection"),
+                           ("backward", "bptt_backward"), ("grad_reduce", "grad_reduce")):
         ms, plain, lib = train[name]
         b_ms, b_by = bound(*train["work"][name])
         abs_err, rel_err = train["errors"][name]
-        kernels.append({
+        bptt[name] = {
             "name": f"scan_bptt.{name}", "route": "cuda", "source": BPTT_SOURCE, "replaces": BPTT_REPLACES[name],
             "launches": train["counts"][launches], "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-        })
+        }
+        kernels.append(bptt[name])
     # the main path's gradients against the plain loop in float64, both routes
-    kernels[2]["max_rel_err_vs_float64"] = train["grad_vs_f64"]
-    kernels[-1]["kernels_per_launch"] = 2  # ntm_grad_partial_kernel, then ntm_grad_sum_kernel
+    bptt["backward"].update({
+        "max_rel_err_vs_float64": train["grad_vs_f64"], "rows_per_block": train["backward_rows"],
+        "projection_ms": train["token_projection"][0], "recurrence_ms": train["recurrence_ms"],
+        "needs_dtokens": False, "recurrence_ms_by_variant": train["recurrence_variants"],
+        "rows_per_block_in_phase_bptt": bptt_tiles,
+    })
+    bptt["grad_reduce"].update({
+        "kernels_per_launch": 2,  # ntm_grad_partial_kernel, then ntm_grad_sum_kernel
+        "tile": train["reduce_tiles"],
+    })
     # B3 at the fleet's batch (64); its times at B=1 and 256 beside them
     at64 = addr["times"][FLEET_CAP]
     kernels.append({

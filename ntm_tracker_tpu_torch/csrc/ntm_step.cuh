@@ -189,6 +189,54 @@ __device__ __forceinline__ void gemv(const float* __restrict__ Wm,
   }
 }
 
+// ---- a product over a tile of RT batch rows (scan_bptt.cu's backward,
+// scan_packed.cu) ---------------------------------------------------------------
+
+// acc[c][r] = sum_k xT[k*RT + r] * Wm[k*ld + col[c]] for the tile's RT rows
+// and NC columns col[c] = min(j0 + c*NT, ncol - 1): each weight element is
+// loaded once and used RT times, and each tile-input load serves NC
+// columns. NC > 1 keeps NC independent weight loads in flight per k, so
+// the 4*Hc = 800 LSTM columns take one pass of 512 threads, not two; the
+// loop over k is unrolled UNROLL times, so NC * UNROLL loads are in flight.
+template <int RT, int NC, int UNROLL = 4>
+__device__ __forceinline__ void tile_dot(const float* __restrict__ Wm, int ld, int j0, int ncol, const float* xT,
+                                         int K, float (&acc)[NC][RT]) {
+  const float* wc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    wc[c] = Wm + min(j0 + c * NT, ncol - 1);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) acc[c][r] = 0.f;
+  }
+#pragma unroll UNROLL
+  for (int k = 0; k < K; ++k) {
+    float wv[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) wv[c] = __ldg(wc[c] + (size_t)k * ld);
+    const float* xk = xT + k * RT;
+    if constexpr (RT % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < RT; r += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xk + r);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          acc[c][r] = fmaf(xv.x, wv[c], acc[c][r]);
+          acc[c][r + 1] = fmaf(xv.y, wv[c], acc[c][r + 1]);
+          acc[c][r + 2] = fmaf(xv.z, wv[c], acc[c][r + 2]);
+          acc[c][r + 3] = fmaf(xv.w, wv[c], acc[c][r + 3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float xv = xk[r];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[c][r] = fmaf(xv, wv[c], acc[c][r]);
+      }
+    }
+  }
+}
+
 // The addressing phases of one step, everything after the head linear:
 // from the raw head controls in ctl (the fused linear's column order k,
 // beta, g, sw, gamma, erase, add) and M_in / w_in, the new w_out, read_out

@@ -1,48 +1,71 @@
 // Whole-sequence NTM BPTT for training: a forward kernel that streams
-// residuals, a backward kernel that walks the steps in reverse, and a
-// reduction kernel for the parameter gradients.
+// residuals, a token projection and a backward kernel that walks the steps
+// in reverse, and a reduction kernel for the parameter gradients.
 //
 // Replaces ntm_tracker_tpu/ops/pallas/scan_bptt.py: _fwd_res_kernel (the
 // forward with residual streams), _bwd_kernel (the hand-derived backward)
 // and the parameter-gradient accumulation that _bwd_kernel does in place.
 //
-//   forward   ntm_scan_kernel<true> (ntm_step.cuh): B1's loop, one block
-//             per batch row, plus each step's INPUT state (M, w, read, c,
-//             h) written to [B, T, ...] residual streams.
-//   backward  ntm_bptt_bwd_kernel: one block per batch row walks
-//             t = T-1 .. 0. Each step reloads its input state from the
-//             residuals, recomputes the step's intermediates with the same
-//             ntm_step() as the forward, then applies the VJPs of the whole
-//             chain (read, erase/add, sharpen with the +1e-3 normalizer,
-//             Py2-offset shift, gate, beta-softmax, cosine across slots or
-//             slotwise, tanh(k), the head and output linears, the stacked
-//             LSTM) and carries dM, dw, dread, dc, dh in shared memory to
-//             the step before. It writes dtokens, dstate0, and per step the
-//             operands of the weight gradients: each layer's input and
-//             gate cotangents, the controller output and the head-control
-//             cotangents.
-//   reduce    ntm_grad_partial_kernel + ntm_grad_sum_kernel: dW = A^T G
-//             over the B*T rows, with a row of ones appended to A for the
-//             bias. Each block owns one 64x64 output tile of one row chunk
-//             and sums its rows in order; the second kernel adds the chunks
-//             in order. No atomics: the gradients are the same bits on
-//             every run.
+//   forward     ntm_scan_kernel<true> (ntm_step.cuh): B1's loop, one block
+//               per batch row, plus each step's INPUT state (M, w, read, c,
+//               h) written to [B, T, ...] residual streams.
+//   projection  ntm_token_proj_kernel: proj = X W0[:IN] + b0 over all B*T
+//               steps at once, the token part of every step's layer-0
+//               product, which does not depend on the recurrence.
+//   backward    ntm_bptt_bwd_kernel<RT>: one block per tile of RT batch
+//               rows walks t = T-1 .. 0. Each step reloads the rows' input
+//               state from the residuals, recomputes the step (layer 0's
+//               gates from proj plus [read | h] W0[IN:], the other
+//               products as in the forward, then the addressing of all
+//               the tile's rows at once), applies the VJPs of the whole
+//               chain (read, erase/add, sharpen with the +1e-3 normalizer,
+//               Py2-offset shift, gate, beta-softmax, cosine across slots or
+//               slotwise, tanh(k), the head and output linears, the stacked
+//               LSTM) and carries dM, dw, dread, dc, dh in shared memory to
+//               the step before. It writes dstate0, dtokens only when asked,
+//               and per step the operands of the weight gradients: each
+//               layer's input and gate cotangents, the controller output and
+//               the head-control and logit cotangents side by side.
+//   reduce      ntm_grad_partial_kernel + ntm_grad_sum_kernel: dW = A^T G
+//               over the B*T rows, with a column of ones appended to A for
+//               the bias. Each block owns one output tile of one row chunk
+//               and sums its rows in order; the second kernel adds the
+//               chunks in order. No atomics: the gradients are the same bits
+//               on every run.
 //
 // d/dgamma of w_conv^gamma is taken as 0 where w_conv == 0 (the limit;
 // the formula p * log(w_conv) gives 0 * -inf there), as scan_bptt.py:28-31
 // does.
 //
-// What bounds it on an H100: each step of both kernels is a serial chain of
-// small phases on one SM per row, and each step reads the [IN+R*D+Hc, 4*Hc]
-// LSTM kernel (2.5 MB at the flagship config) from L2 once in the forward
-// and twice in the backward (the recompute and the transposed product).
-// With one block per SM resident (512 threads at up to 128 registers), the
-// card runs 132 rows at a time and the aggregate L2 read rate, not HBM or
-// the FLOP rate, sets the time. The residual streams (14.7 KB per row per
-// step) and the reduction operands (~8 KB per row per step) go to HBM,
-// which has room for them at B=256, T=1300 (about 7.5 GB in all).
+// What bounds it on an H100, and what the design does about it (times:
+// chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W, B=256, T=1300):
+// - Each step of the forward and the backward is a serial chain of small
+//   phases on one SM per tile. Every step reads the [IN+R*D+Hc, 4*Hc] LSTM
+//   kernel (2.5 MB at the flagship config) from L2: the aggregate L2 read
+//   rate, not HBM or the FLOP rate, sets the time. The backward cuts those
+//   bytes three ways: a tile of RT = 2 rows reads each weight once per step
+//   for both rows (tile_dot in ntm_step.cuh, rows_dot_t below); the token
+//   rows W0[:IN] (1.6 MB) leave the recompute for the projection, a GEMM
+//   over all steps that reads them once; and the transposed product skips
+//   them too unless the caller asks for dtokens (the training path's
+//   tokens are cached features that need none). Per step and tile the
+//   backward then reads W0[IN:] twice (0.9 MB each), down from 2.5 MB
+//   twice per row: 383 ms before, 151 ms with all three.
+// - Shared memory bounds the tile: a row of the backward keeps ~105 KB at
+//   the flagship config, so two rows fit in one block and three do not
+//   (nor two of the two-layer, two-write-head config).
+// - The rest of a step is its ~40 barrier-separated phases; the recompute's
+//   addressing runs over the tile's rows at once (addressing_tile).
+// - The reduction is an f32 GEMM with a contraction of B*T = 332,800 rows
+//   and a small output (795 x 800 at most), split over row chunks to fill
+//   the card, and bound by the FMA rate. Its operands come straight from
+//   the backward's row-major [M, K] / [M, J] streams (li's rows padded to
+//   16 bytes) through a ring of cp.async stages, so the next slab loads
+//   while this one multiplies; layer 0's 795 x 800 outputs fit 10 x 5 tiles
+//   of 80 x 160 with 0.6% padding. 11.3 ms per step, against 24.7 ms before
+//   and 11.7 ms for torch.matmul on the same products.
 //
-// f32 only: the training path raises for a bf16 compute dtype.
+// f32 only (no TF32): the training path raises for a bf16 compute dtype.
 //
 // Plain C interface (no PyTorch headers): built by nvcc into a shared
 // library and called through ctypes (ntm_tracker_tpu_torch/_build.py).
@@ -51,6 +74,7 @@
 
 struct BwdArgs {
   const float* tokens;    // [B, T, IN]
+  const float* proj;      // [B*T, 4*Hc] X W0[:IN] + b0
   Weights wt;
   const float* res_M;     // [B, T, N, D]
   const float* res_w;     // [B, T, H, N]
@@ -68,133 +92,385 @@ struct BwdArgs {
   float* dread0;          // [B, R*D]
   float* dc0;             // [L, B, Hc]
   float* dh0;             // [L, B, Hc]
-  float* dtokens;         // [B, T, IN]
-  float* li;              // [L, B*T, KINmax] each layer's input
+  float* dtokens;         // [B, T, IN], written only when need_dtokens
+  float* li;              // [L, B*T, KINmax rounded up to 4] each layer's input
   float* dgates;          // [L, B*T, 4*Hc] each layer's gate cotangents
   float* ctrl;            // [B*T, Hc] the controller output
-  float* dctl;            // [B*T, P] the head-control cotangents
+  float* dctl;            // [B*T, P+O] the head-control cotangents, then the logits'
   Dims dm;
   Flags fl;
-  int B, T;
+  int B, T, need_dtokens;
 };
 
+// Offsets (in floats) of the backward's tile: RT rows of make_layout(dm,
+// true), each rounded to 16 bytes (row r starts at r * row), then the
+// tile's layer input, transposed [K][RT], where K is the widest product
+// input of the recompute ([read | h], the token part coming from the
+// projection, or [h_below | h]).
+struct BwdTile {
+  int row, xT, total;
+};
+
+__host__ __device__ inline BwdTile make_bwd_tile(const Dims& d, int RT) {
+  BwdTile s;
+  s.row = (make_layout(d, true).total + 3) & ~3;
+  s.xT = RT * s.row;
+  s.total = s.xT + imax(d.R * d.D + d.Hc, 2 * d.Hc) * RT;
+  return s;
+}
+
+// The backward's products are bound by L2 latency (a block issues a few
+// KB of weight loads and waits for them), so they keep more loads in
+// flight than the forward's: PROD_UNROLL iterations of tile_dot's k loop,
+// and two weight rows per warp in the transposed products.
+constexpr int PROD_UNROLL = 8;
+
+// acc[i][r] += g_r[j] * W[k_i * ld + j] summed over this lane's j < ncol
+// (j = lane, lane + 32, ...), for the NR weight rows k_i = k0 + i*NWARPS
+// (rows at or past kend repeat row kend - 1; the caller drops them) and
+// the tile's RT rows, g_r at g + r * row. Each lane keeps NR * PROD_UNROLL
+// weight loads in flight; the caller sums acc across the warp.
+template <int RT, int NR>
+__device__ __forceinline__ void rows_dot_t(const float* __restrict__ W, int ld, int k0, int kend, int ncol,
+                                           const float* g, int row, float (&acc)[NR][RT]) {
+  const int lane = threadIdx.x & 31;
+  const float* wr[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) wr[i] = W + (size_t)min(k0 + i * NWARPS, kend - 1) * ld;
+#pragma unroll PROD_UNROLL
+  for (int j = lane; j < ncol; j += 32) {
+    float wv[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) wv[i] = __ldg(wr[i] + j);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const float gv = g[r * row + j];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) acc[i][r] = fmaf(gv, wv[i], acc[i][r]);
+    }
+  }
+}
+
+// ntm_addressing() (ntm_step.cuh) over the tile's nr rows at once, row r's
+// arrays at smem + r * row, less what the backward does not read: the read
+// itself, and the new memory unless the read comes after the write. The
+// same operations in the same order per row; a warp per (row, head) runs
+// the softmax, gate, shift and sharpen of its head in one phase. Enters
+// after a __syncthreads() that published ctl, M_in and w_in; returns after
+// one that publishes the intermediates.
+__device__ __forceinline__ void addressing_tile(const Dims& dm, const Flags& fl, float* smem, const Layout& lay,
+                                                int row, int nr) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int N = dm.N, D = dm.D, H = dm.H, R = dm.R, W = dm.W, S = dm.S;
+  const int HD = H * D, WD = W * D, HN = H * N, ND = N * D;
+  const int oBeta = HD, oG = oBeta + H, oSw = oG + H, oGamma = oSw + S * H;
+  const int oErase = oGamma + H, oAdd = oErase + WD;
+  const int shift0 = -((S + 1) / 2);
+#define AP(r, f) (smem + (r) * row + lay.f)
+
+  // ---- squashed head parameters and the memory normalizer ----------------
+  for (int i = tid; i < nr * HD; i += NT) {
+    const int r = i / HD, q = i - r * HD;
+    AP(r, k)[q] = tanhf(AP(r, ctl)[q]);
+  }
+  for (int i = tid; i < nr * WD; i += NT) {
+    const int r = i / WD, q = i - r * WD;
+    AP(r, erase)[q] = sigmoid_f(AP(r, ctl)[oErase + q]);
+    AP(r, add)[q] = tanhf(AP(r, ctl)[oAdd + q]);
+  }
+  for (int i = tid; i < nr * H; i += NT) {
+    const int r = i / H, hh = i - r * H;
+    const float* ctl = AP(r, ctl);
+    AP(r, beta)[hh] = softplus_f(ctl[oBeta + hh]);
+    AP(r, g)[hh] = sigmoid_f(ctl[oG + hh]);
+    AP(r, gamma)[hh] = softplus_f(ctl[oGamma + hh]) + 1.f;
+    const float* s_raw = ctl + oSw + hh * S;
+    float mx = s_raw[0];
+    for (int j = 1; j < S; ++j) mx = fmaxf(mx, s_raw[j]);
+    float tot = 0.f;
+    for (int j = 0; j < S; ++j) tot += expf(s_raw[j] - mx);
+    for (int j = 0; j < S; ++j) AP(r, sw)[hh * S + j] = expf(s_raw[j] - mx) / tot;
+  }
+  if (fl.slotwise) {
+    for (int i = tid; i < nr * N; i += NT) {
+      const int r = i / N, n = i - r * N;
+      const float* M = AP(r, M_in);
+      float sq = 0.f;
+      for (int d = 0; d < D; ++d) sq = fmaf(M[n * D + d], M[n * D + d], sq);
+      AP(r, mss)[n] = sq;
+      AP(r, minv)[n] = rsqrtf(fmaxf(sq, 1e-12f));
+    }
+  } else {
+    for (int p = warp; p < nr * D; p += NWARPS) {
+      const int r = p / D, d = p - r * D;
+      const float* M = AP(r, M_in);
+      float sq = 0.f;
+      for (int n = lane; n < N; n += 32) sq = fmaf(M[n * D + d], M[n * D + d], sq);
+      sq = warp_sum(sq);
+      if (lane == 0) {
+        AP(r, mss)[d] = sq;
+        AP(r, minv)[d] = rsqrtf(fmaxf(sq, 1e-12f));
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nr * H; i += NT) {
+    const int r = i / H, hh = i - r * H;
+    const float* ks = AP(r, k) + hh * D;
+    float sq = 0.f;
+    for (int d = 0; d < D; ++d) sq = fmaf(ks[d], ks[d], sq);
+    AP(r, kss)[hh] = sq;
+    AP(r, kinv)[hh] = rsqrtf(fmaxf(sq, 1e-12f));
+  }
+  __syncthreads();
+
+  // ---- content similarity: u = k . Mtn, sim = u * |k|^-1 ----------------------
+  for (int i = tid; i < nr * HN; i += NT) {
+    const int r = i / HN, q = i - r * HN, hh = q / N, n = q - hh * N;
+    const float* M = AP(r, M_in);
+    const float* ks = AP(r, k) + hh * D;
+    const float* minv = AP(r, minv);
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float m = M[n * D + d] * (fl.slotwise ? minv[n] : minv[d]);
+      acc = fmaf(ks[d], m, acc);
+    }
+    AP(r, u)[q] = acc;
+    AP(r, sim)[q] = acc * AP(r, kinv)[hh];
+  }
+  __syncthreads();
+
+  // ---- softmax, gate, shift and sharpen: a warp per (row, head) ------------
+  for (int q = warp; q < nr * H; q += NWARPS) {
+    const int r = q / H, hh = q - r * H, o = hh * N;
+    const float* sim = AP(r, sim) + o;
+    const float* w_in = AP(r, w_in) + o;
+    float* wc = AP(r, wc) + o;
+    float* wg = AP(r, wg) + o;
+    const float bt = AP(r, beta)[hh], gt = AP(r, g)[hh];
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int n = lane; n < N; n += 32) mx = fmaxf(mx, sim[n] * bt);
+    mx = warp_max(mx);
+    float tot = 0.f;
+    for (int n = lane; n < N; n += 32) tot += expf(sim[n] * bt - mx);
+    tot = warp_sum(tot);
+    for (int n = lane; n < N; n += 32) {
+      const float wcv = expf(sim[n] * bt - mx) / tot;
+      wc[n] = wcv;
+      wg[n] = wcv * gt + w_in[n] * (1.f - gt);
+    }
+    __syncwarp();
+    const float gm = AP(r, gamma)[hh];
+    const float* sw = AP(r, sw) + hh * S;
+    float* wconv = AP(r, wconv) + o;
+    float* powed = AP(r, powed) + o;
+    float ps = 0.f;
+    for (int n = lane; n < N; n += 32) {
+      float conv = 0.f;
+      for (int j = 0; j < S; ++j) conv = fmaf(sw[j], wg[wrap(n + shift0 + j, N)], conv);
+      const float pw = powf(conv, gm);
+      wconv[n] = conv;
+      powed[n] = pw;
+      ps += pw;
+    }
+    ps = warp_sum(ps) + 1e-3f;
+    if (lane == 0) AP(r, denom)[hh] = ps;
+    float* w_out = AP(r, w_out) + o;
+    for (int n = lane; n < N; n += 32) w_out[n] = powed[n] / ps;
+  }
+  __syncthreads();
+
+  // ---- the erase/add write, when the read comes after it -------------------
+  if (fl.write_first) {
+    for (int i = tid; i < nr * ND; i += NT) {
+      const int r = i / ND, q = i - r * ND, n = q / D, d = q - n * D;
+      const float* w_out = AP(r, w_out);
+      float er = 1.f, ad = 0.f;
+      for (int wh = 0; wh < W; ++wh) {
+        const float ww = w_out[(R + wh) * N + n];
+        er *= 1.f - ww * AP(r, erase)[wh * D + d];
+        ad = fmaf(ww, AP(r, add)[wh * D + d], ad);
+      }
+      AP(r, M_out)[q] = AP(r, M_in)[q] * er + ad;
+    }
+    __syncthreads();
+  }
+#undef AP
+}
+
+#define RP(r, f) (smem + (r) * tile.row + lay.f)
+
+template <int RT>
 __global__ void __launch_bounds__(NT, 1) ntm_bptt_bwd_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Dims dm = a.dm;
   const int IN = dm.IN, N = dm.N, D = dm.D, H = dm.H, R = dm.R, W = dm.W, S = dm.S;
   const int Hc = dm.Hc, L = dm.L, O = dm.O, T = a.T, B = a.B;
-  const int RD = R * D, ND = N * D, HN = H * N, LH = L * Hc;
-  const int P = head_width(dm), KM = kin_max(dm);
-  const int oBeta = H * D, oG = oBeta + H, oSw = oG + H, oGamma = oSw + S * H;
-  const int oErase = oGamma + H, oAdd = oErase + W * D;
+  const int RD = R * D, ND = N * D, HN = H * N, LH = L * Hc, HD = H * D, WD = W * D, G4 = 4 * Hc;
+  const int P = head_width(dm), KM = (kin_max(dm) + 3) & ~3;  // li's row stride: 16-byte rows
+  const int oBeta = HD, oG = oBeta + H, oSw = oG + H, oGamma = oSw + S * H;
+  const int oErase = oGamma + H, oAdd = oErase + WD;
   const int shift0 = -((S + 1) / 2);
   const bool wf = a.fl.write_first != 0, slotwise = a.fl.slotwise != 0;
   const Layout lay = make_layout(dm, true);
-  // the step's input state (from the residuals) and recomputed output state
-  float* Mp = smem + lay.M_in;
-  float* wp = smem + lay.w_in;
-  float* rp = smem + lay.read_in;
-  float* cp = smem + lay.c_in;
-  float* hp = smem + lay.h_in;
-  const float* Mn = smem + lay.M_out;
-  const float* wn = smem + lay.w_out;
-  const float* cn = smem + lay.c_out;
-  const float* hn = smem + lay.h_out;
-  // the recomputed intermediates
-  const float* ctl = smem + lay.ctl;
-  const float* mss = smem + lay.mss;
-  const float* minv = smem + lay.minv;
-  const float* ks = smem + lay.k;
-  const float* kss = smem + lay.kss;
-  const float* kinv = smem + lay.kinv;
-  const float* beta = smem + lay.beta;
-  const float* gg = smem + lay.g;
-  const float* gamma = smem + lay.gamma;
-  const float* sw = smem + lay.sw;
-  const float* denom = smem + lay.denom;
-  const float* u = smem + lay.u;
-  const float* sim = smem + lay.sim;
-  const float* wc = smem + lay.wc;
-  const float* wg = smem + lay.wg;
-  const float* wconv = smem + lay.wconv;
-  const float* powed = smem + lay.powed;
-  const float* erase = smem + lay.erase;
-  const float* add = smem + lay.add;
-  // cotangents
-  float* dM = smem + lay.dM;        // carry: d M_t, then d M_new of the step
-  float* dMp = smem + lay.dMp;      // d M_prev accumulator
-  float* dtmp = smem + lay.dtmp;    // d read-source, then d Mtn
-  float* dw = smem + lay.dw;        // carry: d w_t
-  float* dwh = smem + lay.dwh;      // d w of the step's heads
-  float* dwconv = smem + lay.dwconv;
-  float* du = smem + lay.du;        // d w_c scratch, then d u
-  float* dread = smem + lay.dread;  // carry: d read_t
-  float* dc = smem + lay.dc;        // carry: d c_t per layer
-  float* dh = smem + lay.dh;        // carry: d h_t per layer
-  float* dctl = smem + lay.dctl;
-  float* dctrl = smem + lay.dctrl;  // d of the current layer's output h
-  float* dli = smem + lay.dli;
-  float* dgates = smem + lay.dgates;
-  float* dlogit = smem + lay.dlogit;
-  float* dkss = smem + lay.dkss;
-  float* dss = smem + lay.dss;
+  const BwdTile tile = make_bwd_tile(dm, RT);
+  const int b0 = blockIdx.x * RT, nr = min(RT, B - b0);
+  // the recompute's layer-0 input: [read | h] (the token part comes from
+  // the projection)
+  const int K0 = RD + Hc;
+  float* xT = smem + tile.xT;
 
-  for (int i = tid; i < ND; i += NT) dM[i] = a.dM_T[(size_t)b * ND + i];
-  for (int i = tid; i < HN; i += NT) dw[i] = a.dw_T[(size_t)b * HN + i];
-  for (int i = tid; i < RD; i += NT) dread[i] = a.dread_T[(size_t)b * RD + i];
-  for (int l = 0; l < L; ++l)
-    for (int i = tid; i < Hc; i += NT) {
-      dc[l * Hc + i] = a.dc_T[((size_t)l * B + b) * Hc + i];
-      dh[l * Hc + i] = a.dh_T[((size_t)l * B + b) * Hc + i];
-    }
+  // rows past B stay zero: the tile products read their (zero) inputs
+  for (int i = tid; i < tile.total; i += NT) smem[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < nr * ND; i += NT) RP(i / ND, dM)[i % ND] = a.dM_T[(size_t)b0 * ND + i];
+  for (int i = tid; i < nr * HN; i += NT) RP(i / HN, dw)[i % HN] = a.dw_T[(size_t)b0 * HN + i];
+  for (int i = tid; i < nr * RD; i += NT) RP(i / RD, dread)[i % RD] = a.dread_T[(size_t)b0 * RD + i];
+  for (int i = tid; i < nr * LH; i += NT) {
+    const int r = i / LH, q = i - r * LH, l = q / Hc, j = q - l * Hc;
+    RP(r, dc)[q] = a.dc_T[((size_t)l * B + b0 + r) * Hc + j];
+    RP(r, dh)[q] = a.dh_T[((size_t)l * B + b0 + r) * Hc + j];
+  }
 
   for (int t = T - 1; t >= 0; --t) {
-    const size_t bt = (size_t)b * T + t;
-    const float* x = a.tokens + bt * IN;
+    // row r's step index into the [B, T, ...] and [B*T, ...] streams
+    auto bt_of = [&](int r) { return (size_t)(b0 + r) * T + t; };
 
-    // ---- recompute the step from its residual input state ----------------
-    for (int i = tid; i < ND; i += NT) Mp[i] = a.res_M[bt * ND + i];
-    for (int i = tid; i < HN; i += NT) wp[i] = a.res_w[bt * HN + i];
-    for (int i = tid; i < RD; i += NT) rp[i] = a.res_read[bt * RD + i];
-    for (int i = tid; i < LH; i += NT) {
-      cp[i] = a.res_c[bt * LH + i];
-      hp[i] = a.res_h[bt * LH + i];
+    // ---- reload the step's input state from the residuals ------------------
+    for (int i = tid; i < nr * ND; i += NT) {
+      const int r = i / ND, q = i - r * ND;
+      RP(r, M_in)[q] = a.res_M[bt_of(r) * ND + q];
     }
-    for (int i = tid; i < O; i += NT) dlogit[i] = a.dlogits[bt * O + i];
+    for (int i = tid; i < nr * HN; i += NT) {
+      const int r = i / HN, q = i - r * HN;
+      RP(r, w_in)[q] = a.res_w[bt_of(r) * HN + q];
+    }
+    for (int i = tid; i < nr * RD; i += NT) {
+      const int r = i / RD, q = i - r * RD;
+      RP(r, read_in)[q] = a.res_read[bt_of(r) * RD + q];
+    }
+    for (int i = tid; i < nr * LH; i += NT) {
+      const int r = i / LH, q = i - r * LH;
+      RP(r, c_in)[q] = a.res_c[bt_of(r) * LH + q];
+      RP(r, h_in)[q] = a.res_h[bt_of(r) * LH + q];
+    }
+    for (int i = tid; i < nr * O; i += NT) {
+      const int r = i / O, o = i - r * O;
+      RP(r, dlogit)[o] = a.dlogits[bt_of(r) * O + o];
+    }
     __syncthreads();
-    ntm_step(a.wt, dm, a.fl, smem, lay, x, nullptr);
+
+    // ---- recompute the stacked LSTM over the tile ---------------------------
+    // layer 0's input [read | h], transposed, and the weight gradient's
+    // operand li = [x | read | h]
+    for (int i = tid; i < nr * K0; i += NT) {
+      const int r = i / K0, k = i - r * K0;
+      const float v = k < RD ? RP(r, read_in)[k] : RP(r, h_in)[k - RD];
+      xT[k * RT + r] = v;
+      a.li[bt_of(r) * KM + IN + k] = v;
+    }
+    for (int i = tid; i < nr * IN; i += NT) {
+      const int r = i / IN, k = i - r * IN;
+      a.li[bt_of(r) * KM + k] = a.tokens[bt_of(r) * IN + k];
+    }
+    __syncthreads();
+    for (int l = 0; l < L; ++l) {
+      const int K = l == 0 ? K0 : 2 * Hc;
+      // layer 0's product takes only W0's rows IN.. (read, h)
+      const float* Wl = a.wt.lstm_w[l] + (l == 0 ? (size_t)IN * G4 : 0);
+      for (int j0 = tid; j0 < G4; j0 += 2 * NT) {
+        float acc[2][RT];
+        tile_dot<RT, 2, PROD_UNROLL>(Wl, G4, j0, G4, xT, K, acc);
+        for (int c = 0; c < 2; ++c) {
+          const int j = j0 + c * NT;
+          if (j >= G4) break;
+          for (int r = 0; r < nr; ++r) {
+            const float base = l == 0 ? a.proj[bt_of(r) * G4 + j] : __ldg(a.wt.lstm_b[l] + j);
+            RP(r, gates)[l * G4 + j] = acc[c][r] + base;
+          }
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < nr * Hc; i += NT) {
+        const int r = i / Hc, j = i - r * Hc;
+        const float* gl = RP(r, gates) + l * G4;
+        const float c_new = RP(r, c_in)[l * Hc + j] * sigmoid_f(gl[2 * Hc + j]) + sigmoid_f(gl[j]) * tanhf(gl[Hc + j]);
+        const float h_new = tanhf(c_new) * sigmoid_f(gl[3 * Hc + j]);
+        RP(r, c_out)[l * Hc + j] = c_new;
+        RP(r, h_out)[l * Hc + j] = h_new;
+        if (l + 1 < L) {
+          const float h_next = RP(r, h_in)[(l + 1) * Hc + j];
+          xT[j * RT + r] = h_new;
+          xT[(Hc + j) * RT + r] = h_next;
+          float* li = a.li + ((size_t)(l + 1) * B * T + bt_of(r)) * KM;
+          li[j] = h_new;
+          li[Hc + j] = h_next;
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- recompute the head controls, then each row's addressing ------------
+    const int hoff = (L - 1) * Hc;
+    for (int i = tid; i < nr * Hc; i += NT) {
+      const int r = i / Hc, k = i - r * Hc;
+      const float v = RP(r, h_out)[hoff + k];
+      xT[k * RT + r] = v;
+      a.ctrl[bt_of(r) * Hc + k] = v;
+    }
+    __syncthreads();
+    for (int j = tid; j < P; j += NT) {
+      float acc[1][RT];
+      tile_dot<RT, 1, PROD_UNROLL>(a.wt.heads_w, P, j, P, xT, Hc, acc);
+      const float bj = __ldg(a.wt.heads_b + j);
+      for (int r = 0; r < nr; ++r) RP(r, ctl)[j] = acc[0][r] + bj;
+    }
+    __syncthreads();
+    addressing_tile(dm, a.fl, smem, lay, tile.row, nr);
 
     // ---- read: read[r,d] = sum_n w_r[n] * src[n,d] ------------------------
-    const float* src = wf ? Mn : Mp;
-    for (int i = tid; i < HN; i += NT) {
-      const int hh = i / N, n = i - hh * N;
-      float acc = dw[i];
+    for (int i = tid; i < nr * HN; i += NT) {
+      const int r = i / HN, q = i - r * HN, hh = q / N, n = q - hh * N;
+      const float* src = wf ? RP(r, M_out) : RP(r, M_in);
+      const float* dread = RP(r, dread);
+      float acc = RP(r, dw)[q];
       if (hh < R)
         for (int d = 0; d < D; ++d) acc = fmaf(dread[hh * D + d], src[n * D + d], acc);
-      dwh[i] = acc;
+      RP(r, dwh)[q] = acc;
     }
-    for (int i = tid; i < ND; i += NT) {
-      const int n = i / D, d = i - n * D;
+    for (int i = tid; i < nr * ND; i += NT) {
+      const int r = i / ND, q = i - r * ND, n = q / D, d = q - n * D;
+      const float* wn = RP(r, w_out);
+      const float* dread = RP(r, dread);
       float acc = 0.f;
-      for (int r = 0; r < R; ++r) acc = fmaf(dread[r * D + d], wn[r * N + n], acc);
-      dtmp[i] = acc;
+      for (int rh = 0; rh < R; ++rh) acc = fmaf(dread[rh * D + d], wn[rh * N + n], acc);
+      RP(r, dtmp)[q] = acc;  // d read-source
     }
     __syncthreads();
 
     // ---- erase/add: M_new = M_prev * er + ad ------------------------------
-    for (int i = tid; i < ND; i += NT) {
-      const int n = i / D, d = i - n * D;
-      const float dmn = dM[i] + (wf ? dtmp[i] : 0.f);
+    for (int i = tid; i < nr * ND; i += NT) {
+      const int r = i / ND, q = i - r * ND, n = q / D, d = q - n * D;
+      const float* wn = RP(r, w_out);
+      const float* erase = RP(r, erase);
+      float* dM = RP(r, dM);
+      const float dt = RP(r, dtmp)[q];
+      const float dmn = dM[q] + (wf ? dt : 0.f);
       float er = 1.f;
       for (int wh = 0; wh < W; ++wh) er *= 1.f - wn[(R + wh) * N + n] * erase[wh * D + d];
-      dMp[i] = (wf ? 0.f : dtmp[i]) + dmn * er;
-      dM[i] = dmn;
+      RP(r, dMp)[q] = (wf ? 0.f : dt) + dmn * er;
+      dM[q] = dmn;
     }
     __syncthreads();
-    for (int i = tid; i < W * N; i += NT) {
-      const int wh = i / N, n = i - wh * N;
-      float acc = dwh[(R + wh) * N + n];
+    for (int i = tid; i < nr * W * N; i += NT) {
+      const int r = i / (W * N), q = i - r * W * N, wh = q / N, n = q - wh * N;
+      const float* wn = RP(r, w_out);
+      const float* erase = RP(r, erase);
+      const float* add = RP(r, add);
+      const float* dM = RP(r, dM);
+      const float* Mp = RP(r, M_in);
+      float acc = RP(r, dwh)[(R + wh) * N + n];
       for (int d = 0; d < D; ++d) {
         float others = 1.f;
         for (int wo = 0; wo < W; ++wo)
@@ -202,10 +478,14 @@ __global__ void __launch_bounds__(NT, 1) ntm_bptt_bwd_kernel(const BwdArgs a) {
         const float dfac = dM[n * D + d] * Mp[n * D + d] * others;
         acc = acc - dfac * erase[wh * D + d] + dM[n * D + d] * add[wh * D + d];
       }
-      dwh[(R + wh) * N + n] = acc;
+      RP(r, dwh)[(R + wh) * N + n] = acc;
     }
-    for (int p = warp; p < W * D; p += NWARPS) {
-      const int wh = p / D, d = p - wh * D;
+    for (int p = warp; p < nr * WD; p += NWARPS) {
+      const int r = p / WD, q = p - r * WD, wh = q / D, d = q - wh * D;
+      const float* wn = RP(r, w_out);
+      const float* erase = RP(r, erase);
+      const float* dM = RP(r, dM);
+      const float* Mp = RP(r, M_in);
       float de = 0.f, da = 0.f;
       for (int n = lane; n < N; n += 32) {
         const float ww = wn[(R + wh) * N + n];
@@ -218,27 +498,41 @@ __global__ void __launch_bounds__(NT, 1) ntm_bptt_bwd_kernel(const BwdArgs a) {
       de = warp_sum(de);
       da = warp_sum(da);
       if (lane == 0) {
-        const float e = erase[p], ad = add[p];
-        dctl[oErase + p] = de * e * (1.f - e);
-        dctl[oAdd + p] = da * (1.f - ad * ad);
+        const float e = erase[q], ad = RP(r, add)[q];
+        RP(r, dctl)[oErase + q] = de * e * (1.f - e);
+        RP(r, dctl)[oAdd + q] = da * (1.f - ad * ad);
       }
     }
     __syncthreads();
 
-    // ---- per-head addressing (warp per head) ------------------------------
-    for (int hh = warp; hh < H; hh += NWARPS) {
-      const int o = hh * N;
-      const float gam = gamma[hh], inv_den = 1.f / denom[hh];
+    // ---- per-head addressing: a warp per (row, head) ----------------------
+    for (int q = warp; q < nr * H; q += NWARPS) {
+      const int r = q / H, hh = q - r * H, o = hh * N;
+      const float* dwh = RP(r, dwh) + o;
+      const float* powed = RP(r, powed) + o;
+      const float* wconv = RP(r, wconv) + o;
+      const float* wg = RP(r, wg) + o;
+      const float* wc = RP(r, wc) + o;
+      const float* wp = RP(r, w_in) + o;
+      const float* sim = RP(r, sim) + o;
+      const float* u = RP(r, u) + o;
+      const float* sw = RP(r, sw) + hh * S;
+      const float* ctl = RP(r, ctl);
+      float* dwconv = RP(r, dwconv) + o;
+      float* dw = RP(r, dw) + o;
+      float* du = RP(r, du) + o;
+      float* dctl = RP(r, dctl);
+      const float gam = RP(r, gamma)[hh], inv_den = 1.f / RP(r, denom)[hh];
       // sharpen: w = p / (sum p + 1e-3), p = w_conv ^ gamma
       float s1 = 0.f;
-      for (int n = lane; n < N; n += 32) s1 = fmaf(dwh[o + n], powed[o + n], s1);
+      for (int n = lane; n < N; n += 32) s1 = fmaf(dwh[n], powed[n], s1);
       s1 = warp_sum(s1);
       float dgam = 0.f;
       for (int n = lane; n < N; n += 32) {
-        const float dp = dwh[o + n] * inv_den - s1 * inv_den * inv_den;
-        const float wcv = wconv[o + n];
-        dwconv[o + n] = dp * gam * powf(wcv, gam - 1.f);
-        if (wcv > 0.f) dgam += dp * powed[o + n] * logf(wcv);
+        const float dp = dwh[n] * inv_den - s1 * inv_den * inv_den;
+        const float wcv = wconv[n];
+        dwconv[n] = dp * gam * powf(wcv, gam - 1.f);
+        if (wcv > 0.f) dgam += dp * powed[n] * logf(wcv);
       }
       dgam = warp_sum(dgam);
       __syncwarp();
@@ -247,44 +541,40 @@ __global__ void __launch_bounds__(NT, 1) ntm_bptt_bwd_kernel(const BwdArgs a) {
       for (int j = 0; j < S; ++j) {
         const int s = shift0 + j;
         float acc = 0.f;
-        for (int n = lane; n < N; n += 32) acc = fmaf(dwconv[o + n], wg[o + wrap(n + s, N)], acc);
+        for (int n = lane; n < N; n += 32) acc = fmaf(dwconv[n], wg[wrap(n + s, N)], acc);
         acc = warp_sum(acc);
-        dot_sw = fmaf(acc, sw[hh * S + j], dot_sw);
+        dot_sw = fmaf(acc, sw[j], dot_sw);
         if (lane == 0) dctl[oSw + hh * S + j] = acc;  // d sw_j, finished below
       }
       // gate: w_g = w_c * g + w_prev * (1 - g)
-      const float gt = gg[hh];
+      const float gt = RP(r, g)[hh];
       float dg = 0.f, cdot = 0.f;
       for (int n = lane; n < N; n += 32) {
         float dwg = 0.f;
-        for (int j = 0; j < S; ++j)
-          dwg = fmaf(sw[hh * S + j], dwconv[o + wrap(n - (shift0 + j), N)], dwg);
+        for (int j = 0; j < S; ++j) dwg = fmaf(sw[j], dwconv[wrap(n - (shift0 + j), N)], dwg);
         const float dwc = dwg * gt;
-        dw[o + n] = dwg * (1.f - gt);  // the carry to the step before
-        dg = fmaf(dwg, wc[o + n] - wp[o + n], dg);
-        cdot = fmaf(dwc, wc[o + n], cdot);
-        du[o + n] = dwc;
+        dw[n] = dwg * (1.f - gt);  // the carry to the step before
+        dg = fmaf(dwg, wc[n] - wp[n], dg);
+        cdot = fmaf(dwc, wc[n], cdot);
+        du[n] = dwc;
       }
       dg = warp_sum(dg);
       cdot = warp_sum(cdot);
       // content softmax w_c = softmax(sim * beta), sim = u * kinv
-      const float bt = beta[hh], ki = kinv[hh];
+      const float bt = RP(r, beta)[hh], ki = RP(r, kinv)[hh];
       float dbeta = 0.f, dki = 0.f;
       for (int n = lane; n < N; n += 32) {
-        const float ds = (du[o + n] - cdot) * wc[o + n];
+        const float ds = (du[n] - cdot) * wc[n];
         const float dsim = ds * bt;
-        dbeta = fmaf(ds, sim[o + n], dbeta);
-        dki = fmaf(dsim, u[o + n], dki);
-        du[o + n] = dsim * ki;
+        dbeta = fmaf(ds, sim[n], dbeta);
+        dki = fmaf(dsim, u[n], dki);
+        du[n] = dsim * ki;
       }
       dbeta = warp_sum(dbeta);
       dki = warp_sum(dki);
       if (lane == 0) {
-        dkss[hh] = kss[hh] > 1e-12f ? dki * -0.5f * ki * ki * ki : 0.f;
-        for (int j = 0; j < S; ++j) {
-          const float swj = sw[hh * S + j];
-          dctl[oSw + hh * S + j] = (dctl[oSw + hh * S + j] - dot_sw) * swj;
-        }
+        RP(r, dkss)[hh] = RP(r, kss)[hh] > 1e-12f ? dki * -0.5f * ki * ki * ki : 0.f;
+        for (int j = 0; j < S; ++j) dctl[oSw + hh * S + j] = (dctl[oSw + hh * S + j] - dot_sw) * sw[j];
         dctl[oBeta + hh] = dbeta * sigmoid_f(ctl[oBeta + hh]);
         dctl[oG + hh] = dg * gt * (1.f - gt);
         dctl[oGamma + hh] = dgam * sigmoid_f(ctl[oGamma + hh]);
@@ -293,163 +583,326 @@ __global__ void __launch_bounds__(NT, 1) ntm_bptt_bwd_kernel(const BwdArgs a) {
     __syncthreads();
 
     // ---- keys and the normalized memory: u[h,n] = sum_d k[h,d] Mtn[n,d] --
-    for (int i = tid; i < ND; i += NT) {
-      const int n = i / D, d = i - n * D;
+    for (int i = tid; i < nr * ND; i += NT) {
+      const int r = i / ND, q = i - r * ND, n = q / D, d = q - n * D;
+      const float* du = RP(r, du);
+      const float* ks = RP(r, k);
       float acc = 0.f;
       for (int hh = 0; hh < H; ++hh) acc = fmaf(du[hh * N + n], ks[hh * D + d], acc);
-      dtmp[i] = acc;  // d Mtn
+      RP(r, dtmp)[q] = acc;  // d Mtn
     }
-    for (int p = warp; p < H * D; p += NWARPS) {
-      const int hh = p / D, d = p - hh * D;
+    for (int p = warp; p < nr * HD; p += NWARPS) {
+      const int r = p / HD, q = p - r * HD, hh = q / D, d = q - hh * D;
+      const float* du = RP(r, du);
+      const float* Mp = RP(r, M_in);
+      const float* minv = RP(r, minv);
       float acc = 0.f;
       for (int n = lane; n < N; n += 32)
         acc = fmaf(du[hh * N + n], Mp[n * D + d] * (slotwise ? minv[n] : minv[d]), acc);
       acc = warp_sum(acc);
       if (lane == 0) {
-        const float kv = ks[p];
-        dctl[p] = (acc + 2.f * kv * dkss[hh]) * (1.f - kv * kv);
+        const float kv = RP(r, k)[q];
+        RP(r, dctl)[q] = (acc + 2.f * kv * RP(r, dkss)[hh]) * (1.f - kv * kv);
       }
     }
     __syncthreads();
 
     // ---- memory normalizer: Mtn = M_prev * rsqrt(max(sum M^2, 1e-12)) ---
     if (slotwise) {
-      for (int n = tid; n < N; n += NT) {
+      for (int i = tid; i < nr * N; i += NT) {
+        const int r = i / N, n = i - r * N;
+        const float* dtmp = RP(r, dtmp);
+        const float* Mp = RP(r, M_in);
         float acc = 0.f;
         for (int d = 0; d < D; ++d) acc = fmaf(dtmp[n * D + d], Mp[n * D + d], acc);
-        const float mi = minv[n];
-        dss[n] = mss[n] > 1e-12f ? acc * -0.5f * mi * mi * mi : 0.f;
+        const float mi = RP(r, minv)[n];
+        RP(r, dss)[n] = RP(r, mss)[n] > 1e-12f ? acc * -0.5f * mi * mi * mi : 0.f;
       }
     } else {
-      for (int d = warp; d < D; d += NWARPS) {
+      for (int p = warp; p < nr * D; p += NWARPS) {
+        const int r = p / D, d = p - r * D;
+        const float* dtmp = RP(r, dtmp);
+        const float* Mp = RP(r, M_in);
         float acc = 0.f;
         for (int n = lane; n < N; n += 32) acc = fmaf(dtmp[n * D + d], Mp[n * D + d], acc);
         acc = warp_sum(acc);
-        const float mi = minv[d];
-        if (lane == 0) dss[d] = mss[d] > 1e-12f ? acc * -0.5f * mi * mi * mi : 0.f;
+        const float mi = RP(r, minv)[d];
+        if (lane == 0) RP(r, dss)[d] = RP(r, mss)[d] > 1e-12f ? acc * -0.5f * mi * mi * mi : 0.f;
       }
     }
     __syncthreads();
-    for (int i = tid; i < ND; i += NT) {
-      const int n = i / D, d = i - n * D;
+    for (int i = tid; i < nr * ND; i += NT) {
+      const int r = i / ND, q = i - r * ND, n = q / D, d = q - n * D;
       const int j = slotwise ? n : d;
-      dM[i] = dMp[i] + dtmp[i] * minv[j] + 2.f * Mp[i] * dss[j];  // the carry
+      RP(r, dM)[q] = RP(r, dMp)[q] + RP(r, dtmp)[q] * RP(r, minv)[j] + 2.f * RP(r, M_in)[q] * RP(r, dss)[j];  // the carry
     }
 
     // ---- head and output linears: controls = ctrl @ heads_w + heads_b ------
-    const float* ctrl = hn + (L - 1) * Hc;
-    for (int i = tid; i < Hc; i += NT) a.ctrl[bt * Hc + i] = ctrl[i];
-    for (int i = tid; i < P; i += NT) a.dctl[bt * P + i] = dctl[i];
-    for (int k = warp; k < Hc; k += NWARPS) {
-      float acc = 0.f;
-      for (int j = lane; j < P; j += 32) acc = fmaf(dctl[j], __ldg(a.wt.heads_w + (size_t)k * P + j), acc);
-      for (int o = lane; o < O; o += 32) acc = fmaf(dlogit[o], __ldg(a.wt.out_w + (size_t)k * O + o), acc);
-      acc = warp_sum(acc);
-      if (lane == 0) dctrl[k] = acc;
+    // the head-control cotangents and, beside them, the logits': one
+    // reduction gives both linears' weight gradients
+    for (int i = tid; i < nr * (P + O); i += NT) {
+      const int r = i / (P + O), q = i - r * (P + O);
+      a.dctl[bt_of(r) * (P + O) + q] = q < P ? RP(r, dctl)[q] : RP(r, dlogit)[q - P];
+    }
+    // d ctrl = heads_w @ dctl + out_w @ dlogit: a warp per two rows of
+    // heads_w and out_w, lanes over the columns
+    for (int k = warp; k < Hc; k += 2 * NWARPS) {
+      float acc[2][RT] = {};
+      rows_dot_t<RT, 2>(a.wt.heads_w, P, k, Hc, P, RP(0, dctl), tile.row, acc);
+      rows_dot_t<RT, 2>(a.wt.out_w, O, k, Hc, O, RP(0, dlogit), tile.row, acc);
+      for (int i = 0; i < 2; ++i)
+        for (int r = 0; r < RT; ++r) acc[i][r] = warp_sum(acc[i][r]);
+      if (lane == 0)
+        for (int i = 0; i < 2 && k + i * NWARPS < Hc; ++i)
+          for (int r = 0; r < nr; ++r) RP(r, dctrl)[k + i * NWARPS] = acc[i][r];
     }
     __syncthreads();
 
     // ---- stacked LSTM, top layer first --------------------------------------
     for (int l = L - 1; l >= 0; --l) {
-      const float* gl = smem + lay.gates + l * 4 * Hc;
       const int in_l = l == 0 ? IN + RD : Hc, K = in_l + Hc;
-      for (int j = tid; j < Hc; j += NT) {
+      for (int i = tid; i < nr * Hc; i += NT) {
+        const int r = i / Hc, j = i - r * Hc;
+        const float* gl = RP(r, gates) + l * G4;
+        float* dgates = RP(r, dgates);
         const float si = sigmoid_f(gl[j]), tj = tanhf(gl[Hc + j]);
         const float sf = sigmoid_f(gl[2 * Hc + j]), so = sigmoid_f(gl[3 * Hc + j]);
-        const float tc = tanhf(cn[l * Hc + j]);
-        const float dnh = dctrl[j] + dh[l * Hc + j];
-        const float dnc = dc[l * Hc + j] + dnh * so * (1.f - tc * tc);
+        const float tc = tanhf(RP(r, c_out)[l * Hc + j]);
+        const float dnh = RP(r, dctrl)[j] + RP(r, dh)[l * Hc + j];
+        const float dnc = RP(r, dc)[l * Hc + j] + dnh * so * (1.f - tc * tc);
         dgates[j] = dnc * tj * si * (1.f - si);
         dgates[Hc + j] = dnc * si * (1.f - tj * tj);
-        dgates[2 * Hc + j] = dnc * cp[l * Hc + j] * sf * (1.f - sf);
+        dgates[2 * Hc + j] = dnc * RP(r, c_in)[l * Hc + j] * sf * (1.f - sf);
         dgates[3 * Hc + j] = dnh * tc * so * (1.f - so);
-        dc[l * Hc + j] = dnc * sf;  // the carry
+        RP(r, dc)[l * Hc + j] = dnc * sf;  // the carry
       }
       __syncthreads();
-      // the weight gradient's operands: this layer's input and gate cotangents
-      float* li_row = a.li + ((size_t)l * B * T + bt) * KM;
-      for (int i = tid; i < K; i += NT) {
-        float v;
-        if (l == 0)
-          v = i < IN ? x[i] : (i < IN + RD ? rp[i - IN] : hp[i - IN - RD]);
-        else
-          v = i < Hc ? hn[(l - 1) * Hc + i] : hp[l * Hc + i - Hc];
-        li_row[i] = v;
+      // the weight gradient's operand: this layer's gate cotangents
+      for (int i = tid; i < nr * G4; i += NT) {
+        const int r = i / G4, q = i - r * G4;
+        a.dgates[((size_t)l * B * T + bt_of(r)) * G4 + q] = RP(r, dgates)[q];
       }
-      float* dg_row = a.dgates + ((size_t)l * B * T + bt) * 4 * Hc;
-      for (int i = tid; i < 4 * Hc; i += NT) dg_row[i] = dgates[i];
-      // d layer input = W_l @ dgates (warp per input row, coalesced over gates)
-      const float* Wl = a.wt.lstm_w[l];
-      for (int k = warp; k < K; k += NWARPS) {
-        float acc = 0.f;
-        for (int j = lane; j < 4 * Hc; j += 32) acc = fmaf(dgates[j], __ldg(Wl + (size_t)k * 4 * Hc + j), acc);
-        acc = warp_sum(acc);
-        if (lane == 0) dli[k] = acc;
+      // d layer input = W_l @ dgates: a warp per input row, lanes over the
+      // gates, one weight load for the tile's rows. Layer 0's token rows
+      // only when the caller wants dtokens.
+      const int k_lo = (l == 0 && !a.need_dtokens) ? IN : 0;
+      for (int k = k_lo + warp; k < K; k += 2 * NWARPS) {
+        float acc[2][RT] = {};
+        rows_dot_t<RT, 2>(a.wt.lstm_w[l], G4, k, K, G4, RP(0, dgates), tile.row, acc);
+        for (int i = 0; i < 2; ++i)
+          for (int r = 0; r < RT; ++r) acc[i][r] = warp_sum(acc[i][r]);
+        if (lane == 0)
+          for (int i = 0; i < 2 && k + i * NWARPS < K; ++i)
+            for (int r = 0; r < nr; ++r) RP(r, dli)[k + i * NWARPS] = acc[i][r];
       }
       __syncthreads();
-      for (int i = tid; i < Hc; i += NT) dh[l * Hc + i] = dli[in_l + i];  // the carry
+      for (int i = tid; i < nr * Hc; i += NT) {
+        const int r = i / Hc, j = i - r * Hc;
+        RP(r, dh)[l * Hc + j] = RP(r, dli)[in_l + j];  // the carry
+      }
       if (l == 0) {
-        for (int i = tid; i < IN; i += NT) a.dtokens[bt * IN + i] = dli[i];
-        for (int i = tid; i < RD; i += NT) dread[i] = dli[IN + i];  // the carry
+        if (a.need_dtokens)
+          for (int i = tid; i < nr * IN; i += NT) {
+            const int r = i / IN, k = i - r * IN;
+            a.dtokens[bt_of(r) * IN + k] = RP(r, dli)[k];
+          }
+        for (int i = tid; i < nr * RD; i += NT) {
+          const int r = i / RD, q = i - r * RD;
+          RP(r, dread)[q] = RP(r, dli)[IN + q];  // the carry
+        }
       } else {
-        for (int i = tid; i < Hc; i += NT) dctrl[i] = dli[i];
+        for (int i = tid; i < nr * Hc; i += NT) {
+          const int r = i / Hc, j = i - r * Hc;
+          RP(r, dctrl)[j] = RP(r, dli)[j];
+        }
       }
       __syncthreads();
     }
   }
 
-  for (int i = tid; i < ND; i += NT) a.dM0[(size_t)b * ND + i] = dM[i];
-  for (int i = tid; i < HN; i += NT) a.dw0[(size_t)b * HN + i] = dw[i];
-  for (int i = tid; i < RD; i += NT) a.dread0[(size_t)b * RD + i] = dread[i];
-  for (int l = 0; l < L; ++l)
-    for (int i = tid; i < Hc; i += NT) {
-      a.dc0[((size_t)l * B + b) * Hc + i] = dc[l * Hc + i];
-      a.dh0[((size_t)l * B + b) * Hc + i] = dh[l * Hc + i];
-    }
+  for (int i = tid; i < nr * ND; i += NT) a.dM0[(size_t)b0 * ND + i] = RP(i / ND, dM)[i % ND];
+  for (int i = tid; i < nr * HN; i += NT) a.dw0[(size_t)b0 * HN + i] = RP(i / HN, dw)[i % HN];
+  for (int i = tid; i < nr * RD; i += NT) a.dread0[(size_t)b0 * RD + i] = RP(i / RD, dread)[i % RD];
+  for (int i = tid; i < nr * LH; i += NT) {
+    const int r = i / LH, q = i - r * LH, l = q / Hc, j = q - l * Hc;
+    a.dc0[((size_t)l * B + b0 + r) * Hc + j] = RP(r, dc)[q];
+    a.dh0[((size_t)l * B + b0 + r) * Hc + j] = RP(r, dh)[q];
+  }
 }
 
-// ---- parameter-gradient reduction --------------------------------------------
-// out[k, j] = sum_m A[m, k] * G[m, j] for k < K, and out[K, j] = sum_m G[m, j]
-// (the bias), over m < M. One block per 64x64 tile of out and chunk of rows;
-// 256 threads, each owning a 4x4 set of outputs strided by 16.
-#define RT 64
-#define RM 16
-#define RNT 256
+#undef RP
 
-__global__ void __launch_bounds__(RNT) ntm_grad_partial_kernel(
-    const float* __restrict__ A, int lda, const float* __restrict__ G, int ldg, int M, int K,
-    int J, int rows_per_chunk, float* __restrict__ part) {
-  __shared__ float As[RM][RT];
-  __shared__ float Gs[RM][RT];
-  const int k0 = blockIdx.y * RT, j0 = blockIdx.x * RT, chunk = blockIdx.z;
-  const int m_begin = chunk * rows_per_chunk;
-  const int m_end = min(M, m_begin + rows_per_chunk);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
-  for (int i = 0; i < 4; ++i)
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-  for (int m0 = m_begin; m0 < m_end; m0 += RM) {
-    for (int e = threadIdx.x; e < RM * RT; e += RNT) {
-      const int r = e / RT, c = e - r * RT, m = m0 + r, kk = k0 + c, jj = j0 + c;
-      const bool row = m < m_end;
-      As[r][c] = row && kk < K ? A[(size_t)m * lda + kk] : (row && kk == K ? 1.f : 0.f);
-      Gs[r][c] = row && jj < J ? G[(size_t)m * ldg + jj] : 0.f;
+// ---- f32 GEMM core: the reduction (TN) and the token projection (NN) -------
+// A block of TY x TX threads owns a (TY*TM) x (TX*TN) output tile and keeps
+// TM x TN accumulators per thread. Thread (ty, tx) owns the rows 4ty..4ty+3
+// of each run of 4*TY rows (and 2ty, 2ty+1 of a last run of 2*TY when
+// TM % 4 == 2), and the same pattern of columns in tx, so a float4 read of
+// a stage row serves TX threads from contiguous bytes (no bank conflicts).
+// A k-step reads TM + TN floats from shared memory per thread for TM * TN
+// FMAs: at 8 x 8 the SM's 128 B/clock of shared memory only just keeps up
+// with its FMA rate, at 10 x 10 it has a fifth to spare. The contraction
+// runs in slabs of GK rows through a ring of GSTAGES stages of dynamic
+// shared memory filled by cp.async: slab i+GSTAGES-1 loads while slab i
+// multiplies, and each k-step's fragments load while the one before
+// multiplies. A stage holds As[GK][BM + 4] and Bs[GK][BN + 4], both indexed
+// [contraction][output]. An operand whose rows are 16-byte aligned (kVec)
+// loads in 16-byte copies, others in 4-byte copies.
+#define GK 16
+#define GSTAGES 3
+
+template <int TM_, int TN_, int TY_, int TX_, int MINB_>
+struct Gemm {
+  static constexpr int TM = TM_, TN = TN_, TY = TY_, TX = TX_, THREADS = TY_ * TX_;
+  static constexpr int BM = TM_ * TY_, BN = TN_ * TX_, MINB = MINB_;
+  static constexpr int SA = GK * (BM + 4), SB = GK * (BN + 4);  // floats per stage
+  static constexpr int SMEM = GSTAGES * (SA + SB) * (int)sizeof(float);
+  static_assert(TM % 4 != 1 && TM % 4 != 3 && TN % 4 != 1 && TN % 4 != 3, "runs of 4 and 2");
+};
+
+// the two tiles the host picks from, both measured on the H100 against
+// other thread tiles, slab depths and ring sizes: 80 x 160 at 10 x 10 per
+// thread (128 threads, three blocks per SM) and 128 x 128 at 8 x 8 (256
+// threads, two blocks per SM)
+using GemmWide = Gemm<10, 10, 8, 16, 2>;
+using GemmSquare = Gemm<8, 8, 16, 16, 2>;
+
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// dst[r * (BW + 4) + c] = src[(m0 + r) * ld + c0 + c] for the GK x BW slab,
+// by NT_ threads: rows m0 + r < m_end and columns c0 + c < ncols; kOnes
+// puts 1 at column ncols (the bias's column of ones), everything else is 0.
+template <int BW, int NT_, bool kVec, bool kOnes>
+__device__ __forceinline__ void load_slab(float* dst, const float* __restrict__ src, int ld, int m0, int m_end,
+                                          int c0, int ncols) {
+  if constexpr (kVec) {
+    for (int e = threadIdx.x; e < GK * BW / 4; e += NT_) {
+      const int r = e / (BW / 4), c = 4 * (e - r * (BW / 4)), m = m0 + r, k = c0 + c;
+      float* d = dst + r * (BW + 4) + c;
+      if (m < m_end && k + 3 < ncols) {
+        cp_async_f32x4(d, src + (size_t)m * ld + k);
+      } else {
+        for (int q = 0; q < 4; ++q) {
+          if (m < m_end && k + q < ncols)
+            cp_async_f32(d + q, src + (size_t)m * ld + k + q);
+          else
+            d[q] = kOnes && m < m_end && k + q == ncols ? 1.f : 0.f;
+        }
+      }
     }
-    __syncthreads();
-    for (int r = 0; r < RM; ++r) {
-      float av[4], gv[4];
-      for (int i = 0; i < 4; ++i) av[i] = As[r][ty + 16 * i];
-      for (int q = 0; q < 4; ++q) gv[q] = Gs[r][tx + 16 * q];
-      for (int i = 0; i < 4; ++i)
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], gv[q], acc[i][q]);
+  } else {
+    for (int e = threadIdx.x; e < GK * BW; e += NT_) {
+      const int r = e / BW, c = e - r * BW, m = m0 + r, k = c0 + c;
+      float* d = dst + r * (BW + 4) + c;
+      if (m < m_end && k < ncols)
+        cp_async_f32(d, src + (size_t)m * ld + k);
+      else
+        *d = kOnes && m < m_end && k == ncols ? 1.f : 0.f;
     }
-    __syncthreads();
   }
-  for (int i = 0; i < 4; ++i)
-    for (int q = 0; q < 4; ++q) {
-      const int k = k0 + ty + 16 * i, j = j0 + tx + 16 * q;
+}
+
+// the output row (or column) of fragment element e of a thread at
+// coordinate t, with TT elements per thread and NTT threads along the edge
+template <int TT, int NTT>
+__device__ __forceinline__ int frag_at(int t, int e) {
+  return e < TT / 4 * 4 ? e / 4 * 4 * NTT + 4 * t + e % 4 : TT / 4 * 4 * NTT + 2 * t + e % 4;
+}
+
+template <int TT, int NTT>
+__device__ __forceinline__ void load_frag(const float* row, int t, float (&f)[TT]) {
+#pragma unroll
+  for (int s = 0; s < TT / 4; ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(row + s * 4 * NTT + 4 * t);
+    f[4 * s] = v.x, f[4 * s + 1] = v.y, f[4 * s + 2] = v.z, f[4 * s + 3] = v.w;
+  }
+  if constexpr (TT % 4 == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(row + TT / 4 * 4 * NTT + 2 * t);
+    f[TT - 2] = v.x, f[TT - 1] = v.y;
+  }
+}
+
+// acc = sum over nslabs slabs of As^T Bs, the stages at smem (As) and
+// smem + GSTAGES * SA (Bs); load(a, b, slab) issues the slab's cp.async
+// copies (and plain stores for padding) into the stage at a and b.
+template <class C, class Load>
+__device__ __forceinline__ void gemm_mainloop(int nslabs, const Load& load, float* smem,
+                                              float (&acc)[C::TM][C::TN]) {
+  const int tx = threadIdx.x % C::TX, ty = threadIdx.x / C::TX;
+  float* As = smem;
+  float* Bs = smem + GSTAGES * C::SA;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int q = 0; q < C::TN; ++q) acc[i][q] = 0.f;
+#pragma unroll
+  for (int s = 0; s < GSTAGES - 1; ++s) {
+    if (s < nslabs) load(As + s * C::SA, Bs + s * C::SB, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nslabs; ++it) {
+    cp_async_wait<GSTAGES - 2>();
+    __syncthreads();  // slab `it` is in; every thread is done with slab it-1
+    const int nxt = it + GSTAGES - 1;
+    if (nxt < nslabs) load(As + (nxt % GSTAGES) * C::SA, Bs + (nxt % GSTAGES) * C::SB, nxt);
+    cp_async_commit();
+    const float* a = As + (it % GSTAGES) * C::SA;
+    const float* b = Bs + (it % GSTAGES) * C::SB;
+    float av[2][C::TM], bv[2][C::TN];
+    load_frag<C::TM, C::TY>(a, ty, av[0]);
+    load_frag<C::TN, C::TX>(b, tx, bv[0]);
+#pragma unroll
+    for (int kk = 0; kk < GK; ++kk) {
+      if (kk + 1 < GK) {
+        load_frag<C::TM, C::TY>(a + (kk + 1) * (C::BM + 4), ty, av[(kk + 1) & 1]);
+        load_frag<C::TN, C::TX>(b + (kk + 1) * (C::BN + 4), tx, bv[(kk + 1) & 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+        for (int q = 0; q < C::TN; ++q) acc[i][q] = fmaf(av[kk & 1][i], bv[kk & 1][q], acc[i][q]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// part[chunk, k, j] = sum over the chunk's rows m of A1[m, k] * G[m, j],
+// where A1 is A[:, :K] with a column of ones appended (k = K, the bias).
+template <class C, bool kVecA, bool kVecG>
+__global__ void __launch_bounds__(C::THREADS, C::MINB) ntm_grad_partial_kernel(
+    const float* __restrict__ A, int lda, const float* __restrict__ G, int ldg, int M, int K, int J,
+    int rows_per_chunk, float* __restrict__ part) {
+  extern __shared__ __align__(16) float gsm[];
+  const int k0 = blockIdx.y * C::BM, j0 = blockIdx.x * C::BN, chunk = blockIdx.z;
+  const int m_begin = chunk * rows_per_chunk, m_end = min(M, m_begin + rows_per_chunk);
+  const auto load = [&](float* as, float* bs, int slab) {
+    const int m0 = m_begin + slab * GK;
+    load_slab<C::BM, C::THREADS, kVecA, true>(as, A, lda, m0, m_end, k0, K);
+    load_slab<C::BN, C::THREADS, kVecG, false>(bs, G, ldg, m0, m_end, j0, J);
+  };
+  float acc[C::TM][C::TN];
+  gemm_mainloop<C>(max(0, (m_end - m_begin + GK - 1) / GK), load, gsm, acc);
+  const int tx = threadIdx.x % C::TX, ty = threadIdx.x / C::TX;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int k = k0 + frag_at<C::TM, C::TY>(ty, i);
+#pragma unroll
+    for (int q = 0; q < C::TN; ++q) {
+      const int j = j0 + frag_at<C::TN, C::TX>(tx, q);
       if (k <= K && j < J) part[((size_t)chunk * (K + 1) + k) * J + j] = acc[i][q];
     }
+  }
 }
 
 __global__ void ntm_grad_sum_kernel(const float* __restrict__ part, int chunks, int size,
@@ -461,10 +914,61 @@ __global__ void ntm_grad_sum_kernel(const float* __restrict__ part, int chunks, 
   }
 }
 
+// out[m, j] = bias[j] + sum_k X[m, k] * Wm[k, j] for m < M, j < J, k < K.
+// The X slab is loaded transposed (As[k][m]): consecutive threads take
+// consecutive k of one row, 4-byte copies scattered into the stage.
+template <class C, bool kVecW>
+__global__ void __launch_bounds__(C::THREADS, C::MINB) ntm_token_proj_kernel(
+    const float* __restrict__ X, int ldx, const float* __restrict__ Wm, int ldw,
+    const float* __restrict__ bias, int M, int K, int J, float* __restrict__ out) {
+  extern __shared__ __align__(16) float gsm[];
+  const int j0 = blockIdx.x * C::BN, m0 = blockIdx.y * C::BM;
+  const auto load = [&](float* as, float* bs, int slab) {
+    const int kb = slab * GK;
+    for (int e = threadIdx.x; e < GK * C::BM; e += C::THREADS) {
+      const int kk = e % GK, c = e / GK, m = m0 + c, k = kb + kk;
+      float* d = as + kk * (C::BM + 4) + c;
+      if (m < M && k < K)
+        cp_async_f32(d, X + (size_t)m * ldx + k);
+      else
+        *d = 0.f;
+    }
+    load_slab<C::BN, C::THREADS, kVecW, false>(bs, Wm, ldw, kb, K, j0, J);
+  };
+  float acc[C::TM][C::TN];
+  gemm_mainloop<C>((K + GK - 1) / GK, load, gsm, acc);
+  const int tx = threadIdx.x % C::TX, ty = threadIdx.x / C::TX;
+  // fragment columns come in runs of 4 (and 2) contiguous columns
+  const bool vec_out = J % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int m = m0 + frag_at<C::TM, C::TY>(ty, i);
+    if (m >= M) continue;
+    float* orow = out + (size_t)m * J;
+#pragma unroll
+    for (int q = 0; q < C::TN; q += 4) {
+      const int j = j0 + frag_at<C::TN, C::TX>(tx, q), n = min(4, C::TN - q);
+      if (n == 4 && vec_out && j + 3 < J) {
+        const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + j));
+        *reinterpret_cast<float4*>(orow + j) =
+            make_float4(acc[i][q] + b4.x, acc[i][q + 1] + b4.y, acc[i][q + 2] + b4.z, acc[i][q + 3] + b4.w);
+      } else {
+        for (int u = 0; u < n; ++u)
+          if (j + u < J) orow[j + u] = acc[i][q + u] + __ldg(bias + j + u);
+      }
+    }
+  }
+}
+
+// ---- plain C entry points ---------------------------------------------------
+
+// Dynamic shared memory per block: the forward's (rows unused), or the
+// backward's at `rows` rows per block.
 extern "C" int ntm_bptt_smem_bytes(int IN, int N, int D, int H, int R, int W, int S, int Hc,
-                                   int L, int O, int backward) {
+                                   int L, int O, int backward, int rows) {
   const Dims dm{IN, N, D, H, R, W, S, Hc, L, O};
-  return make_layout(dm, backward != 0).total * (int)sizeof(float);
+  if (!backward) return make_layout(dm, false).total * (int)sizeof(float);
+  return make_bwd_tile(dm, rows).total * (int)sizeof(float);
 }
 
 // The forward with residual streams: ntm_scan_cell_launch's arguments plus
@@ -490,23 +994,40 @@ extern "C" int ntm_bptt_fwd_launch(
   return launch_scan<true>(a, device, stream);
 }
 
-// The backward: one block per batch row. The final-state cotangents and the
-// initial-state cotangents of c and h are stacked [L, B, Hc]; lstm_w is a
-// host array of L device pointers.
+template <int RT>
+static int launch_bwd(const BwdArgs& a, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ntm_bptt_bwd_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ntm_bptt_bwd_kernel<RT><<<(a.B + RT - 1) / RT, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The backward: one block per `rows` (1 or 2) batch rows. The final-state
+// cotangents and the initial-state cotangents of c and h are stacked
+// [L, B, Hc]; lstm_w is a host array of L device pointers. proj holds
+// X W0[:IN] + b0 per step [B*T, 4*Hc] (ntm_token_proj_launch's output);
+// dtokens is written only when need_dtokens.
 extern "C" int ntm_bptt_bwd_launch(
-    const void* tokens, const void* const* lstm_w, const void* const* lstm_b,
+    const void* tokens, const void* proj, const void* const* lstm_w, const void* const* lstm_b,
     const void* heads_w, const void* heads_b, const void* out_w, const void* out_b,
     const void* res_M, const void* res_w, const void* res_read, const void* res_c,
     const void* res_h, const void* dlogits, const void* dM_T, const void* dw_T,
     const void* dread_T, const void* dc_T, const void* dh_T, void* dM0, void* dw0,
     void* dread0, void* dc0, void* dh0, void* dtokens, void* li, void* dgates, void* ctrl,
     void* dctl, int B, int T, int IN, int N, int D, int H, int R, int W, int S, int Hc,
-    int L, int O, int write_first, int slotwise, int device, void* stream) {
-  if (L < 1 || L > MAX_LAYERS || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
+    int L, int O, int write_first, int slotwise, int need_dtokens, int rows, int device,
+    void* stream) {
+  if (L < 1 || L > MAX_LAYERS || B < 1 || T < 1 || (rows != 1 && rows != 2) || proj == nullptr ||
+      (need_dtokens && dtokens == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   BwdArgs a;
   a.tokens = (const float*)tokens;
+  a.proj = (const float*)proj;
   for (int l = 0; l < MAX_LAYERS; ++l) {
     a.wt.lstm_w[l] = l < L ? (const float*)lstm_w[l] : nullptr;
     a.wt.lstm_b[l] = l < L ? (const float*)lstm_b[l] : nullptr;
@@ -540,35 +1061,85 @@ extern "C" int ntm_bptt_bwd_launch(
   a.fl = Flags{write_first, slotwise, 0};
   a.B = B;
   a.T = T;
-  const int smem = make_layout(a.dm, true).total * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(ntm_bptt_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ntm_bptt_bwd_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(a);
+  a.need_dtokens = need_dtokens;
+  const int smem = make_bwd_tile(a.dm, rows).total * (int)sizeof(float);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return rows == 1 ? launch_bwd<1>(a, smem, st) : launch_bwd<2>(a, smem, st);
+}
+
+static bool aligned16(const void* p, int ld) { return ((size_t)p % 16 == 0) && ld % 4 == 0; }
+
+template <class C, class F>
+static cudaError_t set_smem(F kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+}
+
+template <class C>
+static int launch_proj(cudaStream_t st, const float* X, int ldx, const float* Wm, int ldw, const float* bias,
+                       int M, int K, int J, float* out) {
+  if ((M + C::BM - 1) / C::BM > 65535) return (int)cudaErrorInvalidValue;
+  // the column tiles of one row tile are neighbours: X's rows are read
+  // from HBM once and then from L2
+  const dim3 grid((J + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM);
+  const auto kernel = aligned16(Wm, ldw) ? ntm_token_proj_kernel<C, true> : ntm_token_proj_kernel<C, false>;
+  const cudaError_t err = set_smem<C>(kernel);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, C::THREADS, C::SMEM, st>>>(X, ldx, Wm, ldw, bias, M, K, J, out);
   return (int)cudaGetLastError();
 }
 
-// out [K+1, J] = [A^T G ; sum_m G] over M rows, in `chunks` row chunks of
-// rows_per_chunk (a multiple of 16) summed in order; part is scratch of
-// chunks * (K+1) * J floats.
+// out [M, J] = X [M, K] (row stride ldx) @ Wm [K, J] (row stride ldw) +
+// bias [J], on the block tile whose row edge is `tile` (GemmWide's 80 or
+// GemmSquare's 128).
+extern "C" int ntm_token_proj_launch(const void* X, int ldx, const void* Wm, int ldw,
+                                     const void* bias, int M, int K, int J, int tile, void* out,
+                                     int device, void* stream) {
+  if (M < 1 || K < 1 || J < 1 || (tile != GemmWide::BM && tile != GemmSquare::BM) || (size_t)bias % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tile == GemmWide::BM)
+    return launch_proj<GemmWide>(st, (const float*)X, ldx, (const float*)Wm, ldw, (const float*)bias, M, K, J,
+                                 (float*)out);
+  return launch_proj<GemmSquare>(st, (const float*)X, ldx, (const float*)Wm, ldw, (const float*)bias, M, K, J,
+                                 (float*)out);
+}
+
+template <class C>
+static int launch_partial(cudaStream_t st, const float* A, int lda, const float* G, int ldg, int M, int K,
+                          int J, int chunks, int rows_per_chunk, float* part) {
+  const dim3 grid((J + C::BN - 1) / C::BN, (K + 1 + C::BM - 1) / C::BM, chunks);
+  const bool va = aligned16(A, lda), vg = aligned16(G, ldg);
+  const auto kernel = va ? (vg ? ntm_grad_partial_kernel<C, true, true> : ntm_grad_partial_kernel<C, true, false>)
+                         : (vg ? ntm_grad_partial_kernel<C, false, true> : ntm_grad_partial_kernel<C, false, false>);
+  const cudaError_t err = set_smem<C>(kernel);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, C::THREADS, C::SMEM, st>>>(A, lda, G, ldg, M, K, J, rows_per_chunk, part);
+  return (int)cudaGetLastError();
+}
+
+// out [K+1, J] = [A^T G ; sum_m G] over M rows, on the block tile whose
+// row edge is `tile` (GemmWide's 80 or GemmSquare's 128), in `chunks` row
+// chunks of rows_per_chunk (a multiple of GK) summed in order; part is
+// scratch of chunks * (K+1) * J floats.
 extern "C" int ntm_grad_reduce_launch(const void* A, int lda, const void* G, int ldg, int M,
-                                      int K, int J, int chunks, int rows_per_chunk, void* part,
-                                      void* out, int device, void* stream) {
-  if (M < 1 || K < 0 || J < 1 || chunks < 1 || rows_per_chunk < 1 || rows_per_chunk % RM != 0 ||
-      (long long)chunks * rows_per_chunk < M)
+                                      int K, int J, int tile, int chunks, int rows_per_chunk,
+                                      void* part, void* out, int device, void* stream) {
+  if (M < 1 || K < 0 || J < 1 || (tile != GemmWide::BM && tile != GemmSquare::BM) || chunks < 1 ||
+      rows_per_chunk < 1 || rows_per_chunk % GK != 0 || (long long)chunks * rows_per_chunk < M)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((J + RT - 1) / RT, (K + 1 + RT - 1) / RT, chunks);
-  ntm_grad_partial_kernel<<<grid, RNT, 0, (cudaStream_t)stream>>>(
-      (const float*)A, lda, (const float*)G, ldg, M, K, J, rows_per_chunk, (float*)part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int e = tile == GemmWide::BM
+      ? launch_partial<GemmWide>(st, (const float*)A, lda, (const float*)G, ldg, M, K, J, chunks, rows_per_chunk,
+                                 (float*)part)
+      : launch_partial<GemmSquare>(st, (const float*)A, lda, (const float*)G, ldg, M, K, J, chunks, rows_per_chunk,
+                                   (float*)part);
+  if (e != 0) return e;
   const int size = (K + 1) * J;
   const int blocks = (size + 255) / 256 < 1024 ? (size + 255) / 256 : 1024;
-  ntm_grad_sum_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)part, chunks, size,
-                                                               (float*)out);
+  ntm_grad_sum_kernel<<<blocks, 256, 0, st>>>((const float*)part, chunks, size, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -156,57 +156,13 @@ struct PackedArgs {
   float* li;                    // [L, B*T, KINmax] each layer's input
   float* dgates;                // [L, B*T, 4*Hc] each layer's gate cotangents
   float* ctrl;                  // [B*T, Hc] the controller output
-  float* dctl;                  // [B*T, P] the head-control cotangents
+  float* dctl;                  // [B*T, P+O] the head-control cotangents, then the logits'
   Dims dm;
   Flags fl;
   int B, T;
 };
 
 #define ROWP(r, f) (smem + (r) * lay.row + lay.f)
-
-// acc[c][r] = sum_k xT[k*RT + r] * Wm[k*ld + col[c]] for the tile's RT rows
-// and NC columns col[c] = min(j0 + c*NT, ncol - 1): each weight element is
-// loaded once and used RT times, and each tile-input load serves NC
-// columns. NC > 1 keeps NC independent weight loads in flight per k, so
-// the 4*Hc = 800 LSTM columns take one pass of 512 threads, not two.
-template <int RT, int NC>
-__device__ __forceinline__ void tile_dot(const float* __restrict__ Wm, int ld, int j0, int ncol, const float* xT,
-                                         int K, float (&acc)[NC][RT]) {
-  const float* wc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    wc[c] = Wm + min(j0 + c * NT, ncol - 1);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) acc[c][r] = 0.f;
-  }
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float wv[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) wv[c] = __ldg(wc[c] + (size_t)k * ld);
-    const float* xk = xT + k * RT;
-    if constexpr (RT % 4 == 0) {
-#pragma unroll
-      for (int r = 0; r < RT; r += 4) {
-        const float4 xv = *reinterpret_cast<const float4*>(xk + r);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          acc[c][r] = fmaf(xv.x, wv[c], acc[c][r]);
-          acc[c][r + 1] = fmaf(xv.y, wv[c], acc[c][r + 1]);
-          acc[c][r + 2] = fmaf(xv.z, wv[c], acc[c][r + 2]);
-          acc[c][r + 3] = fmaf(xv.w, wv[c], acc[c][r + 3]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const float xv = xk[r];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[c][r] = fmaf(xv, wv[c], acc[c][r]);
-      }
-    }
-  }
-}
 
 // acc[r] = sum_j g_r[j] * Wrow[j] over j < ncol (a transposed product: a
 // warp per weight row, lanes over j), summed across the warp; g_r is row
@@ -803,9 +759,9 @@ __global__ void __launch_bounds__(NT, 1) packed_bwd_kernel(const PackedArgs a) {
       dMr[l] = from_read + dMr[l] * erase_prod(r, d, n, -1) + dmtn(r, d, n) * ROWP(r, minv)[j] +
                2.f * ROWP(r, M)[l] * ROWP(r, dss)[j];
     }
-    for (int i = tid; i < nr * P; i += NT) {
-      const int r = i / P, j = i - r * P;
-      a.dctl[((size_t)(b0 + r) * T + t) * P + j] = ROWP(r, ctl)[j];
+    for (int i = tid; i < nr * (P + O); i += NT) {
+      const int r = i / (P + O), q = i - r * (P + O);
+      a.dctl[((size_t)(b0 + r) * T + t) * (P + O) + q] = q < P ? ROWP(r, ctl)[q] : ROWP(r, dlogit)[q - P];
     }
     for (int k = warp; k < Hc; k += NWARPS) {
       float acc[RT];

@@ -5,8 +5,12 @@ Counterpart of ntm_tracker_tpu/ops/pallas/scan_bptt.py:ntm_scan_fused_bptt.
 `ntm_scan_fused_bptt` takes, for CUDA tensors:
   * with gradients recorded: the autograd Function below, which launches
     csrc/scan_bptt.cu's forward (residual streams of each step's input
-    state), and in its backward the reverse-time kernel and one reduction
-    launch per weight matrix (no float atomics: fixed summation order);
+    state), and in its backward the token projection (the layer-0 product
+    of every step's token, X W0[:IN] + b0, at once), the reverse-time
+    kernel over a tile of 1 or 2 batch rows per block, and one reduction
+    launch per weight matrix (no float atomics: fixed summation order).
+    The backward computes the tokens' gradient only when the tokens
+    require one (the training path's cached features do not);
   * without (torch.no_grad(), or no input that requires grad): B1, the
     residual-free ntm_scan_fused kernel, as scan_bptt.py:866-875 does.
 CPU tensors run `ntm_scan_fused_bptt_reference`, autograd through the
@@ -21,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -40,11 +44,20 @@ from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
     unflatten_state,
 )
 
-# the reduction kernel's row block and output tile (csrc/scan_bptt.cu RM, RT)
+# the GEMM kernels' slab of contraction rows (csrc/scan_bptt.cu GK) and
+# their block tiles (rows, columns), with the blocks of each resident per
+# SM: GemmWide 80 x 160 (10 x 10 per thread) and GemmSquare 128 x 128
+# (8 x 8 per thread)
 REDUCE_ROWS = 16
-REDUCE_TILE = 64
-# blocks the reduction aims to launch: 8 resident per SM on the H100's 132
-REDUCE_TARGET_BLOCKS = 8 * 132
+GEMM_TILES = {(80, 160): 3, (128, 128): 2}
+# the reduction's row chunks hold at least this many rows, and fill the
+# card's waves at least this well where the shape allows
+MIN_CHUNK_ROWS = 256
+MIN_WAVE_FILL = 0.99
+# the H100 SXM's SM count, for shape-only planning off the card
+H100_SMS = 132
+# rows per block the backward kernel is instantiated at
+BACKWARD_ROWS = (1, 2)
 
 
 # The plain version: autograd through the plain loop over ntm_cell_step
@@ -59,13 +72,15 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("scan_bptt")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ntm_bptt_smem_bytes.argtypes = [i32] * 11
+    lib.ntm_bptt_smem_bytes.argtypes = [i32] * 12
     lib.ntm_bptt_smem_bytes.restype = i32
     lib.ntm_bptt_fwd_launch.argtypes = [ptr] * 23 + [i32] * 15 + [ptr]
     lib.ntm_bptt_fwd_launch.restype = i32
-    lib.ntm_bptt_bwd_launch.argtypes = [ptr] * 28 + [i32] * 15 + [ptr]
+    lib.ntm_bptt_bwd_launch.argtypes = [ptr] * 29 + [i32] * 17 + [ptr]
     lib.ntm_bptt_bwd_launch.restype = i32
-    lib.ntm_grad_reduce_launch.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, i32, ptr]
+    lib.ntm_token_proj_launch.argtypes = [ptr, i32, ptr, i32, ptr, i32, i32, i32, i32, ptr, i32, ptr]
+    lib.ntm_token_proj_launch.restype = i32
+    lib.ntm_grad_reduce_launch.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, i32, ptr]
     lib.ntm_grad_reduce_launch.restype = i32
     return lib
 
@@ -81,10 +96,45 @@ def _dims(cfg: NTMConfig, IN: int) -> Tuple[int, ...]:
             cfg.controller_num_layers, cfg.output_dim)
 
 
-def _check_smem(lib, cfg: NTMConfig, IN: int, backward: bool) -> None:
-    smem = lib.ntm_bptt_smem_bytes(*_dims(cfg, IN), int(backward))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"config needs {smem} B of shared memory per block, above {MAX_SMEM_BYTES}")
+def smem_bytes(cfg: NTMConfig, IN: int, backward: bool, rows: int = 1) -> int:
+    """The dynamic shared memory one block takes: the forward's, or the
+    backward's at `rows` rows per block (the kernel's own
+    ntm_bptt_smem_bytes)."""
+    return _library().ntm_bptt_smem_bytes(*_dims(cfg, IN), int(backward), rows)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def backward_rows(B: int, rows_per_block: Optional[int], fits: Callable[[int], bool], sms: int) -> int:
+    """The backward's tile: rows_per_block if given (it must be in
+    BACKWARD_ROWS and fit, else this raises); otherwise 1 while one row
+    per block fills no more than the card's `sms` SMs once (B <= sms), and
+    2 above, or 1 where two rows do not fit. fits(rows) says whether a
+    block of that many rows fits in shared memory."""
+    if rows_per_block is not None:
+        if rows_per_block not in BACKWARD_ROWS:
+            raise ValueError(f"the backward kernel takes rows_per_block in {BACKWARD_ROWS}, got {rows_per_block}")
+        if not fits(rows_per_block):
+            raise ValueError(f"{rows_per_block} rows per block do not fit the backward's shared memory "
+                             f"({MAX_SMEM_BYTES} B) at this config")
+        return rows_per_block
+    rows = 1 if B <= sms else 2
+    if fits(rows):
+        return rows
+    if fits(1):
+        return 1
+    raise ValueError(f"one row per block does not fit the backward's shared memory ({MAX_SMEM_BYTES} B) at this config")
+
+
+def backward_tile(cfg: NTMConfig, IN: int, B: int, device: torch.device, rows_per_block: Optional[int] = None) -> int:
+    """backward_rows for this config on `device` (its SM count and the
+    kernel's own shared-memory sizes)."""
+    return backward_rows(B, rows_per_block, lambda r: smem_bytes(cfg, IN, True, r) <= MAX_SMEM_BYTES,
+                         sm_count(device))
 
 
 def bptt_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state):
@@ -99,7 +149,9 @@ def bptt_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state):
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
     R, Hc, L, O = cfg.read_head_size, cfg.controller_hidden_size, cfg.controller_num_layers, cfg.output_dim
     lib = _library()
-    _check_smem(lib, cfg, IN, backward=False)
+    smem = smem_bytes(cfg, IN, backward=False)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"config needs {smem} B of shared memory per block, above {MAX_SMEM_BYTES}")
     logits = torch.empty(B, T, O, device=device)
     M = torch.empty(B, N, D, device=device)
     w = torch.empty(B, H, N, device=device)
@@ -133,20 +185,60 @@ def bptt_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state):
 bptt_forward.launches = 0
 
 
-def bptt_backward(params, cfg: NTMConfig, tokens: torch.Tensor, res, dlogits: torch.Tensor, dfinal):
+def token_projection(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """X W0[:IN] + b0 over every step: [B*T, 4Hc] from tokens [B, T, IN]
+    and layer 0's kernel [IN + R*D + Hc, 4Hc] and bias [4Hc], the token
+    part of each step's layer-0 product. One launch of csrc/scan_bptt.cu's
+    GEMM, counted in `token_projection.launches`."""
+    B, T, IN = tokens.shape
+    device = tokens.device
+    G4 = kernel.shape[1]
+    _check("kernel", kernel, (kernel.shape[0], G4), device)
+    _check("bias", bias, (G4,), device)
+    if kernel.shape[0] < IN:
+        raise ValueError(f"kernel has {kernel.shape[0]} rows, fewer than the token width {IN}")
+    out = torch.empty(B * T, G4, device=device)
+    index, stream = _stream(device)
+    err = _library().ntm_token_proj_launch(
+        tokens.data_ptr(), IN, kernel.data_ptr(), G4, bias.data_ptr(), B * T, IN, G4,
+        gemm_tile(B * T, G4)[0], out.data_ptr(), index, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"scan_bptt token projection launch failed: CUDA error {err}")
+    token_projection.launches += 1
+    return out
+
+
+token_projection.launches = 0
+
+
+def token_projection_reference(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The plain version of token_projection."""
+    IN = tokens.shape[2]
+    return tokens.reshape(-1, IN) @ kernel[:IN] + bias
+
+
+def bptt_backward(params, cfg: NTMConfig, tokens: torch.Tensor, proj: torch.Tensor, res, dlogits: torch.Tensor,
+                  dfinal, need_dtokens: bool = True, rows_per_block: Optional[int] = None):
     """Launch the reverse-time kernel.
 
+    proj [B*T, 4Hc] is token_projection's output for these tokens and
+    layer 0's weights (the token part of every step's layer-0 product).
     dfinal holds the cotangents of the final state (the state dict's
-    layout). Returns (dtokens [B,T,IN], dstate0 (state layout), operands)
-    where operands = (li [L, B*T, KINmax], dgates [L, B*T, 4Hc],
-    ctrl [B*T, Hc], dctl [B*T, P]) feed the weight-gradient reduction.
-    One launch, counted in `bptt_backward.launches`."""
+    layout). Returns (dtokens [B,T,IN] or None, dstate0 (state layout),
+    operands) where operands = (li [L, B*T, KINmax rounded up to 4: 16-byte
+    rows, the padding columns unwritten], dgates [L, B*T, 4Hc],
+    ctrl [B*T, Hc], dctl [B*T, P+O]: the head-control cotangents, then the
+    logits') feed weight_grads.
+    need_dtokens=False computes, writes and allocates no dtokens.
+    rows_per_block picks the tile (backward_rows). One launch, counted in
+    `bptt_backward.launches`."""
     B, T, IN = tokens.shape
     device = tokens.device
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
     R, Hc, L, O = cfg.read_head_size, cfg.controller_hidden_size, cfg.controller_num_layers, cfg.output_dim
     P = sum(head_param_sizes(cfg).values())
-    KM = max(IN + R * D + Hc, 2 * Hc)
+    KM = math.ceil(max(IN + R * D + Hc, 2 * Hc) / 4) * 4  # 16-byte rows for the reduction's loads
     _check("dlogits", dlogits, (B, T, O), device)
     _check("dM", dfinal["M"], (B, N, D), device)
     _check("dw", dfinal["w"], (B, H, N), device)
@@ -155,31 +247,33 @@ def bptt_backward(params, cfg: NTMConfig, tokens: torch.Tensor, res, dlogits: to
     dh_T = torch.stack([h for _, h in dfinal["controller_state"]])
     _check("dc", dc_T, (L, B, Hc), device)
     _check("dh", dh_T, (L, B, Hc), device)
-    lib = _library()
-    _check_smem(lib, cfg, IN, backward=True)
+    _check("proj", proj, (B * T, 4 * Hc), device)
+    rows = backward_tile(cfg, IN, B, device, rows_per_block)
+    ctrl = params["controller"]
     dM0 = torch.empty(B, N, D, device=device)
     dw0 = torch.empty(B, H, N, device=device)
     dread0 = torch.empty(B, R, D, device=device)
     dc0 = torch.empty(L, B, Hc, device=device)
     dh0 = torch.empty(L, B, Hc, device=device)
-    dtokens = torch.empty(B, T, IN, device=device)
+    dtokens = torch.empty(B, T, IN, device=device) if need_dtokens else None
     li = torch.empty(L, B * T, KM, device=device)
     dgates = torch.empty(L, B * T, 4 * Hc, device=device)
     ctrl_out = torch.empty(B * T, Hc, device=device)
-    dctl = torch.empty(B * T, P, device=device)
-    ctrl = params["controller"]
+    dctl = torch.empty(B * T, P + O, device=device)
     index, stream = _stream(device)
-    err = lib.ntm_bptt_bwd_launch(
-        tokens.data_ptr(), _ptr_array([layer["kernel"] for layer in ctrl]),
-        _ptr_array([layer["bias"] for layer in ctrl]),
+    err = _library().ntm_bptt_bwd_launch(
+        tokens.data_ptr(), proj.data_ptr(),
+        _ptr_array([layer["kernel"] for layer in ctrl]), _ptr_array([layer["bias"] for layer in ctrl]),
         params["heads_w"].data_ptr(), params["heads_b"].data_ptr(),
         params["out_w"].data_ptr(), params["out_b"].data_ptr(),
         *[r.data_ptr() for r in res], dlogits.data_ptr(),
         dfinal["M"].data_ptr(), dfinal["w"].data_ptr(), dfinal["read"].data_ptr(),
         dc_T.data_ptr(), dh_T.data_ptr(),
         dM0.data_ptr(), dw0.data_ptr(), dread0.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
-        dtokens.data_ptr(), li.data_ptr(), dgates.data_ptr(), ctrl_out.data_ptr(), dctl.data_ptr(),
-        B, T, *_dims(cfg, IN), int(cfg.write_first), int(cfg.slotwise_cosine), index, stream,
+        None if dtokens is None else dtokens.data_ptr(), li.data_ptr(), dgates.data_ptr(),
+        ctrl_out.data_ptr(), dctl.data_ptr(),
+        B, T, *_dims(cfg, IN), int(cfg.write_first), int(cfg.slotwise_cosine), int(need_dtokens), rows,
+        index, stream,
     )
     if err != 0:
         raise RuntimeError(f"scan_bptt backward kernel launch failed: CUDA error {err}")
@@ -192,12 +286,36 @@ def bptt_backward(params, cfg: NTMConfig, tokens: torch.Tensor, res, dlogits: to
 bptt_backward.launches = 0
 
 
-def reduce_chunks(M: int, K: int, J: int) -> Tuple[int, int]:
+def gemm_tile(rows: int, cols: int) -> Tuple[int, int]:
+    """The GEMM kernels' block tile (a key of GEMM_TILES) for a [rows,
+    cols] output: the one that pads it least."""
+    return min(GEMM_TILES, key=lambda t: math.ceil(rows / t[0]) * t[0] * math.ceil(cols / t[1]) * t[1])
+
+
+def gemm_tiles(rows: int, cols: int) -> int:
+    """How many block tiles cover a [rows, cols] output at gemm_tile's tile."""
+    bm, bn = gemm_tile(rows, cols)
+    return math.ceil(rows / bm) * math.ceil(cols / bn)
+
+
+def wave_fill(blocks: int, slots: int) -> float:
+    """The share of `slots`-block waves that `blocks` blocks fill."""
+    return blocks / (math.ceil(blocks / slots) * slots)
+
+
+def reduce_chunks(M: int, K: int, J: int, sms: int = H100_SMS) -> Tuple[int, int]:
     """(chunks, rows per chunk) the reduction splits its M rows into: a
-    function of the shape only, so the summation order, and the result's
-    bits, are the same on every run."""
-    tiles = math.ceil(J / REDUCE_TILE) * math.ceil((K + 1) / REDUCE_TILE)
-    chunks = max(1, min(math.ceil(M / REDUCE_ROWS), math.ceil(REDUCE_TARGET_BLOCKS / tiles)))
+    function of the shape (and the card's SM count) only, so the summation
+    order, and the result's bits, are the same on every run. The fewest
+    chunks whose tiles x chunks blocks fill whole waves of the card
+    (MIN_WAVE_FILL), each chunk at least MIN_CHUNK_ROWS rows where M
+    allows; rows per chunk is a multiple of REDUCE_ROWS."""
+    tiles = gemm_tiles(K + 1, J)
+    slots = sms * GEMM_TILES[gemm_tile(K + 1, J)]
+    most = max(1, M // MIN_CHUNK_ROWS)
+    fills = [(wave_fill(tiles * c, slots), c) for c in range(1, most + 1)]
+    good = [c for f, c in fills if f >= MIN_WAVE_FILL]
+    chunks = good[0] if good else max(fills, key=lambda fc: (fc[0], -fc[1]))[1]
     rows = math.ceil(math.ceil(M / chunks) / REDUCE_ROWS) * REDUCE_ROWS
     return math.ceil(M / rows), rows
 
@@ -205,7 +323,8 @@ def reduce_chunks(M: int, K: int, J: int) -> Tuple[int, int]:
 def grad_reduce(A: torch.Tensor, G: torch.Tensor, K: int) -> torch.Tensor:
     """[A[:, :K]^T G ; sum_m G[m]] over the M rows: a weight gradient
     [K, J] with its bias gradient as row K. A [M, >=K] and G [M, J] are
-    contiguous float32 on cuda. One launch, counted in
+    contiguous float32 on cuda. One launch (two kernels: the chunks'
+    partial sums, then their sum in order), counted in
     `grad_reduce.launches`."""
     M, J = G.shape
     device = G.device
@@ -213,12 +332,12 @@ def grad_reduce(A: torch.Tensor, G: torch.Tensor, K: int) -> torch.Tensor:
         raise ValueError(f"A has shape {tuple(A.shape)}, expected [{M}, >={K}]")
     _check("A", A, tuple(A.shape), device)
     _check("G", G, (M, J), device)
-    chunks, rows = reduce_chunks(M, K, J)
+    chunks, rows = reduce_chunks(M, K, J, sm_count(device))
     part = torch.empty(chunks, K + 1, J, device=device)
     out = torch.empty(K + 1, J, device=device)
     index, stream = _stream(device)
     err = _library().ntm_grad_reduce_launch(
-        A.data_ptr(), A.shape[1], G.data_ptr(), J, M, K, J, chunks, rows,
+        A.data_ptr(), A.shape[1], G.data_ptr(), J, M, K, J, gemm_tile(K + 1, J)[0], chunks, rows,
         part.data_ptr(), out.data_ptr(), index, stream,
     )
     if err != 0:
@@ -235,12 +354,32 @@ def grad_reduce_reference(A: torch.Tensor, G: torch.Tensor, K: int) -> torch.Ten
     return torch.cat([A[:, :K].T @ G, G.sum(0, keepdim=True)], dim=0)
 
 
+def weight_grads(cfg: NTMConfig, IN: int, operands) -> list:
+    """The parameter gradients from a backward kernel's operands
+    (bptt_backward's or scan_packed.packed_backward's), through grad_reduce:
+    [dkernel[l]..., dbias[l]..., dheads_w, dheads_b, dout_w, dout_b]
+    (flatten_scan_args' order). dctl [B*T, P+O] holds the head-control
+    cotangents, then the logits', so one reduction serves both linears."""
+    li, dgates, ctrl, dctl = operands
+    R, D, Hc, L = cfg.read_head_size, cfg.mem_dim, cfg.controller_hidden_size, cfg.controller_num_layers
+    P = sum(head_param_sizes(cfg).values())
+    dkernels, dbiases = [], []
+    for l in range(L):
+        K = (IN + R * D if l == 0 else Hc) + Hc
+        g = grad_reduce(li[l], dgates[l], K)
+        dkernels.append(g[:K])
+        dbiases.append(g[K])
+    g = grad_reduce(ctrl, dctl, Hc)
+    gh, go = g[:, :P].contiguous(), g[:, P:].contiguous()
+    return [*dkernels, *dbiases, gh[:Hc], gh[Hc], go[:Hc], go[Hc]]
+
+
 class _ScanBPTT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, L, tokens, *flat):
+    def forward(ctx, cfg, L, rows_bwd, tokens, *flat):
         params, state = unflatten_scan_args(flat, L)
         logits, final, res = bptt_forward(params, cfg, tokens, state)
-        ctx.cfg, ctx.L, ctx.res = cfg, L, res
+        ctx.cfg, ctx.L, ctx.rows_bwd, ctx.res = cfg, L, rows_bwd, res
         ctx.save_for_backward(tokens, *flat)
         # distinct tensors, so that no output is a view of another
         return (logits, *[t.clone() for t in flatten_state(final)])
@@ -254,23 +393,15 @@ class _ScanBPTT(torch.autograd.Function):
         res, ctx.res = ctx.res, None
         if res is None:
             raise RuntimeError("the fused BPTT backward runs once per forward (no retain_graph)")
-        dtokens, dstate0, (li, dgates, ctrl, dctl) = bptt_backward(
-            params, cfg, tokens, res, dlogits.contiguous(),
-            unflatten_state([d.contiguous() for d in dfinal], L),
+        dlogits = dlogits.contiguous()
+        proj = token_projection(tokens, params["controller"][0]["kernel"], params["controller"][0]["bias"])
+        dtokens, dstate0, operands = bptt_backward(
+            params, cfg, tokens, proj, res, dlogits, unflatten_state([d.contiguous() for d in dfinal], L),
+            need_dtokens=ctx.needs_input_grad[3], rows_per_block=ctx.rows_bwd,
         )
-        del res
-        B, T, IN = tokens.shape
-        R, D, Hc = cfg.read_head_size, cfg.mem_dim, cfg.controller_hidden_size
-        dkernels, dbiases = [], []
-        for l in range(L):
-            K = (IN + R * D if l == 0 else Hc) + Hc
-            g = grad_reduce(li[l], dgates[l], K)
-            dkernels.append(g[:K])
-            dbiases.append(g[K])
-        gh = grad_reduce(ctrl, dctl, Hc)
-        go = grad_reduce(ctrl, dlogits.reshape(B * T, cfg.output_dim).contiguous(), Hc)
-        grads = [*flatten_state(dstate0), *dkernels, *dbiases, gh[:Hc], gh[Hc], go[:Hc], go[Hc]]
-        return (None, None, dtokens, *grads)
+        del res, proj
+        grads = [*flatten_state(dstate0), *weight_grads(cfg, tokens.shape[2], operands)]
+        return (None, None, None, dtokens, *grads)
 
 
 def ntm_scan_fused_bptt(
@@ -278,12 +409,15 @@ def ntm_scan_fused_bptt(
     cfg: NTMConfig,
     tokens: torch.Tensor,
     state: Dict[str, Any],
+    backward_rows_per_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """T NTM steps, differentiable wrt params, tokens and the initial state.
 
     Args:
       tokens: [B, T, IN] float32; params and state on the tokens' device,
         float32 and contiguous.
+      backward_rows_per_block: the backward kernel's tile (BACKWARD_ROWS);
+        None = backward_rows' choice from B and the card's SM count.
     Returns:
       (logits [B, T, output_dim], final state). See the module docstring
       for the route each device and grad mode takes.
@@ -300,5 +434,5 @@ def ntm_scan_fused_bptt(
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in [tokens, *flat])):
         return ntm_scan_fused(params, cfg, tokens, state)
     L = cfg.controller_num_layers
-    logits, *final = _ScanBPTT.apply(cfg, L, tokens, *flat)
+    logits, *final = _ScanBPTT.apply(cfg, L, backward_rows_per_block, tokens, *flat)
     return logits, unflatten_state(final, L)

@@ -11,7 +11,7 @@ serves the whole tile. Routes, for CUDA tensors:
   * `ntm_scan_packed_bptt` with gradients recorded: the autograd Function
     below, which launches the packed forward with residual streams, and
     in its backward the packed reverse-time kernel and B2's deterministic
-    weight-gradient reduction (ops/kernels/scan_bptt.grad_reduce);
+    weight-gradient reduction (ops/kernels/scan_bptt.weight_grads);
     without gradients it runs `ntm_scan_packed`.
 CPU tensors run `ntm_scan_packed_reference`, plain PyTorch on the packed
 layout; other devices raise. f32 only. Both functions take and return the
@@ -34,7 +34,7 @@ import torch
 
 from ntm_tracker_tpu_torch.config import NTMConfig
 from ntm_tracker_tpu_torch.models.ntm_cell import HEAD_PARAM_ORDER, head_param_sizes
-from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import _dims, _ptr_array, grad_reduce
+from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import _dims, _ptr_array, weight_grads
 from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
     MAX_SMEM_BYTES,
     _check,
@@ -245,8 +245,9 @@ def packed_backward(params, cfg: NTMConfig, tokens: torch.Tensor, res, dlogits: 
     dfinal holds the cotangents of the final state (the state dict's
     layout). Returns (dtokens [B,T,IN], dstate0 (state layout), operands)
     where operands = (li [L, B*T, KINmax], dgates [L, B*T, 4Hc],
-    ctrl [B*T, Hc], dctl [B*T, P]), the layout of scan_bptt.bptt_backward's,
-    feed grad_reduce. One launch, counted in `packed_backward.launches`."""
+    ctrl [B*T, Hc], dctl [B*T, P+O]: the head-control cotangents, then the
+    logits'), bptt_backward's layout, feed scan_bptt.weight_grads. One
+    launch, counted in `packed_backward.launches`."""
     B, T, IN = tokens.shape
     device = tokens.device
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
@@ -275,7 +276,7 @@ def packed_backward(params, cfg: NTMConfig, tokens: torch.Tensor, res, dlogits: 
     li = torch.empty(L, B * T, KM, device=device)
     dgates = torch.empty(L, B * T, 4 * Hc, device=device)
     ctrl_out = torch.empty(B * T, Hc, device=device)
-    dctl = torch.empty(B * T, P, device=device)
+    dctl = torch.empty(B * T, P + O, device=device)
     ctrl = params["controller"]
     index, stream = _stream(device)
     err = lib.ntm_packed_bwd_launch(
@@ -299,23 +300,6 @@ def packed_backward(params, cfg: NTMConfig, tokens: torch.Tensor, res, dlogits: 
 
 
 packed_backward.launches = 0
-
-
-def weight_grads(cfg: NTMConfig, IN: int, operands, dlogits: torch.Tensor) -> list:
-    """The parameter gradients from the backward's operands, through
-    grad_reduce: [dkernel[l]..., dbias[l]..., dheads_w, dheads_b, dout_w,
-    dout_b] (flatten_scan_args' order)."""
-    li, dgates, ctrl, dctl = operands
-    R, D, Hc, L = cfg.read_head_size, cfg.mem_dim, cfg.controller_hidden_size, cfg.controller_num_layers
-    dkernels, dbiases = [], []
-    for l in range(L):
-        K = (IN + R * D if l == 0 else Hc) + Hc
-        g = grad_reduce(li[l], dgates[l], K)
-        dkernels.append(g[:K])
-        dbiases.append(g[K])
-    gh = grad_reduce(ctrl, dctl, Hc)
-    go = grad_reduce(ctrl, dlogits.reshape(-1, cfg.output_dim).contiguous(), Hc)
-    return [*dkernels, *dbiases, gh[:Hc], gh[Hc], go[:Hc], go[Hc]]
 
 
 class _PackedBPTT(torch.autograd.Function):
@@ -342,7 +326,7 @@ class _PackedBPTT(torch.autograd.Function):
             params, cfg, tokens, res, dlogits, unflatten_state([d.contiguous() for d in dfinal], L), ctx.rows_bwd,
         )
         del res
-        grads = [*flatten_state(dstate0), *weight_grads(cfg, tokens.shape[2], operands, dlogits)]
+        grads = [*flatten_state(dstate0), *weight_grads(cfg, tokens.shape[2], operands)]
         return (None, None, None, None, dtokens, *grads)
 
 
