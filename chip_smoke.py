@@ -69,10 +69,11 @@ BPTT_REPLACES = {
     "backward": "ntm_tracker_tpu/ops/pallas/scan_bptt.py:312",
     "grad_reduce": "ntm_tracker_tpu/ops/pallas/scan_bptt.py:542",
 }
-# B2's backward and reduction before this design (PERF.md, NVIDIA H100
-# 80GB HBM3 at 700 W): one row per block, no projection, dtokens always,
-# and the 64 x 64 reduction
-PREVIOUS_MS = {"backward": 383.4, "grad_reduce": 24.7}
+# B2's kernels before their redesign (PERF.md, NVIDIA H100 80GB HBM3 at
+# 700 W): the forward at one row per block reading W0's token rows every
+# step (PR 8); the backward at one row per block, with no projection and
+# dtokens always, and the 64 x 64 reduction (PR 5)
+PREVIOUS_MS = {"forward": 161.1, "backward": 383.4, "grad_reduce": 24.7}
 # the training slice's shape: the JAX bench's cached-token train step
 # (ntm_tracker_tpu/benchmarks.py:646), B=256 rows of L=20 frames
 TRAIN_B, TRAIN_L = 256, 20
@@ -134,6 +135,41 @@ def state_diffs(logits, state, ref_logits, ref_state) -> dict:
     return out
 
 
+def forward_errors(got, ref) -> dict:
+    """{part: max |got - ref|} over B2 forward outputs (logits, final
+    state, residual streams), both as bptt_forward returns them."""
+    (logits, final, res), (r_logits, r_final, r_res) = got, ref
+    out = state_diffs(logits, final, r_logits, r_final)
+    for name, a, b in zip(("res_M", "res_w", "res_read", "res_c", "res_h"), res, r_res):
+        out[name] = max_abs(a, b)
+    return out
+
+
+def same_forward(a, b) -> bool:
+    """Whether two B2 forward outputs are the same bits."""
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import flatten_state
+
+    return (torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+            and all(torch.equal(x, y) for x, y in zip(flatten_state(a[1]), flatten_state(b[1]))))
+
+
+def step_element_ops(cfg) -> int:
+    """The element operations of one cell step of one row, outside its
+    matmuls: the LSTM gates and the addressing, write and read."""
+    N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
+    R, W, S = cfg.read_head_size, cfg.write_head_size, cfg.shift_space
+    Hc, L = cfg.controller_hidden_size, cfg.controller_num_layers
+    return (
+        10 * L * Hc                        # LSTM gates
+        + 2 * N * D + 2 * H * D            # memory and key norms
+        + 3 * H * N * D                    # normalized similarity
+        + 6 * H * N                        # softmax and gate
+        + 2 * S * H * N + 3 * H * N        # shift and sharpen
+        + 4 * W * N * D + 2 * N * D        # erase/add
+        + 2 * R * N * D                    # read
+    )
+
+
 def scan_cell_work(cfg, B: int, T: int, IN: int) -> tuple[float, float]:
     """(bytes, operations) the T-step cell loop needs at least: every
     input read once and every output written once, in float32; matmul
@@ -146,54 +182,55 @@ def scan_cell_work(cfg, B: int, T: int, IN: int) -> tuple[float, float]:
     weights = sum(k * 4 * Hc + 4 * Hc for k in k_rows) + Hc * P + P + Hc * O + O
     state = N * D + H * N + R * D + 2 * L * Hc
     floats = weights + B * T * IN + 2 * B * state + B * T * O
-    per_step = (
-        sum(2 * k * 4 * Hc for k in k_rows) + 2 * Hc * P + 2 * Hc * O  # matmuls
-        + 10 * L * Hc                      # LSTM gates
-        + 2 * N * D + 2 * H * D            # memory and key norms
-        + 3 * H * N * D                    # normalized similarity
-        + 6 * H * N                        # softmax and gate
-        + 2 * S * H * N + 3 * H * N        # shift and sharpen
-        + 4 * W * N * D + 2 * N * D        # erase/add
-        + 2 * R * N * D                    # read
-    )
+    per_step = sum(2 * k * 4 * Hc for k in k_rows) + 2 * Hc * P + 2 * Hc * O + step_element_ops(cfg)
     return 4.0 * floats, float(B * T * per_step)
 
 
-def scan_bptt_work(cfg, B: int, T: int, IN: int, need_dtokens: bool = False) -> dict:
+def scan_bptt_work(cfg, B: int, T: int, IN: int, need_dtokens: bool = False, hoisted: bool = True) -> dict:
     """(bytes, operations) per B2 kernel, as scan_cell_work counts them:
     every input read once, every output written once (float32), matmul
-    FLOPs at 2 per multiply-add plus the element operations. The backward
-    is counted as the call does it: the token projection and the
-    recurrence together (the projection's output is internal), and without
-    dtokens no token rows in the transposed product and no dtokens write."""
+    FLOPs at 2 per multiply-add plus the element operations. hoisted counts
+    the kernels as the train route runs them: the token projection once
+    per step, the forward and the backward's recompute each reading it (no
+    token rows of W0 in their products, no tokens read by the forward),
+    and without dtokens no token rows in the backward's transposed product
+    and no dtokens write. hoisted=False counts kernels that do their own
+    token product (the packed kernels, B4)."""
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
     R, W, S = cfg.read_head_size, cfg.write_head_size, cfg.shift_space
     Hc, L, O = cfg.controller_hidden_size, cfg.controller_num_layers, cfg.output_dim
     P = H * D + 3 * H + S * H + 2 * W * D
+    G4 = 4 * Hc
     k_rows = [IN + R * D + Hc] + [2 * Hc] * (L - 1)
-    weights = sum(k * 4 * Hc + 4 * Hc for k in k_rows) + Hc * P + P + Hc * O + O
+    weights = sum(k * G4 + G4 for k in k_rows) + Hc * P + P + Hc * O + O
     state = N * D + H * N + R * D + 2 * L * Hc
-    fwd_bytes, fwd_ops = scan_cell_work(cfg, B, T, IN)
-    fwd_bytes += 4.0 * B * T * state                 # the residual streams
+    # the forward's products: layer 0 without its token rows when hoisted
+    f_rows = [k_rows[0] - (IN if hoisted else 0)] + k_rows[1:]
+    fwd_step = sum(2 * k * G4 for k in f_rows) + 2 * Hc * P + 2 * Hc * O + step_element_ops(cfg) + (G4 if hoisted else 0)
+    fwd_ops = B * T * fwd_step
+    fwd_weights = weights - (IN * G4 if hoisted else 0)
+    fwd_floats = (fwd_weights + B * T * (G4 if hoisted else IN) + 2 * B * state + B * T * O
+                  + B * T * state)                          # the residual streams
     t_rows = [k_rows[0] - (0 if need_dtokens else IN)] + k_rows[1:]
     per_step_bwd = (
-        sum(2 * k * 4 * Hc for k in t_rows) + 2 * Hc * (P + O)  # transposed products
+        sum(2 * k * G4 for k in t_rows) + 2 * Hc * (P + O)  # transposed products
         + 15 * L * Hc                                  # LSTM gate cotangents
         + 4 * R * N * D + (4 * W + 6) * N * D         # read, erase/add
         + (10 + 4 * S) * H * N                         # sharpen, shift, gate, softmax
         + 5 * H * N * D + 5 * N * D                    # keys, normalizer
     )
     bwd_ops = B * T * per_step_bwd + fwd_ops          # plus the recompute
-    bwd_floats = (weights + B * T * (IN + state + O) + B * state      # read
-                  + B * T * ((IN if need_dtokens else 0) + sum(k_rows) + 4 * Hc * L + Hc + P + O)
-                  + B * state)                                       # written
+    bwd_weights = weights - (IN * G4 if hoisted and not need_dtokens else 0)
+    bwd_floats = (bwd_weights + B * T * (IN + (G4 if hoisted else 0) + state + O) + B * state      # read
+                  + B * T * ((IN if need_dtokens else 0) + sum(k_rows) + G4 * L + Hc + P + O)
+                  + B * state)                                                                    # written
     reduce = []
-    for K, J in [(k, 4 * Hc) for k in k_rows] + [(Hc, P + O)]:
+    for K, J in [(k, G4) for k in k_rows] + [(Hc, P + O)]:
         M = B * T
         reduce.append((4.0 * (M * K + M * J + (K + 1) * J), 2.0 * M * (K + 1) * J))
-    proj = (4.0 * (B * T * IN + IN * 4 * Hc + 4 * Hc + B * T * 4 * Hc), 2.0 * B * T * IN * 4 * Hc)
+    proj = (4.0 * (B * T * IN + IN * G4 + G4 + B * T * G4), 2.0 * B * T * IN * G4)
     return {
-        "forward": (fwd_bytes, fwd_ops),
+        "forward": (4.0 * fwd_floats, float(fwd_ops)),
         "token_projection": proj,
         "backward": (4.0 * bwd_floats, float(bwd_ops)),
         "grad_reduce": (sum(b for b, _ in reduce), sum(o for _, o in reduce)),
@@ -403,27 +440,32 @@ def bptt_cases() -> dict:
 
 
 def phase_bptt(dev: torch.device, IN: int) -> dict:
-    """B2 against its plain version (autograd through the plain loop) on
-    the card: logits, final state and every gradient, on five cases, with
-    the backward at one and two rows per block (where two fit), and the
-    flagship cases also with tokens that need no gradient (the backward
-    then computes no dtokens); and B1's trainable wrapper against the same
-    plain version. Returns the tiles each case ran at."""
+    """B2 against its plain version on the card, on five cases: the
+    forward at every tile that fits against bptt_forward_reference on the
+    same projection (logits, final state and residual streams, the same
+    bits on a rerun), and the whole route (autograd Function) against
+    autograd through the plain loop: logits, final state and every
+    gradient, with the forward at each tile and the backward at one and
+    two rows per block (where two fit), and the flagship cases also with
+    tokens that need no gradient (the backward then computes no dtokens);
+    and B1's trainable wrapper against the same plain version. Returns the
+    tiles each case ran at and the forward's largest error."""
     from ntm_tracker_tpu_torch.config import NTMConfig
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
     from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
     from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt, ntm_scan_fused_bptt_reference
     from ntm_tracker_tpu_torch.ops.kernels.scan_cell import MAX_SMEM_BYTES, ntm_scan_fused_trainable
 
-    def compare(name, ncfg, B, T, scan, params, tokens, cot, state_fn, variants=((None, True),)):
+    def compare(name, ncfg, B, T, scan, params, tokens, cot, state_fn, variants=((None, None, True),)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pl, pf, pg = grads_of(ntm_scan_fused_bptt_reference, params, ncfg, tokens, cot, state_fn)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
         worst, kg = 0.0, None
-        for rows, token_grads in variants:
-            kscan = scan if rows is None else functools.partial(scan, backward_rows_per_block=rows)
+        for frows, brows, token_grads in variants:
+            kscan = scan if (frows, brows) == (None, None) else functools.partial(
+                scan, forward_rows_per_block=frows, backward_rows_per_block=brows)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             kl, kf, kg = grads_of(kscan, params, ncfg, tokens, cot, state_fn, token_grads)
@@ -433,7 +475,7 @@ def phase_bptt(dev: torch.device, IN: int) -> dict:
             gerr = grad_errors(kg, pg)
             finite = all(bool(torch.isfinite(g).all()) for g in kg.values())
             gw = max(gerr, key=gerr.get)
-            tag = "" if rows is None else f" rows {rows}, token grads {token_grads}"
+            tag = "" if (frows, brows) == (None, None) else f" rows {frows}/{brows}, token grads {token_grads}"
             log("bptt", f"{name} B={B} T={T}{tag}: fwd max_abs={fwd:.3e} (tol {F32_TOL:g}); grads max rel={gerr[gw]:.3e} "
                         f"at {gw} (tol {GRAD_TOL:g}, {len(gerr)} gradients); finite={finite}; fwd+bwd {kernel_ms:.1f} ms, "
                         f"plain {plain_ms:.1f} ms (host clock, first call)")
@@ -442,25 +484,52 @@ def phase_bptt(dev: torch.device, IN: int) -> dict:
             worst = max(worst, gerr[gw])
         return {"grad_rel": worst, "grads": kg}
 
-    def tiles(ncfg):
+    def forward_check(name, ncfg, B, T, params, tokens, state) -> float:
+        layer0 = params["controller"][0]
+        with torch.no_grad():
+            proj = scan_bptt.token_projection(tokens, layer0["kernel"], layer0["bias"])
+            perr = max_abs(proj, scan_bptt.token_projection_reference(tokens, layer0["kernel"], layer0["bias"]))
+            ref = scan_bptt.bptt_forward_reference(params, ncfg, tokens, state, proj)
+            worst = 0.0
+            for rows in fwd_tiles(ncfg):
+                got = scan_bptt.bptt_forward(params, ncfg, tokens, state, proj, rows_per_block=rows)
+                same = same_forward(got, scan_bptt.bptt_forward(params, ncfg, tokens, state, proj, rows_per_block=rows))
+                err = forward_errors(got, ref)
+                w = max(err, key=err.get)
+                log("bptt", f"{name} B={B} T={T} forward at {rows} rows per block vs its plain version on the same "
+                            f"projection (projection vs plain {perr:.2e}): max_abs {err[w]:.3e} at {w} (tol {F32_TOL:g}, "
+                            f"logits, final state, five residual streams); same bits on a rerun {same}")
+                if err[w] > F32_TOL or perr > F32_TOL or not same:
+                    raise AssertionError(f"{name}: the forward at {rows} rows disagrees with its plain version")
+                worst = max(worst, err[w])
+        return worst
+
+    def bwd_tiles(ncfg):
         return [r for r in scan_bptt.BACKWARD_ROWS if scan_bptt.smem_bytes(ncfg, IN, True, r) <= MAX_SMEM_BYTES]
 
+    def fwd_tiles(ncfg):
+        return [r for r in scan_bptt.FORWARD_ROWS if scan_bptt.smem_bytes(ncfg, IN, False, r) <= MAX_SMEM_BYTES]
+
     cases = bptt_cases()
-    out, ran = {}, {}
+    out, ran, fwd_ran, fwd_worst = {}, {}, {}, 0.0
     for i, (name, (ncfg, B, T)) in enumerate(cases.items()):
         params, tokens, cot = scan_case(ncfg, B, T, 300 + i, dev, IN)
-        ran[name] = tiles(ncfg)
-        variants = [(r, g) for r in ran[name] for g in ((True, False) if "flagship" in name else (True,))]
+        fwd_worst = max(fwd_worst, forward_check(name, ncfg, B, T, params, tokens, init_ntm_state(params, ncfg, B)))
+        ran[name], fwd_ran[name] = bwd_tiles(ncfg), fwd_tiles(ncfg)
+        variants = ([(r, None, True) for r in fwd_ran[name]]
+                    + [(None, r, g) for r in ran[name] for g in ((True, False) if "flagship" in name else (True,))])
         out[name] = compare(name, ncfg, B, T, ntm_scan_fused_bptt, params, tokens, cot,
                             lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B), variants)
     log("bptt", f"f32 gradient error vs T: T=65 (B=70) {out['b_flagship']['grad_rel']:.3e}, "
-                f"T=1300 (B=1) {out['a_flagship']['grad_rel']:.3e} relative (tol {GRAD_TOL:g}); backward rows per "
-                f"block run per case {ran} (two rows do not fit the two-layer case's shared memory)")
+                f"T=1300 (B=1) {out['a_flagship']['grad_rel']:.3e} relative (tol {GRAD_TOL:g}); forward rows per block "
+                f"run per case {fwd_ran}; backward rows per block {ran} (two backward rows do not fit the two-layer "
+                f"case's shared memory)")
 
     # e: w_conv exactly one-hot at T=1: every w_conv entry is 0 or 1, so the
     # gamma gradient is exactly 0 (log 1 = 0, and 0 where w_conv == 0)
     ncfg, B, params, tokens, cot, zero_state, cols, (n_zero, n_one) = wconv_zero_case(dev, IN)
-    ran["e_wconv_zero"] = tiles(ncfg)
+    fwd_worst = max(fwd_worst, forward_check("e_wconv_zero", ncfg, B, 1, params, tokens, zero_state(params)))
+    ran["e_wconv_zero"], fwd_ran["e_wconv_zero"] = bwd_tiles(ncfg), fwd_tiles(ncfg)
     for rows in ran["e_wconv_zero"]:
         res = compare(f"e_wconv_zero rows {rows}", ncfg, B, 1, functools.partial(
             ntm_scan_fused_bptt, backward_rows_per_block=rows), params, tokens, cot, zero_state)
@@ -475,7 +544,7 @@ def phase_bptt(dev: torch.device, IN: int) -> dict:
     params, tokens, cot = scan_case(ncfg, B, T, 330, dev, IN)
     compare("scan_cell.ntm_scan_fused_trainable", ncfg, B, T, lambda p, c, t, st: ntm_scan_fused_trainable(p, c, t, st),
             params, tokens, cot, lambda p: init_ntm_state(p, ncfg, B))
-    return ran
+    return {"backward": ran, "forward": fwd_ran, "forward_max_abs_err": fwd_worst}
 
 
 def addressing_inputs(ncfg, B: int, seed: int, dev: torch.device) -> list:
@@ -939,16 +1008,16 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
                  f"{plain_step:.1f} ms = {TRAIN_B * TRAIN_L / plain_step * 1e3:.1f} frames/s "
                  f"(forward {plain_fwd:.1f} ms, backward {plain_bwd:.1f} ms, CUDA events); "
                  f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; loss {ploss:.6f}")
-    fwd_err = max_abs(flogits, plogits)
+    fwd_err256 = max_abs(flogits, plogits)
     err256 = step_errors(params, (losses[0], fgrads, p1, s1), (ploss, pgrads, qp, sp))
     with torch.no_grad():
         eval0 = float(eval_step(params, batch)["loss"])
     eval_err = abs(eval0 - ploss) / max(1.0, abs(ploss))
-    log("train", f"B={TRAIN_B} T={base.total_steps}: fused (B2) logits vs plain max_abs {fwd_err:.3e} (tol {F32_TOL:g}); "
+    log("train", f"B={TRAIN_B} T={base.total_steps}: fused (B2) logits vs plain max_abs {fwd_err256:.3e} (tol {F32_TOL:g}); "
                  f"B2 loss {floss:.6f}, main path's first step {losses[0]:.6f}, plain {ploss:.6f}; eval step (B1) "
                  f"loss from the same params {eval0:.6f}, rel {eval_err:.2e} (tol {F32_TOL:g})")
     report_step(f"B={TRAIN_B} main path's first step vs plain", err256)
-    if fwd_err > F32_TOL or eval_err > F32_TOL or abs(floss - losses[0]) > F32_TOL * max(1.0, abs(ploss)):
+    if fwd_err256 > F32_TOL or eval_err > F32_TOL or abs(floss - losses[0]) > F32_TOL * max(1.0, abs(ploss)):
         raise AssertionError("the fused forward disagrees with the plain one at the main path's shape")
     # both float32 routes against the plain loop in float64: which of them
     # carries the gap between them
@@ -992,25 +1061,46 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
         B, T, _ = tokens.shape
         b1_err = max_abs(ntm_scan_fused(params, ncfg, tokens, state)[0], plogits)
         b1_ms = cuda_ms(lambda: ntm_scan_fused(params, ncfg, tokens, state), iters=2, warmup=0)
-        fwd_ms = cuda_ms(lambda: scan_bptt.bptt_forward(params, ncfg, tokens, state), iters=2, warmup=1)
-        logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state)
-        dlogits = torch.randn_like(logits) * 1e-2
-        dfinal = tree_map(torch.zeros_like, final)
-        # the token projection alone, its plain version and one library call
+        # the token projection, its plain version and one library call, in
+        # turns
         W0, b0 = params["controller"][0]["kernel"], params["controller"][0]["bias"]
         proj = scan_bptt.token_projection(tokens, W0, b0)
         proj_err = max_abs(proj, scan_bptt.token_projection_reference(tokens, W0, b0))
-        proj_ms = cuda_ms(lambda: scan_bptt.token_projection(tokens, W0, b0), iters=5, warmup=1)
-        proj_plain_ms = cuda_ms(lambda: scan_bptt.token_projection_reference(tokens, W0, b0), iters=5, warmup=1)
-        proj_lib_ms = cuda_ms(lambda: torch.addmm(b0, tokens.reshape(B * T, IN), W0[:IN]), iters=5, warmup=1)
-        # the backward as the route runs it (the projection, then the
-        # recurrence without dtokens at the route's tile), and the recurrence
-        # alone on the projection computed above: at the route's tile and at
-        # one row per block, without and with dtokens
+        proj_same = torch.equal(proj, scan_bptt.token_projection(tokens, W0, b0))
+        proj_fns = {
+            "kernel": lambda: scan_bptt.token_projection(tokens, W0, b0),
+            "plain": lambda: scan_bptt.token_projection_reference(tokens, W0, b0),
+            "torch.addmm": lambda: torch.addmm(b0, tokens.reshape(B * T, IN), W0[:IN]),
+        }
+        proj_ms_by = {name: [] for name in proj_fns}
+        for rep in range(2):
+            for name in (list(proj_fns) if rep == 0 else list(proj_fns)[::-1]):
+                proj_ms_by[name].append(cuda_ms(proj_fns[name], iters=5, warmup=1))
+        proj_ms, proj_plain_ms, proj_lib_ms = (float(np.mean(v)) for v in proj_ms_by.values())
+        proj_tile = scan_bptt.gemm_tile(B * T, W0.shape[1])
+        # the forward on that projection: against its plain version at
+        # every tile, the same bits on a rerun, then timed at every tile
+        fwd_rows = scan_bptt.forward_tile(ncfg, IN, B, dev)
+        t0 = time.perf_counter()
+        fwd_ref = scan_bptt.bptt_forward_reference(params, ncfg, tokens, state, proj)
+        fwd_ref_s = time.perf_counter() - t0
+        fwd_err, fwd_same = {}, True
+        for r in scan_bptt.FORWARD_ROWS:
+            got = scan_bptt.bptt_forward(params, ncfg, tokens, state, proj, rows_per_block=r)
+            fwd_same = fwd_same and same_forward(got, scan_bptt.bptt_forward(params, ncfg, tokens, state, proj,
+                                                                             rows_per_block=r))
+            fwd_err[r] = max(forward_errors(got, fwd_ref).values())
+            del got
+        del fwd_ref
+        fwd_ms_by = {r: cuda_ms(lambda r=r: scan_bptt.bptt_forward(params, ncfg, tokens, state, proj, rows_per_block=r),
+                                iters=2, warmup=1) for r in scan_bptt.FORWARD_ROWS}
+        fwd_ms = fwd_ms_by[fwd_rows]
+        logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state, proj)
+        dlogits = torch.randn_like(logits) * 1e-2
+        dfinal = tree_map(torch.zeros_like, final)
+        # the backward on the same projection: as the route runs it (its
+        # tile, no dtokens), and at one row per block and with dtokens
         rows = scan_bptt.backward_tile(ncfg, IN, B, dev)
-        bwd_ms = cuda_ms(lambda: scan_bptt.bptt_backward(
-            params, ncfg, tokens, scan_bptt.token_projection(tokens, W0, b0), res, dlogits, dfinal,
-            need_dtokens=False), iters=2, warmup=1)
         variants = {f"rows {rows}, no dtokens (the route)": (rows, False), f"rows {rows}, dtokens": (rows, True),
                     "rows 1, no dtokens": (1, False), "rows 1, dtokens": (1, True)}
         rec_variants = {}
@@ -1018,7 +1108,7 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
             rec_variants[name] = cuda_ms(lambda: scan_bptt.bptt_backward(
                 params, ncfg, tokens, proj, res, dlogits, dfinal, need_dtokens=need, rows_per_block=r),
                 iters=2, warmup=1)
-        rec_ms = rec_variants[list(variants)[0]]
+        bwd_ms = rec_variants[list(variants)[0]]
         _, dst, ops = scan_bptt.bptt_backward(params, ncfg, tokens, proj, res, dlogits, dfinal, need_dtokens=False)
         _, dst2, ops2 = scan_bptt.bptt_backward(params, ncfg, tokens, proj, res, dlogits, dfinal, need_dtokens=False)
         KIN = IN + ncfg.read_head_size * ncfg.mem_dim + ncfg.controller_hidden_size
@@ -1050,12 +1140,22 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     if b1_err > F32_TOL:
         raise AssertionError("B1 disagrees with the plain loop at the training shape")
     work = scan_bptt_work(ncfg, B, T, IN)
-    log("times", f"{smi}: B2 at B={B} T={T}: forward (residuals) {fwd_ms:.3f} ms; token projection {proj_ms:.3f} ms "
-                 f"(plain {proj_plain_ms:.3f} ms, torch.addmm {proj_lib_ms:.3f} ms, max_abs vs plain {proj_err:.3e}); "
-                 f"backward (projection + recurrence, the route) {bwd_ms:.3f} ms (before: {PREVIOUS_MS['backward']} ms: "
-                 f"one row per block, no projection, dtokens); the recurrence alone "
+    log("times", f"{smi}: B2 token projection at B={B} T={T} (once per train step, in the forward), CUDA events, "
+                 f"two turns: kernel ({proj_tile[0]}x{proj_tile[1]} tile) {proj_ms:.3f} ms, plain "
+                 f"{proj_plain_ms:.3f} ms, torch.addmm {proj_lib_ms:.3f} ms; kernel / torch.addmm = "
+                 f"{proj_ms / proj_lib_ms:.3f}; max_abs vs plain {proj_err:.3e}, same bits on a rerun {proj_same}")
+    log("times", f"{smi}: B2 forward at B={B} T={T} on the projection, by rows per block: "
+                 + ", ".join(f"{r}: {v:.3f} ms" for r, v in fwd_ms_by.items())
+                 + f" (the route: {fwd_rows}; before: {PREVIOUS_MS['forward']} ms, one row per block, the token rows "
+                 f"read every step); vs its plain version ({fwd_ref_s:.1f} s) max_abs "
+                 + ", ".join(f"{r}: {v:.3e}" for r, v in fwd_err.items())
+                 + f" (tol {F32_TOL:g}: logits, final state, residuals); same bits on a rerun {fwd_same}; shared "
+                 f"memory per block " + ", ".join(f"{r} rows {scan_bptt.smem_bytes(ncfg, IN, False, r)} B"
+                                                   for r in scan_bptt.FORWARD_ROWS))
+    log("times", f"{smi}: B2 backward at B={B} T={T} on the projection: "
                  + "; ".join(f"{k} {v:.3f} ms" for k, v in rec_variants.items())
-                 + f"; backward same bits on a rerun: {bwd_same}; its shared memory per block "
+                 + f" (before: {PREVIOUS_MS['backward']} ms: one row per block, no projection, dtokens); same bits "
+                 f"on a rerun: {bwd_same}; its shared memory per block "
                  + ", ".join(f"{r} rows {scan_bptt.smem_bytes(ncfg, IN, True, r)} B" for r in scan_bptt.BACKWARD_ROWS))
     log("times", f"{smi}: B2 reduction (L+1={L + 1} calls, two kernels each; tiles {tiles}) {red_ms:.3f} ms "
                  f"(before: {PREVIOUS_MS['grad_reduce']} ms); torch.matmul on the same products {red_lib_ms:.3f} ms; "
@@ -1066,18 +1166,24 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
         log("times", f"B2 {name} bound {ms:.3f} ms by {by} ({nb / 1e9:.3f} GB, {no / 1e9:.3f} GFLOP)")
     if red_rel > 1e-4 or not red_same:
         raise AssertionError("the reduction kernel disagrees with its plain version or is not deterministic")
-    if proj_err > F32_TOL or not bwd_same:
-        raise AssertionError("the token projection disagrees with its plain version, or the backward is not deterministic")
+    if proj_err > F32_TOL or not proj_same or not bwd_same:
+        raise AssertionError("the token projection disagrees with its plain version, or the projection or the "
+                             "backward is not deterministic")
+    if max(fwd_err.values()) > F32_TOL or not fwd_same:
+        raise AssertionError("the forward disagrees with its plain version at the main path's shape, or is not "
+                             "deterministic")
     check_budget("times")
     gw = max(err256["grad"], key=err256["grad"].get)
     return {
-        "counts": counts, "step_ms": step, "eval_ms": eval_ms, "plain_step_ms": plain_step,
+        "counts": counts, "step_ms": step, "eval_ms": eval_ms, "plain_step_ms": plain_step, "peak_gb": peak_gb,
         "forward": (fwd_ms, plain_fwd, None), "backward": (bwd_ms, plain_bwd, None),
         "token_projection": (proj_ms, proj_plain_ms, proj_lib_ms),
         "grad_reduce": (red_ms, red_plain_ms, red_lib_ms), "work": work, "grad_vs_f64": f64_err,
-        "errors": {"forward": (fwd_err, None), "backward": (err256["grad_abs"], err256["grad"][gw]),
+        "errors": {"forward": (max(fwd_err.values()), None), "backward": (err256["grad_abs"], err256["grad"][gw]),
                    "token_projection": (proj_err, None), "grad_reduce": (red_abs, red_rel)},
-        "backward_rows": rows, "recurrence_ms": rec_ms, "recurrence_variants": rec_variants, "reduce_tiles": tiles,
+        "forward_rows": fwd_rows, "forward_ms_by_rows": fwd_ms_by, "logits_vs_plain": fwd_err256,
+        "projection_tile": proj_tile,
+        "backward_rows": rows, "recurrence_variants": rec_variants, "reduce_tiles": tiles,
         "b1": {"launches": counts["ntm_scan_fused"], "B": B, "T": T, "ms": b1_ms, "bound_ms": b1_bound[0],
                "bound_by": b1_bound[1], "max_abs_err": b1_err},
         "inputs": (params, ncfg, tokens),
@@ -1186,10 +1292,12 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     with torch.no_grad():
         state = init_ntm_state(params, ncfg, B)
-        logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state)
+        # B2 as the train route runs it: one projection, the forward and
+        # the backward on it (here with dtokens, as B4's backward computes)
+        proj = scan_bptt.token_projection(tokens, params["controller"][0]["kernel"], params["controller"][0]["bias"])
+        logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state, proj)
         dlogits = torch.randn(logits.shape, generator=gen, device=dev) * 1e-2
         dfinal = tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev) * 1e-2, final)
-        proj = scan_bptt.token_projection(tokens, params["controller"][0]["kernel"], params["controller"][0]["bias"])
         dtok, dst, ops = scan_bptt.bptt_backward(params, ncfg, tokens, proj, res, dlogits, dfinal)
         del res, proj
         ref = [dtok, *scan_bptt.flatten_state(dst), *scan_bptt.weight_grads(ncfg, IN, ops)]
@@ -1275,15 +1383,17 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
     plain_res_fwd, plain_bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     plain_peak = torch.cuda.max_memory_allocated() / 1e9
     del lo, fi, loss, live
-    work = scan_bptt_work(ncfg, B, T, IN, need_dtokens=True)  # B4's backward writes dtokens
+    # B4's kernels do their own token product, and its backward writes dtokens
+    work = scan_bptt_work(ncfg, B, T, IN, need_dtokens=True, hoisted=False)
     bounds = {"forward": bound(*scan_cell_work(ncfg, B, T, IN)), "forward_residuals": bound(*work["forward"]),
               "backward": bound(*work["backward"]), "reduction": bound(*work["grad_reduce"])}
     log("times", f"{smi}: B={B} T={T} plain packed version: forward {plain_fwd:.1f} ms (no gradients); recording "
                  f"gradients forward {plain_res_fwd:.1f} ms, backward {plain_bwd:.1f} ms (CUDA events, peak "
                  f"{plain_peak:.1f} GB); bounds "
                  + ", ".join(f"{k} {v[0]:.3f} ms by {v[1]}" for k, v in bounds.items())
-                 + f"; B2: forward {train['forward'][0]:.3f} ms, backward {train['backward'][0]:.3f} ms, reduction "
-                 f"{train['grad_reduce'][0]:.3f} ms; B1 {train['b1']['ms']:.3f} ms (phase train)")
+                 + f"; B2: projection {train['token_projection'][0]:.3f} ms, forward {train['forward'][0]:.3f} ms, "
+                 f"backward {train['backward'][0]:.3f} ms, reduction {train['grad_reduce'][0]:.3f} ms; B1 "
+                 f"{train['b1']['ms']:.3f} ms (phase train)")
     counts = {k.__name__: k.launches for k in kernels}
     log("packed", f"launches in this phase {counts}")
     if min(counts.values()) == 0:
@@ -1510,12 +1620,22 @@ def main() -> int:
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         }
         kernels.append(bptt[name])
+    bptt["forward"].update({
+        "rows_per_block": train["forward_rows"], "ms_by_rows_per_block": {str(r): v for r, v in
+                                                                         train["forward_ms_by_rows"].items()},
+        "rows_per_block_in_phase_bptt": bptt_tiles["forward"], "max_abs_err_phase_bptt": bptt_tiles["forward_max_abs_err"],
+        "train_logits_vs_plain_step": train["logits_vs_plain"], "reads": "the token projection (no token rows of W0)",
+    })
+    bptt["token_projection"].update({
+        "launched_in": "_ScanBPTT.forward, once per train step; the forward and the backward both read it",
+        "tile": list(train["projection_tile"]),
+        "ratio_to_library": train["token_projection"][0] / train["token_projection"][2],
+    })
     # the main path's gradients against the plain loop in float64, both routes
     bptt["backward"].update({
         "max_rel_err_vs_float64": train["grad_vs_f64"], "rows_per_block": train["backward_rows"],
-        "projection_ms": train["token_projection"][0], "recurrence_ms": train["recurrence_ms"],
-        "needs_dtokens": False, "recurrence_ms_by_variant": train["recurrence_variants"],
-        "rows_per_block_in_phase_bptt": bptt_tiles,
+        "needs_dtokens": False, "ms_by_variant": train["recurrence_variants"],
+        "rows_per_block_in_phase_bptt": bptt_tiles["backward"],
     })
     bptt["grad_reduce"].update({
         "kernels_per_launch": 2,  # ntm_grad_partial_kernel, then ntm_grad_sum_kernel
@@ -1560,6 +1680,8 @@ def main() -> int:
             entry["peak_gb"] = {"rows_1": at[(1, 1)]["peak_gb"], f"rows_{rows}": at[default]["peak_gb"]}
             entry["smem_bytes"] = packed["smem"]
         kernels.append(entry)
+    log("train", f"{smi}: the train step at B={train['b1']['B']} T={train['b1']['T']}: {train['step_ms']:.3f} ms = "
+                 f"{TRAIN_B * TRAIN_L / train['step_ms'] * 1e3:.1f} trained frames/s, peak {train['peak_gb']:.2f} GB")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

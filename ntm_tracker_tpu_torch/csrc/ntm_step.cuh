@@ -1,6 +1,8 @@
 // One NTM cell step on a batch row held in shared memory, and the T-step
-// loop around it: the math shared by the streaming kernel (scan_cell.cu)
-// and the training kernels (scan_bptt.cu).
+// loop around it (the streaming kernel, scan_cell.cu); the shared-memory
+// layout, the addressing phases and the tile product that the training
+// kernels (scan_bptt.cu), the addressing kernel and the packed kernels
+// share with it.
 //
 // Each step: stacked LSTM on [x | read | h], the fused head linear,
 // tanh(k), cosine against memory (across-slot or slotwise), softplus-beta
@@ -189,8 +191,8 @@ __device__ __forceinline__ void gemv(const float* __restrict__ Wm,
   }
 }
 
-// ---- a product over a tile of RT batch rows (scan_bptt.cu's backward,
-// scan_packed.cu) ---------------------------------------------------------------
+// ---- a product over a tile of RT batch rows (scan_bptt.cu's forward and
+// backward, scan_packed.cu) -----------------------------------------------------
 
 // acc[c][r] = sum_k xT[k*RT + r] * Wm[k*ld + col[c]] for the tile's RT rows
 // and NC columns col[c] = min(j0 + c*NT, ncol - 1): each weight element is
@@ -479,21 +481,13 @@ struct ScanArgs {
   float* read;                  // [B, R, D]
   float* c;                     // [L, B, Hc]
   float* h;                     // [L, B, Hc]
-  // residual streams of each step's INPUT state (kResiduals only)
-  float* res_M;                 // [B, T, N, D]
-  float* res_w;                 // [B, T, H, N]
-  float* res_read;              // [B, T, R*D]
-  float* res_c;                 // [B, T, L, Hc]
-  float* res_h;                 // [B, T, L, Hc]
   Dims dm;
   Flags fl;
   int B, T;
 };
 
 // T cell steps of batch row blockIdx.x with the state resident in shared
-// memory. kResiduals also streams each step's input state to global
-// memory, which is all the backward kernel needs to recompute the step.
-template <bool kResiduals>
+// memory.
 __global__ void __launch_bounds__(NT, 1) ntm_scan_kernel(const ScanArgs a) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -519,17 +513,6 @@ __global__ void __launch_bounds__(NT, 1) ntm_scan_kernel(const ScanArgs a) {
 
   for (int t = 0; t < T; ++t) {
     const size_t bt = (size_t)b * T + t;
-    if (kResiduals) {
-      // the step's input state; the step overwrites these arrays only
-      // after its first two barriers
-      for (int i = tid; i < N * D; i += NT) a.res_M[bt * N * D + i] = Ms[i];
-      for (int i = tid; i < H * N; i += NT) a.res_w[bt * H * N + i] = ws[i];
-      for (int i = tid; i < RD; i += NT) a.res_read[bt * RD + i] = rd[i];
-      for (int i = tid; i < L * Hc; i += NT) {
-        a.res_c[bt * L * Hc + i] = cs[i];
-        a.res_h[bt * L * Hc + i] = hs[i];
-      }
-    }
     ntm_step(a.wt, dm, a.fl, smem, lay, a.tokens + bt * IN, a.logits + bt * O);
   }
 
@@ -543,8 +526,8 @@ __global__ void __launch_bounds__(NT, 1) ntm_scan_kernel(const ScanArgs a) {
     }
 }
 
-// Fill ScanArgs from the plain-C launch arguments shared by both forward
-// entry points. The pointer arrays are host arrays of L device pointers.
+// Fill ScanArgs from ntm_scan_cell_launch's plain-C arguments. The
+// pointer arrays are host arrays of L device pointers.
 inline ScanArgs make_scan_args(
     const void* tokens, const void* const* lstm_w, const void* const* lstm_b,
     const void* heads_w, const void* heads_b, const void* out_w, const void* out_b,
@@ -572,7 +555,6 @@ inline ScanArgs make_scan_args(
   a.read = (float*)read;
   a.c = (float*)c;
   a.h = (float*)h;
-  a.res_M = a.res_w = a.res_read = a.res_c = a.res_h = nullptr;
   a.dm = dm;
   a.fl = fl;
   a.B = B;
@@ -580,19 +562,17 @@ inline ScanArgs make_scan_args(
   return a;
 }
 
-// Launches ntm_scan_kernel<kResiduals> with one block per batch row on
-// `stream`; returns the CUDA error code of the launch (0 = launched).
-template <bool kResiduals>
+// Launches ntm_scan_kernel with one block per batch row on `stream`;
+// returns the CUDA error code of the launch (0 = launched).
 inline int launch_scan(const ScanArgs& a, int device, void* stream) {
   if (a.dm.L < 1 || a.dm.L > MAX_LAYERS || a.B < 1 || a.T < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int smem = make_layout(a.dm, false).total * (int)sizeof(float);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(ntm_scan_kernel<kResiduals>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(ntm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  ntm_scan_kernel<kResiduals><<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
+  ntm_scan_kernel<<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,31 +1,36 @@
-// Whole-sequence NTM BPTT for training: a forward kernel that streams
-// residuals, a token projection and a backward kernel that walks the steps
-// in reverse, and a reduction kernel for the parameter gradients.
+// Whole-sequence NTM BPTT for training: a token projection, a forward
+// kernel that streams residuals, a backward kernel that walks the steps in
+// reverse, and a reduction kernel for the parameter gradients.
 //
 // Replaces ntm_tracker_tpu/ops/pallas/scan_bptt.py: _fwd_res_kernel (the
 // forward with residual streams), _bwd_kernel (the hand-derived backward)
 // and the parameter-gradient accumulation that _bwd_kernel does in place.
 //
-//   forward     ntm_scan_kernel<true> (ntm_step.cuh): B1's loop, one block
-//               per batch row, plus each step's INPUT state (M, w, read, c,
-//               h) written to [B, T, ...] residual streams.
 //   projection  ntm_token_proj_kernel: proj = X W0[:IN] + b0 over all B*T
 //               steps at once, the token part of every step's layer-0
-//               product, which does not depend on the recurrence.
+//               product, which does not depend on the recurrence. One
+//               launch per train step, before the forward; the forward and
+//               the backward both read it.
+//   forward     ntm_bptt_fwd_kernel<RT>: one block per tile of RT batch
+//               rows walks t = 0 .. T-1. Each step writes the rows' INPUT
+//               state (M, w, read, c, h) to [B, T, ...] residual streams,
+//               then runs tile_step: layer 0's gates from proj plus
+//               [read | h] W0[IN:], the other layers and the head and
+//               output linears as tile products, the addressing, read and
+//               erase/add write of all the tile's rows at once.
 //   backward    ntm_bptt_bwd_kernel<RT>: one block per tile of RT batch
 //               rows walks t = T-1 .. 0. Each step reloads the rows' input
-//               state from the residuals, recomputes the step (layer 0's
-//               gates from proj plus [read | h] W0[IN:], the other
-//               products as in the forward, then the addressing of all
-//               the tile's rows at once), applies the VJPs of the whole
-//               chain (read, erase/add, sharpen with the +1e-3 normalizer,
-//               Py2-offset shift, gate, beta-softmax, cosine across slots or
-//               slotwise, tanh(k), the head and output linears, the stacked
-//               LSTM) and carries dM, dw, dread, dc, dh in shared memory to
-//               the step before. It writes dstate0, dtokens only when asked,
-//               and per step the operands of the weight gradients: each
-//               layer's input and gate cotangents, the controller output and
-//               the head-control and logit cotangents side by side.
+//               state from the residuals, recomputes the step with the
+//               forward's tile_step (the same gates, bit for bit), applies
+//               the VJPs of the whole chain (read, erase/add, sharpen with
+//               the +1e-3 normalizer, Py2-offset shift, gate, beta-softmax,
+//               cosine across slots or slotwise, tanh(k), the head and output
+//               linears, the stacked LSTM) and carries dM, dw, dread, dc, dh
+//               in shared memory to the step before. It writes dstate0,
+//               dtokens only when asked, and per step the operands of the
+//               weight gradients: each layer's input and gate cotangents, the
+//               controller output and the head-control and logit cotangents
+//               side by side.
 //   reduce      ntm_grad_partial_kernel + ntm_grad_sum_kernel: dW = A^T G
 //               over the B*T rows, with a column of ones appended to A for
 //               the bias. Each block owns one output tile of one row chunk
@@ -40,30 +45,31 @@
 // What bounds it on an H100, and what the design does about it (times:
 // chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W, B=256, T=1300):
 // - Each step of the forward and the backward is a serial chain of small
-//   phases on one SM per tile. Every step reads the [IN+R*D+Hc, 4*Hc] LSTM
-//   kernel (2.5 MB at the flagship config) from L2: the aggregate L2 read
-//   rate, not HBM or the FLOP rate, sets the time. The backward cuts those
-//   bytes three ways: a tile of RT = 2 rows reads each weight once per step
-//   for both rows (tile_dot in ntm_step.cuh, rows_dot_t below); the token
-//   rows W0[:IN] (1.6 MB) leave the recompute for the projection, a GEMM
-//   over all steps that reads them once; and the transposed product skips
-//   them too unless the caller asks for dtokens (the training path's
-//   tokens are cached features that need none). Per step and tile the
-//   backward then reads W0[IN:] twice (0.9 MB each), down from 2.5 MB
-//   twice per row: 383 ms before, 151 ms with all three.
-// - Shared memory bounds the tile: a row of the backward keeps ~105 KB at
-//   the flagship config, so two rows fit in one block and three do not
-//   (nor two of the two-layer, two-write-head config).
-// - The rest of a step is its ~40 barrier-separated phases; the recompute's
-//   addressing runs over the tile's rows at once (addressing_tile).
-// - The reduction is an f32 GEMM with a contraction of B*T = 332,800 rows
-//   and a small output (795 x 800 at most), split over row chunks to fill
-//   the card, and bound by the FMA rate. Its operands come straight from
-//   the backward's row-major [M, K] / [M, J] streams (li's rows padded to
-//   16 bytes) through a ring of cp.async stages, so the next slab loads
-//   while this one multiplies; layer 0's 795 x 800 outputs fit 10 x 5 tiles
-//   of 80 x 160 with 0.6% padding. 11.3 ms per step, against 24.7 ms before
-//   and 11.7 ms for torch.matmul on the same products.
+//   phases on one SM per tile. Every step reads the LSTM kernel and the
+//   head linear from L2: the aggregate L2 read rate, not HBM or the FLOP
+//   rate, sets the time. Both recurrences cut those bytes two ways: a tile
+//   of RT rows reads each weight once per step for all its rows
+//   (tile_dot in ntm_step.cuh, rows_dot_t below), and the token rows
+//   W0[:IN] (1.6 MB of the 2.5 MB) leave the recurrence for the
+//   projection, a GEMM over all steps that reads them once. The backward's
+//   transposed product skips them too unless the caller asks for dtokens
+//   (the training path's tokens are cached features that need none). Per
+//   step and tile the forward reads W0[IN:] (0.9 MB) and the head linear
+//   (0.14 MB) once; the backward reads W0[IN:] twice.
+// - Shared memory bounds the tile: a row of the forward keeps ~39 KB at
+//   the flagship config (its state in place, make_layout(dm, false)), so
+//   four rows fit in one block; a row of the backward keeps ~105 KB, so
+//   two fit (one of the two-layer, two-write-head config).
+// - The rest of a step is its barrier-separated element phases (11 in
+//   the forward, ~40 in the backward), each over the tile's rows at once.
+//   Two rows per block fill the card once at B=256 and run fastest: the
+//   forward takes 54 ms (90 at one row, 86 at four; 161 before, one row
+//   per block reading the token rows every step), the backward 142 ms.
+// - The projection and the reduction are f32 GEMMs bound by the FMA rate
+//   (SIMT, no tensor cores): register-tiled outer products fed through
+//   shared memory, the next slab loading while this one multiplies. The
+//   projection takes 7.2 ms against torch.addmm's 6.4, the reduction
+//   11.3 ms against torch.matmul's 11.7.
 //
 // f32 only (no TF32): the training path raises for a bf16 compute dtype.
 //
@@ -102,27 +108,53 @@ struct BwdArgs {
   int B, T, need_dtokens;
 };
 
-// Offsets (in floats) of the backward's tile: RT rows of make_layout(dm,
-// true), each rounded to 16 bytes (row r starts at r * row), then the
+// The forward's arguments: the initial state, its outputs (logits, the
+// final state) and the five [B, T, ...] residual streams of each step's
+// input state.
+struct FwdArgs {
+  const float* proj;  // [B*T, 4*Hc] X W0[:IN] + b0
+  Weights wt;
+  const float* M0;    // [B, N, D]
+  const float* w0;    // [B, H, N]
+  const float* read0; // [B, R*D]
+  const float* c0;    // [L, B, Hc]
+  const float* h0;    // [L, B, Hc]
+  float* logits;      // [B, T, O]
+  float* M;           // [B, N, D] the final state
+  float* w;           // [B, H, N]
+  float* read;        // [B, R*D]
+  float* c;           // [L, B, Hc]
+  float* h;           // [L, B, Hc]
+  float* res_M;       // [B, T, N, D]
+  float* res_w;       // [B, T, H, N]
+  float* res_read;    // [B, T, R*D]
+  float* res_c;       // [B, T, L, Hc]
+  float* res_h;       // [B, T, L, Hc]
+  Dims dm;
+  Flags fl;
+  int B, T;
+};
+
+// Offsets (in floats) of a tile of RT rows: RT rows of make_layout(dm,
+// backward), each rounded to 16 bytes (row r starts at r * row), then the
 // tile's layer input, transposed [K][RT], where K is the widest product
-// input of the recompute ([read | h], the token part coming from the
+// input of the step ([read | h], the token part coming from the
 // projection, or [h_below | h]).
-struct BwdTile {
+struct Tile {
   int row, xT, total;
 };
 
-__host__ __device__ inline BwdTile make_bwd_tile(const Dims& d, int RT) {
-  BwdTile s;
-  s.row = (make_layout(d, true).total + 3) & ~3;
+__host__ __device__ inline Tile make_tile(const Dims& d, int RT, bool backward) {
+  Tile s;
+  s.row = (make_layout(d, backward).total + 3) & ~3;
   s.xT = RT * s.row;
   s.total = s.xT + imax(d.R * d.D + d.Hc, 2 * d.Hc) * RT;
   return s;
 }
 
-// The backward's products are bound by L2 latency (a block issues a few
-// KB of weight loads and waits for them), so they keep more loads in
-// flight than the forward's: PROD_UNROLL iterations of tile_dot's k loop,
-// and two weight rows per warp in the transposed products.
+// The step's products keep many weight loads in flight: PROD_UNROLL
+// iterations of tile_dot's k loop, and of two weight rows per warp in the
+// backward's transposed products (rows_dot_t).
 constexpr int PROD_UNROLL = 8;
 
 // acc[i][r] += g_r[j] * W[k_i * ld + j] summed over this lane's j < ncol
@@ -152,14 +184,16 @@ __device__ __forceinline__ void rows_dot_t(const float* __restrict__ W, int ld, 
 }
 
 // ntm_addressing() (ntm_step.cuh) over the tile's nr rows at once, row r's
-// arrays at smem + r * row, less what the backward does not read: the read
-// itself, and the new memory unless the read comes after the write. The
-// same operations in the same order per row; a warp per (row, head) runs
-// the softmax, gate, shift and sharpen of its head in one phase. Enters
-// after a __syncthreads() that published ctl, M_in and w_in; returns after
-// one that publishes the intermediates.
+// arrays at smem + r * row: the same operations in the same order per row;
+// a warp per (row, head) runs the softmax, gate, shift and sharpen of its
+// head in one phase. The forward (full) also does the read and the
+// erase/add write in the configured order; the backward's recompute skips
+// what it does not read: the read itself, and the new memory unless the
+// read comes after the write. Enters after a __syncthreads() that
+// published ctl, M_in and w_in; returns after one that publishes the
+// outputs and intermediates.
 __device__ __forceinline__ void addressing_tile(const Dims& dm, const Flags& fl, float* smem, const Layout& lay,
-                                                int row, int nr) {
+                                                int row, int nr, bool full) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int N = dm.N, D = dm.D, H = dm.H, R = dm.R, W = dm.W, S = dm.S;
   const int HD = H * D, WD = W * D, HN = H * N, ND = N * D;
@@ -280,25 +314,230 @@ __device__ __forceinline__ void addressing_tile(const Dims& dm, const Flags& fl,
   }
   __syncthreads();
 
-  // ---- the erase/add write, when the read comes after it -------------------
-  if (fl.write_first) {
-    for (int i = tid; i < nr * ND; i += NT) {
-      const int r = i / ND, q = i - r * ND, n = q / D, d = q - n * D;
-      const float* w_out = AP(r, w_out);
-      float er = 1.f, ad = 0.f;
-      for (int wh = 0; wh < W; ++wh) {
-        const float ww = w_out[(R + wh) * N + n];
-        er *= 1.f - ww * AP(r, erase)[wh * D + d];
-        ad = fmaf(ww, AP(r, add)[wh * D + d], ad);
+  // ---- the read (a warp per (row, read output)) and the erase/add write, in
+  // the configured order; in place in the forward's layout, so the phase
+  // that overwrites M runs after the read of the old M ----------------------
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool do_read = (pass == 0) != (fl.write_first != 0);
+    if (do_read) {
+      if (!full) continue;
+      const float* src = fl.write_first ? AP(0, M_out) : AP(0, M_in);
+      for (int p = warp; p < nr * R * D; p += NWARPS) {
+        const int r = p / (R * D), o = p - r * (R * D), rh = o / D, d = o - rh * D;
+        const float* w_out = AP(r, w_out) + rh * N;
+        const float* sr = src + r * row;
+        float acc = 0.f;
+        for (int n = lane; n < N; n += 32) acc = fmaf(w_out[n], sr[n * D + d], acc);
+        acc = warp_sum(acc);
+        if (lane == 0) AP(r, read_out)[o] = acc;
       }
-      AP(r, M_out)[q] = AP(r, M_in)[q] * er + ad;
+    } else {
+      if (!full && !fl.write_first) continue;
+      for (int i = tid; i < nr * ND; i += NT) {
+        const int r = i / ND, q = i - r * ND, n = q / D, d = q - n * D;
+        const float* w_out = AP(r, w_out);
+        float er = 1.f, ad = 0.f;
+        for (int wh = 0; wh < W; ++wh) {
+          const float ww = w_out[(R + wh) * N + n];
+          er *= 1.f - ww * AP(r, erase)[wh * D + d];
+          ad = fmaf(ww, AP(r, add)[wh * D + d], ad);
+        }
+        AP(r, M_out)[q] = AP(r, M_in)[q] * er + ad;
+      }
     }
     __syncthreads();
   }
 #undef AP
 }
 
+// What tile_step reads and writes outside shared memory: the projection,
+// the weights, and per step either the logits (the forward) or the weight
+// gradient's operands li and ctrl (the backward's recompute, which also
+// copies the step's token into li).
+struct StepIO {
+  const float* proj;    // [B*T, 4*Hc]
+  Weights wt;
+  const float* tokens;  // [B, T, IN]; backward only
+  float* li;            // [L, B*T, KM]; backward only
+  float* ctrl;          // [B*T, Hc]; backward only
+  float* logits;        // [B*T, O]; forward only
+  size_t BT;            // B*T, li's layer stride in rows
+  int KM;               // li's row stride
+};
+
+// One cell step of the tile's nr rows (row r's arrays at smem + r * row),
+// from their input state (M_in, w_in, read_in, c_in, h_in) to their new
+// state and the step's intermediates: layer 0's gates from proj plus
+// [read | h] W0[IN:] (the token rows are never read), the other layers and
+// the head controls as tile products over xT ([K][RT], rows past nr zero),
+// then addressing_tile. Row r's step is bt0 + r * T in the [B*T, ...]
+// streams. kFwd: the forward (logits, the read and the write); else the
+// backward's recompute (li, ctrl; the read skipped). Each product sums its
+// K terms in order whatever RT is, so both get the same gates. Enters
+// after a __syncthreads() that published the input state; returns after
+// one that publishes the outputs.
+template <int RT, bool kFwd>
+__device__ __forceinline__ void tile_step(const StepIO& io, const Dims& dm, const Flags& fl, float* smem,
+                                          const Layout& lay, int row, float* xT, int nr, size_t bt0, int T) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int IN = dm.IN, Hc = dm.Hc, L = dm.L, O = dm.O, RD = dm.R * dm.D, G4 = 4 * Hc;
+  const int P = head_width(dm), K0 = RD + Hc;
+  const auto bt_of = [&](int r) { return bt0 + (size_t)r * T; };
+#define SP(r, f) (smem + (r) * row + lay.f)
+
+  // layer 0's input [read | h], transposed (the token part comes from the
+  // projection), and in the backward the weight gradient's operand
+  // li = [x | read | h]
+  for (int i = tid; i < nr * K0; i += NT) {
+    const int r = i / K0, k = i - r * K0;
+    const float v = k < RD ? SP(r, read_in)[k] : SP(r, h_in)[k - RD];
+    xT[k * RT + r] = v;
+    if (!kFwd) io.li[bt_of(r) * io.KM + IN + k] = v;
+  }
+  if (!kFwd)
+    for (int i = tid; i < nr * IN; i += NT) {
+      const int r = i / IN, k = i - r * IN;
+      io.li[bt_of(r) * io.KM + k] = io.tokens[bt_of(r) * IN + k];
+    }
+  __syncthreads();
+
+  // ---- the stacked LSTM ---------------------------------------------------------
+  for (int l = 0; l < L; ++l) {
+    const int K = l == 0 ? K0 : 2 * Hc;
+    // layer 0's product takes only W0's rows IN.. (read, h)
+    const float* Wl = io.wt.lstm_w[l] + (l == 0 ? (size_t)IN * G4 : 0);
+    for (int j0 = tid; j0 < G4; j0 += 2 * NT) {
+      float acc[2][RT];
+      tile_dot<RT, 2, PROD_UNROLL>(Wl, G4, j0, G4, xT, K, acc);
+      for (int c = 0; c < 2; ++c) {
+        const int j = j0 + c * NT;
+        if (j >= G4) break;
+        for (int r = 0; r < nr; ++r) {
+          const float base = l == 0 ? io.proj[bt_of(r) * G4 + j] : __ldg(io.wt.lstm_b[l] + j);
+          SP(r, gates)[l * G4 + j] = acc[c][r] + base;
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nr * Hc; i += NT) {
+      const int r = i / Hc, j = i - r * Hc;
+      const float* gl = SP(r, gates) + l * G4;
+      const float c_new = SP(r, c_in)[l * Hc + j] * sigmoid_f(gl[2 * Hc + j]) + sigmoid_f(gl[j]) * tanhf(gl[Hc + j]);
+      const float h_new = tanhf(c_new) * sigmoid_f(gl[3 * Hc + j]);
+      if (l + 1 < L) {
+        const float h_next = SP(r, h_in)[(l + 1) * Hc + j];
+        xT[j * RT + r] = h_new;
+        xT[(Hc + j) * RT + r] = h_next;
+        if (!kFwd) {
+          float* li = io.li + ((size_t)(l + 1) * io.BT + bt_of(r)) * io.KM;
+          li[j] = h_new;
+          li[Hc + j] = h_next;
+        }
+      }
+      SP(r, c_out)[l * Hc + j] = c_new;
+      SP(r, h_out)[l * Hc + j] = h_new;
+    }
+    __syncthreads();
+  }
+
+  // ---- the head controls and the output linear, then the addressing ---------
+  const int hoff = (L - 1) * Hc;
+  for (int i = tid; i < nr * Hc; i += NT) {
+    const int r = i / Hc, k = i - r * Hc;
+    const float v = SP(r, h_out)[hoff + k];
+    xT[k * RT + r] = v;
+    if (!kFwd) io.ctrl[bt_of(r) * Hc + k] = v;
+  }
+  __syncthreads();
+  for (int j = tid; j < P; j += NT) {
+    float acc[1][RT];
+    tile_dot<RT, 1, PROD_UNROLL>(io.wt.heads_w, P, j, P, xT, Hc, acc);
+    const float bj = __ldg(io.wt.heads_b + j);
+    for (int r = 0; r < nr; ++r) SP(r, ctl)[j] = acc[0][r] + bj;
+  }
+  if (kFwd)
+    // a warp per logit column, from the last warp down (the head product
+    // keeps the first ones busy); lanes over the controller output
+    for (int o = NWARPS - 1 - warp; o < O; o += NWARPS) {
+      float acc[RT];
+      for (int r = 0; r < RT; ++r) acc[r] = 0.f;
+      for (int k = lane; k < Hc; k += 32) {
+        const float wv = __ldg(io.wt.out_w + (size_t)k * O + o);
+        for (int r = 0; r < RT; ++r) acc[r] = fmaf(xT[k * RT + r], wv, acc[r]);
+      }
+      for (int r = 0; r < RT; ++r) acc[r] = warp_sum(acc[r]);
+      if (lane == 0)
+        for (int r = 0; r < nr; ++r) io.logits[bt_of(r) * O + o] = acc[r] + __ldg(io.wt.out_b + o);
+    }
+  __syncthreads();
+  addressing_tile(dm, fl, smem, lay, row, nr, kFwd);
+#undef SP
+}
+
 #define RP(r, f) (smem + (r) * tile.row + lay.f)
+
+// T cell steps of the tile's rows b0 .. b0 + nr - 1 with their state
+// resident in shared memory (in place: make_layout(dm, false)), each
+// step's input state streamed to the residuals first.
+template <int RT>
+__global__ void __launch_bounds__(NT, 1) ntm_bptt_fwd_kernel(const FwdArgs a) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const Dims dm = a.dm;
+  const int N = dm.N, D = dm.D, H = dm.H, Hc = dm.Hc, L = dm.L, T = a.T, B = a.B;
+  const int RD = dm.R * D, ND = N * D, HN = H * N, LH = L * Hc;
+  const Layout lay = make_layout(dm, false);
+  const Tile tile = make_tile(dm, RT, false);
+  const int b0 = blockIdx.x * RT, nr = min(RT, B - b0);
+  float* xT = smem + tile.xT;
+  const StepIO io{a.proj, a.wt, nullptr, nullptr, nullptr, a.logits, (size_t)B * T, 0};
+
+  // rows past B stay zero: the tile products read their (zero) inputs
+  for (int i = tid; i < tile.total; i += NT) smem[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < nr * ND; i += NT) RP(i / ND, M_in)[i % ND] = a.M0[(size_t)b0 * ND + i];
+  for (int i = tid; i < nr * HN; i += NT) RP(i / HN, w_in)[i % HN] = a.w0[(size_t)b0 * HN + i];
+  for (int i = tid; i < nr * RD; i += NT) RP(i / RD, read_in)[i % RD] = a.read0[(size_t)b0 * RD + i];
+  for (int i = tid; i < nr * LH; i += NT) {
+    const int r = i / LH, q = i - r * LH, l = q / Hc, j = q - l * Hc;
+    RP(r, c_in)[q] = a.c0[((size_t)l * B + b0 + r) * Hc + j];
+    RP(r, h_in)[q] = a.h0[((size_t)l * B + b0 + r) * Hc + j];
+  }
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    // the step's input state; tile_step overwrites it only after its
+    // first barrier
+    const size_t bt0 = (size_t)b0 * T + t;
+    for (int i = tid; i < nr * ND; i += NT) {
+      const int r = i / ND, q = i - r * ND;
+      a.res_M[(bt0 + (size_t)r * T) * ND + q] = RP(r, M_in)[q];
+    }
+    for (int i = tid; i < nr * HN; i += NT) {
+      const int r = i / HN, q = i - r * HN;
+      a.res_w[(bt0 + (size_t)r * T) * HN + q] = RP(r, w_in)[q];
+    }
+    for (int i = tid; i < nr * RD; i += NT) {
+      const int r = i / RD, q = i - r * RD;
+      a.res_read[(bt0 + (size_t)r * T) * RD + q] = RP(r, read_in)[q];
+    }
+    for (int i = tid; i < nr * LH; i += NT) {
+      const int r = i / LH, q = i - r * LH;
+      a.res_c[(bt0 + (size_t)r * T) * LH + q] = RP(r, c_in)[q];
+      a.res_h[(bt0 + (size_t)r * T) * LH + q] = RP(r, h_in)[q];
+    }
+    tile_step<RT, true>(io, dm, a.fl, smem, lay, tile.row, xT, nr, bt0, T);
+  }
+
+  for (int i = tid; i < nr * ND; i += NT) a.M[(size_t)b0 * ND + i] = RP(i / ND, M_out)[i % ND];
+  for (int i = tid; i < nr * HN; i += NT) a.w[(size_t)b0 * HN + i] = RP(i / HN, w_out)[i % HN];
+  for (int i = tid; i < nr * RD; i += NT) a.read[(size_t)b0 * RD + i] = RP(i / RD, read_out)[i % RD];
+  for (int i = tid; i < nr * LH; i += NT) {
+    const int r = i / LH, q = i - r * LH, l = q / Hc, j = q - l * Hc;
+    a.c[((size_t)l * B + b0 + r) * Hc + j] = RP(r, c_out)[q];
+    a.h[((size_t)l * B + b0 + r) * Hc + j] = RP(r, h_out)[q];
+  }
+}
 
 template <int RT>
 __global__ void __launch_bounds__(NT, 1) ntm_bptt_bwd_kernel(const BwdArgs a) {
@@ -314,12 +553,10 @@ __global__ void __launch_bounds__(NT, 1) ntm_bptt_bwd_kernel(const BwdArgs a) {
   const int shift0 = -((S + 1) / 2);
   const bool wf = a.fl.write_first != 0, slotwise = a.fl.slotwise != 0;
   const Layout lay = make_layout(dm, true);
-  const BwdTile tile = make_bwd_tile(dm, RT);
+  const Tile tile = make_tile(dm, RT, true);
   const int b0 = blockIdx.x * RT, nr = min(RT, B - b0);
-  // the recompute's layer-0 input: [read | h] (the token part comes from
-  // the projection)
-  const int K0 = RD + Hc;
   float* xT = smem + tile.xT;
+  const StepIO io{a.proj, a.wt, a.tokens, a.li, a.ctrl, nullptr, (size_t)B * T, KM};
 
   // rows past B stay zero: the tile products read their (zero) inputs
   for (int i = tid; i < tile.total; i += NT) smem[i] = 0.f;
@@ -361,73 +598,8 @@ __global__ void __launch_bounds__(NT, 1) ntm_bptt_bwd_kernel(const BwdArgs a) {
     }
     __syncthreads();
 
-    // ---- recompute the stacked LSTM over the tile ---------------------------
-    // layer 0's input [read | h], transposed, and the weight gradient's
-    // operand li = [x | read | h]
-    for (int i = tid; i < nr * K0; i += NT) {
-      const int r = i / K0, k = i - r * K0;
-      const float v = k < RD ? RP(r, read_in)[k] : RP(r, h_in)[k - RD];
-      xT[k * RT + r] = v;
-      a.li[bt_of(r) * KM + IN + k] = v;
-    }
-    for (int i = tid; i < nr * IN; i += NT) {
-      const int r = i / IN, k = i - r * IN;
-      a.li[bt_of(r) * KM + k] = a.tokens[bt_of(r) * IN + k];
-    }
-    __syncthreads();
-    for (int l = 0; l < L; ++l) {
-      const int K = l == 0 ? K0 : 2 * Hc;
-      // layer 0's product takes only W0's rows IN.. (read, h)
-      const float* Wl = a.wt.lstm_w[l] + (l == 0 ? (size_t)IN * G4 : 0);
-      for (int j0 = tid; j0 < G4; j0 += 2 * NT) {
-        float acc[2][RT];
-        tile_dot<RT, 2, PROD_UNROLL>(Wl, G4, j0, G4, xT, K, acc);
-        for (int c = 0; c < 2; ++c) {
-          const int j = j0 + c * NT;
-          if (j >= G4) break;
-          for (int r = 0; r < nr; ++r) {
-            const float base = l == 0 ? a.proj[bt_of(r) * G4 + j] : __ldg(a.wt.lstm_b[l] + j);
-            RP(r, gates)[l * G4 + j] = acc[c][r] + base;
-          }
-        }
-      }
-      __syncthreads();
-      for (int i = tid; i < nr * Hc; i += NT) {
-        const int r = i / Hc, j = i - r * Hc;
-        const float* gl = RP(r, gates) + l * G4;
-        const float c_new = RP(r, c_in)[l * Hc + j] * sigmoid_f(gl[2 * Hc + j]) + sigmoid_f(gl[j]) * tanhf(gl[Hc + j]);
-        const float h_new = tanhf(c_new) * sigmoid_f(gl[3 * Hc + j]);
-        RP(r, c_out)[l * Hc + j] = c_new;
-        RP(r, h_out)[l * Hc + j] = h_new;
-        if (l + 1 < L) {
-          const float h_next = RP(r, h_in)[(l + 1) * Hc + j];
-          xT[j * RT + r] = h_new;
-          xT[(Hc + j) * RT + r] = h_next;
-          float* li = a.li + ((size_t)(l + 1) * B * T + bt_of(r)) * KM;
-          li[j] = h_new;
-          li[Hc + j] = h_next;
-        }
-      }
-      __syncthreads();
-    }
-
-    // ---- recompute the head controls, then each row's addressing ------------
-    const int hoff = (L - 1) * Hc;
-    for (int i = tid; i < nr * Hc; i += NT) {
-      const int r = i / Hc, k = i - r * Hc;
-      const float v = RP(r, h_out)[hoff + k];
-      xT[k * RT + r] = v;
-      a.ctrl[bt_of(r) * Hc + k] = v;
-    }
-    __syncthreads();
-    for (int j = tid; j < P; j += NT) {
-      float acc[1][RT];
-      tile_dot<RT, 1, PROD_UNROLL>(a.wt.heads_w, P, j, P, xT, Hc, acc);
-      const float bj = __ldg(a.wt.heads_b + j);
-      for (int r = 0; r < nr; ++r) RP(r, ctl)[j] = acc[0][r] + bj;
-    }
-    __syncthreads();
-    addressing_tile(dm, a.fl, smem, lay, tile.row, nr);
+    // ---- recompute the step over the tile, as the forward ran it ------------
+    tile_step<RT, false>(io, dm, a.fl, smem, lay, tile.row, xT, nr, (size_t)b0 * T + t, T);
 
     // ---- read: read[r,d] = sum_n w_r[n] * src[n,d] ------------------------
     for (int i = tid; i < nr * HN; i += NT) {
@@ -962,47 +1134,83 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) ntm_token_proj_kernel(
 
 // ---- plain C entry points ---------------------------------------------------
 
-// Dynamic shared memory per block: the forward's (rows unused), or the
-// backward's at `rows` rows per block.
+// Dynamic shared memory per block of the forward or the backward at `rows`
+// rows per block.
 extern "C" int ntm_bptt_smem_bytes(int IN, int N, int D, int H, int R, int W, int S, int Hc,
                                    int L, int O, int backward, int rows) {
   const Dims dm{IN, N, D, H, R, W, S, Hc, L, O};
-  if (!backward) return make_layout(dm, false).total * (int)sizeof(float);
-  return make_bwd_tile(dm, rows).total * (int)sizeof(float);
+  return make_tile(dm, rows, backward != 0).total * (int)sizeof(float);
 }
 
-// The forward with residual streams: ntm_scan_cell_launch's arguments plus
-// the five [B, T, ...] residual outputs. f32 only.
+static Weights make_weights(const void* const* lstm_w, const void* const* lstm_b, const void* heads_w,
+                            const void* heads_b, const void* out_w, const void* out_b, int L) {
+  Weights wt;
+  for (int l = 0; l < MAX_LAYERS; ++l) {
+    wt.lstm_w[l] = l < L ? (const float*)lstm_w[l] : nullptr;
+    wt.lstm_b[l] = l < L ? (const float*)lstm_b[l] : nullptr;
+  }
+  wt.heads_w = (const float*)heads_w;
+  wt.heads_b = (const float*)heads_b;
+  wt.out_w = (const float*)out_w;
+  wt.out_b = (const float*)out_b;
+  return wt;
+}
+
+// Launch a tile kernel with ceil(B / rows) blocks of NT threads.
+template <class Kernel, class Args>
+static int launch_tiles(Kernel kernel, const Args& a, int rows, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(a.B + rows - 1) / rows, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The forward with residual streams: one block per `rows` (1, 2 or 4)
+// batch rows. proj holds X W0[:IN] + b0 per step [B*T, 4*Hc]
+// (ntm_token_proj_launch's output); the initial and final c and h are
+// stacked [L, B, Hc]; lstm_w and lstm_b are host arrays of L device
+// pointers. f32 only.
 extern "C" int ntm_bptt_fwd_launch(
-    const void* tokens, const void* const* lstm_w, const void* const* lstm_b,
-    const void* heads_w, const void* heads_b, const void* out_w, const void* out_b,
-    const void* M0, const void* w0, const void* read0, const void* const* c0,
-    const void* const* h0, void* logits, void* M, void* w, void* read, void* c,
-    void* h, void* res_M, void* res_w, void* res_read, void* res_c, void* res_h, int B,
+    const void* proj, const void* const* lstm_w, const void* const* lstm_b, const void* heads_w,
+    const void* heads_b, const void* out_w, const void* out_b, const void* M0, const void* w0,
+    const void* read0, const void* c0, const void* h0, void* logits, void* M, void* w, void* read,
+    void* c, void* h, void* res_M, void* res_w, void* res_read, void* res_c, void* res_h, int B,
     int T, int IN, int N, int D, int H, int R, int W, int S, int Hc, int L, int O,
-    int write_first, int slotwise, int device, void* stream) {
-  if (L < 1 || L > MAX_LAYERS) return (int)cudaErrorInvalidValue;
-  const Dims dm{IN, N, D, H, R, W, S, Hc, L, O};
-  const Flags fl{write_first, slotwise, 0};
-  ScanArgs a = make_scan_args(tokens, lstm_w, lstm_b, heads_w, heads_b, out_w, out_b, M0, w0,
-                              read0, c0, h0, logits, M, w, read, c, h, B, T, dm, fl);
+    int write_first, int slotwise, int rows, int device, void* stream) {
+  if (L < 1 || L > MAX_LAYERS || B < 1 || T < 1 || (rows != 1 && rows != 2 && rows != 4) || proj == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  FwdArgs a;
+  a.proj = (const float*)proj;
+  a.wt = make_weights(lstm_w, lstm_b, heads_w, heads_b, out_w, out_b, L);
+  a.M0 = (const float*)M0;
+  a.w0 = (const float*)w0;
+  a.read0 = (const float*)read0;
+  a.c0 = (const float*)c0;
+  a.h0 = (const float*)h0;
+  a.logits = (float*)logits;
+  a.M = (float*)M;
+  a.w = (float*)w;
+  a.read = (float*)read;
+  a.c = (float*)c;
+  a.h = (float*)h;
   a.res_M = (float*)res_M;
   a.res_w = (float*)res_w;
   a.res_read = (float*)res_read;
   a.res_c = (float*)res_c;
   a.res_h = (float*)res_h;
-  return launch_scan<true>(a, device, stream);
-}
-
-template <int RT>
-static int launch_bwd(const BwdArgs& a, int smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ntm_bptt_bwd_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ntm_bptt_bwd_kernel<RT><<<(a.B + RT - 1) / RT, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  a.dm = Dims{IN, N, D, H, R, W, S, Hc, L, O};
+  a.fl = Flags{write_first, slotwise, 0};
+  a.B = B;
+  a.T = T;
+  const int smem = make_tile(a.dm, rows, false).total * (int)sizeof(float);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (rows == 1) return launch_tiles(ntm_bptt_fwd_kernel<1>, a, 1, smem, st);
+  if (rows == 2) return launch_tiles(ntm_bptt_fwd_kernel<2>, a, 2, smem, st);
+  return launch_tiles(ntm_bptt_fwd_kernel<4>, a, 4, smem, st);
 }
 
 // The backward: one block per `rows` (1 or 2) batch rows. The final-state
@@ -1028,14 +1236,7 @@ extern "C" int ntm_bptt_bwd_launch(
   BwdArgs a;
   a.tokens = (const float*)tokens;
   a.proj = (const float*)proj;
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    a.wt.lstm_w[l] = l < L ? (const float*)lstm_w[l] : nullptr;
-    a.wt.lstm_b[l] = l < L ? (const float*)lstm_b[l] : nullptr;
-  }
-  a.wt.heads_w = (const float*)heads_w;
-  a.wt.heads_b = (const float*)heads_b;
-  a.wt.out_w = (const float*)out_w;
-  a.wt.out_b = (const float*)out_b;
+  a.wt = make_weights(lstm_w, lstm_b, heads_w, heads_b, out_w, out_b, L);
   a.res_M = (const float*)res_M;
   a.res_w = (const float*)res_w;
   a.res_read = (const float*)res_read;
@@ -1062,9 +1263,10 @@ extern "C" int ntm_bptt_bwd_launch(
   a.B = B;
   a.T = T;
   a.need_dtokens = need_dtokens;
-  const int smem = make_bwd_tile(a.dm, rows).total * (int)sizeof(float);
+  const int smem = make_tile(a.dm, rows, true).total * (int)sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
-  return rows == 1 ? launch_bwd<1>(a, smem, st) : launch_bwd<2>(a, smem, st);
+  return rows == 1 ? launch_tiles(ntm_bptt_bwd_kernel<1>, a, 1, smem, st)
+                   : launch_tiles(ntm_bptt_bwd_kernel<2>, a, 2, smem, st);
 }
 
 static bool aligned16(const void* p, int ld) { return ((size_t)p % 16 == 0) && ld % 4 == 0; }

@@ -56,5 +56,5 @@ extern "C" int ntm_scan_cell_launch(
   const ScanArgs a = make_scan_args(tokens, lstm_w, lstm_b, heads_w, heads_b, out_w, out_b,
                                     M0, w0, read0, c0, h0, logits, M, w, read, c, h, B, T,
                                     dm, fl);
-  return launch_scan<false>(a, device, stream);
+  return launch_scan(a, device, stream);
 }

@@ -3,14 +3,16 @@ forward and a hand-derived backward in CUDA.
 
 Counterpart of ntm_tracker_tpu/ops/pallas/scan_bptt.py:ntm_scan_fused_bptt.
 `ntm_scan_fused_bptt` takes, for CUDA tensors:
-  * with gradients recorded: the autograd Function below, which launches
-    csrc/scan_bptt.cu's forward (residual streams of each step's input
-    state), and in its backward the token projection (the layer-0 product
-    of every step's token, X W0[:IN] + b0, at once), the reverse-time
-    kernel over a tile of 1 or 2 batch rows per block, and one reduction
-    launch per weight matrix (no float atomics: fixed summation order).
-    The backward computes the tokens' gradient only when the tokens
-    require one (the training path's cached features do not);
+  * with gradients recorded: the autograd Function below. Its forward
+    launches csrc/scan_bptt.cu's token projection (the layer-0 product of
+    every step's token, X W0[:IN] + b0, at once) and the forward over a
+    tile of 1, 2 or 4 batch rows per block, which takes layer 0's token
+    part from the projection and streams residuals (each step's input
+    state). Its backward hands the same projection to the reverse-time
+    kernel over a tile of 1 or 2 batch rows per block, then launches one
+    reduction per weight matrix (no float atomics: fixed summation
+    order). The backward computes the tokens' gradient only when the
+    tokens require one (the training path's cached features do not);
   * without (torch.no_grad(), or no input that requires grad): B1, the
     residual-free ntm_scan_fused kernel, as scan_bptt.py:866-875 does.
 CPU tensors run `ntm_scan_fused_bptt_reference`, autograd through the
@@ -23,6 +25,7 @@ build it with init_ntm_state under the same autograd graph.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -30,7 +33,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ntm_tracker_tpu_torch.config import NTMConfig
-from ntm_tracker_tpu_torch.models.ntm_cell import head_param_sizes
+from ntm_tracker_tpu_torch.models.ntm_cell import head_param_sizes, ntm_cell_step
 from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
     MAX_SMEM_BYTES,
     _check,
@@ -56,7 +59,8 @@ MIN_CHUNK_ROWS = 256
 MIN_WAVE_FILL = 0.99
 # the H100 SXM's SM count, for shape-only planning off the card
 H100_SMS = 132
-# rows per block the backward kernel is instantiated at
+# rows per block the forward and the backward kernels are instantiated at
+FORWARD_ROWS = (1, 2, 4)
 BACKWARD_ROWS = (1, 2)
 
 
@@ -74,7 +78,7 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ntm_bptt_smem_bytes.argtypes = [i32] * 12
     lib.ntm_bptt_smem_bytes.restype = i32
-    lib.ntm_bptt_fwd_launch.argtypes = [ptr] * 23 + [i32] * 15 + [ptr]
+    lib.ntm_bptt_fwd_launch.argtypes = [ptr] * 23 + [i32] * 16 + [ptr]
     lib.ntm_bptt_fwd_launch.restype = i32
     lib.ntm_bptt_bwd_launch.argtypes = [ptr] * 29 + [i32] * 17 + [ptr]
     lib.ntm_bptt_bwd_launch.restype = i32
@@ -97,9 +101,8 @@ def _dims(cfg: NTMConfig, IN: int) -> Tuple[int, ...]:
 
 
 def smem_bytes(cfg: NTMConfig, IN: int, backward: bool, rows: int = 1) -> int:
-    """The dynamic shared memory one block takes: the forward's, or the
-    backward's at `rows` rows per block (the kernel's own
-    ntm_bptt_smem_bytes)."""
+    """The dynamic shared memory one block of the forward or the backward
+    takes at `rows` rows per block (the kernel's own ntm_bptt_smem_bytes)."""
     return _library().ntm_bptt_smem_bytes(*_dims(cfg, IN), int(backward), rows)
 
 
@@ -109,6 +112,35 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _explicit_rows(kind: str, sizes, rows_per_block: int, fits: Callable[[int], bool]) -> int:
+    if rows_per_block not in sizes:
+        raise ValueError(f"the {kind} kernel takes rows_per_block in {sizes}, got {rows_per_block}")
+    if not fits(rows_per_block):
+        raise ValueError(f"{rows_per_block} rows per block do not fit the {kind}'s shared memory "
+                         f"({MAX_SMEM_BYTES} B) at this config")
+    return rows_per_block
+
+
+def forward_rows(B: int, rows_per_block: Optional[int], fits: Callable[[int], bool], sms: int) -> int:
+    """The forward's tile: rows_per_block if given (it must be in
+    FORWARD_ROWS and fit, else this raises); otherwise, of the tiles in
+    FORWARD_ROWS that fit, the fewest rows whose ceil(B / rows) blocks
+    fill the card's `sms` SMs no more than once (2 at B=256 on an H100,
+    the fastest there: PERF.md), or the most rows where none does.
+    Only B=256 was measured: whether 4 rows in one wave beat 2 rows in two
+    waves above 2 * sms rows (B > 264 on an H100) is not known.
+    fits(rows) says whether a block of that many rows fits in shared
+    memory."""
+    if rows_per_block is not None:
+        return _explicit_rows("forward", FORWARD_ROWS, rows_per_block, fits)
+    fitting = [r for r in FORWARD_ROWS if fits(r)]
+    if not fitting:
+        raise ValueError(f"one row per block does not fit the forward's shared memory ({MAX_SMEM_BYTES} B) "
+                         f"at this config")
+    one_wave = [r for r in fitting if math.ceil(B / r) <= sms]
+    return one_wave[0] if one_wave else fitting[-1]
+
+
 def backward_rows(B: int, rows_per_block: Optional[int], fits: Callable[[int], bool], sms: int) -> int:
     """The backward's tile: rows_per_block if given (it must be in
     BACKWARD_ROWS and fit, else this raises); otherwise 1 while one row
@@ -116,18 +148,20 @@ def backward_rows(B: int, rows_per_block: Optional[int], fits: Callable[[int], b
     2 above, or 1 where two rows do not fit. fits(rows) says whether a
     block of that many rows fits in shared memory."""
     if rows_per_block is not None:
-        if rows_per_block not in BACKWARD_ROWS:
-            raise ValueError(f"the backward kernel takes rows_per_block in {BACKWARD_ROWS}, got {rows_per_block}")
-        if not fits(rows_per_block):
-            raise ValueError(f"{rows_per_block} rows per block do not fit the backward's shared memory "
-                             f"({MAX_SMEM_BYTES} B) at this config")
-        return rows_per_block
+        return _explicit_rows("backward", BACKWARD_ROWS, rows_per_block, fits)
     rows = 1 if B <= sms else 2
     if fits(rows):
         return rows
     if fits(1):
         return 1
     raise ValueError(f"one row per block does not fit the backward's shared memory ({MAX_SMEM_BYTES} B) at this config")
+
+
+def forward_tile(cfg: NTMConfig, IN: int, B: int, device: torch.device, rows_per_block: Optional[int] = None) -> int:
+    """forward_rows for this config on `device` (its SM count and the
+    kernel's own shared-memory sizes)."""
+    return forward_rows(B, rows_per_block, lambda r: smem_bytes(cfg, IN, False, r) <= MAX_SMEM_BYTES,
+                        sm_count(device))
 
 
 def backward_tile(cfg: NTMConfig, IN: int, B: int, device: torch.device, rows_per_block: Optional[int] = None) -> int:
@@ -137,21 +171,39 @@ def backward_tile(cfg: NTMConfig, IN: int, B: int, device: torch.device, rows_pe
                          sm_count(device))
 
 
-def bptt_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state):
+def bptt_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torch.Tensor,
+                 rows_per_block: Optional[int] = None):
     """Launch the forward kernel that streams residuals.
 
+    proj [B*T, 4Hc] is token_projection's output for these tokens and
+    layer 0's weights: layer 0's token part of every step (the kernel
+    reads no token). rows_per_block picks the tile (forward_rows).
     Returns (logits [B,T,O], final state, residuals (M [B,T,N,D],
     w [B,T,H,N], read [B,T,R*D], c [B,T,L,Hc], h [B,T,L,Hc]): each step's
-    input state). One launch, counted in `bptt_forward.launches`."""
+    input state). One launch, counted in `bptt_forward.launches`; CPU
+    tensors run bptt_forward_reference."""
     check_inputs(params, cfg, tokens, state)
     B, T, IN = tokens.shape
     device = tokens.device
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
     R, Hc, L, O = cfg.read_head_size, cfg.controller_hidden_size, cfg.controller_num_layers, cfg.output_dim
-    lib = _library()
-    smem = smem_bytes(cfg, IN, backward=False)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"config needs {smem} B of shared memory per block, above {MAX_SMEM_BYTES}")
+    _check("proj", proj, (B * T, 4 * Hc), device)
+    if device.type == "cpu":
+        return bptt_forward_reference(params, cfg, tokens, state, proj)
+    out = _forward_launch(params, cfg, tokens, state, proj, forward_tile(cfg, IN, B, device, rows_per_block))
+    bptt_forward.launches += 1
+    return out
+
+
+bptt_forward.launches = 0
+
+
+def _forward_launch(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torch.Tensor, rows: int):
+    """bptt_forward's launch at `rows` rows per block, inputs checked."""
+    B, T, IN = tokens.shape
+    device = tokens.device
+    N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
+    R, Hc, L, O = cfg.read_head_size, cfg.controller_hidden_size, cfg.controller_num_layers, cfg.output_dim
     logits = torch.empty(B, T, O, device=device)
     M = torch.empty(B, N, D, device=device)
     w = torch.empty(B, H, N, device=device)
@@ -161,42 +213,67 @@ def bptt_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state):
     res = (torch.empty(B, T, N, D, device=device), torch.empty(B, T, H, N, device=device),
            torch.empty(B, T, R * D, device=device), torch.empty(B, T, L, Hc, device=device),
            torch.empty(B, T, L, Hc, device=device))
+    c0 = torch.stack([c for c, _ in state["controller_state"]])
+    h0 = torch.stack([h for _, h in state["controller_state"]])
     ctrl = params["controller"]
     index, stream = _stream(device)
-    err = lib.ntm_bptt_fwd_launch(
-        tokens.data_ptr(), _ptr_array([layer["kernel"] for layer in ctrl]),
+    err = _library().ntm_bptt_fwd_launch(
+        proj.data_ptr(), _ptr_array([layer["kernel"] for layer in ctrl]),
         _ptr_array([layer["bias"] for layer in ctrl]),
         params["heads_w"].data_ptr(), params["heads_b"].data_ptr(),
         params["out_w"].data_ptr(), params["out_b"].data_ptr(),
-        state["M"].data_ptr(), state["w"].data_ptr(), state["read"].data_ptr(),
-        _ptr_array([c for c, _ in state["controller_state"]]),
-        _ptr_array([h for _, h in state["controller_state"]]),
+        state["M"].data_ptr(), state["w"].data_ptr(), state["read"].data_ptr(), c0.data_ptr(), h0.data_ptr(),
         logits.data_ptr(), M.data_ptr(), w.data_ptr(), read.data_ptr(),
         c_out.data_ptr(), h_out.data_ptr(), *[r.data_ptr() for r in res],
-        B, T, *_dims(cfg, IN), int(cfg.write_first), int(cfg.slotwise_cosine), index, stream,
+        B, T, *_dims(cfg, IN), int(cfg.write_first), int(cfg.slotwise_cosine), rows, index, stream,
     )
     if err != 0:
         raise RuntimeError(f"scan_bptt forward kernel launch failed: CUDA error {err}")
-    bptt_forward.launches += 1
     final = {"M": M, "w": w, "read": read, "controller_state": [(c_out[l], h_out[l]) for l in range(L)]}
     return logits, final, res
 
 
-bptt_forward.launches = 0
+def bptt_forward_reference(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torch.Tensor):
+    """The plain version of bptt_forward: the plain loop over ntm_cell_step
+    with layer 0's token product taken from proj (its kernel cut to the
+    [read | h] rows, proj's step row as the bias), without gradients.
+    Returns what bptt_forward returns, in its layout."""
+    B, T, IN = tokens.shape
+    L = cfg.controller_num_layers
+    if cfg.use_pallas:
+        cfg = dataclasses.replace(cfg, use_pallas=False)
+    layer0 = params["controller"][0]
+    proj = proj.reshape(B, T, -1)
+    res, logits = [], []
+    with torch.no_grad():
+        for t in range(T):
+            res.append((state["M"], state["w"], state["read"].reshape(B, -1),
+                        torch.stack([c for c, _ in state["controller_state"]], 1),
+                        torch.stack([h for _, h in state["controller_state"]], 1)))
+            p_t = dict(params, controller=[dict(layer0, kernel=layer0["kernel"][IN:], bias=proj[:, t])]
+                       + list(params["controller"][1:]))
+            _, logit, state = ntm_cell_step(p_t, cfg, tokens[:, t, :0], state)
+            logits.append(logit)
+    res = tuple(torch.stack(r, 1).contiguous() for r in zip(*res))
+    return torch.stack(logits, 1), state, res
 
 
 def token_projection(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """X W0[:IN] + b0 over every step: [B*T, 4Hc] from tokens [B, T, IN]
     and layer 0's kernel [IN + R*D + Hc, 4Hc] and bias [4Hc], the token
     part of each step's layer-0 product. One launch of csrc/scan_bptt.cu's
-    GEMM, counted in `token_projection.launches`."""
+    GEMM, counted in `token_projection.launches`; CPU tensors run
+    token_projection_reference."""
     B, T, IN = tokens.shape
     device = tokens.device
     G4 = kernel.shape[1]
+    _check("tokens", tokens, (B, T, IN), device)
     _check("kernel", kernel, (kernel.shape[0], G4), device)
     _check("bias", bias, (G4,), device)
     if kernel.shape[0] < IN:
         raise ValueError(f"kernel has {kernel.shape[0]} rows, fewer than the token width {IN}")
+    if device.type == "cpu":
+        return token_projection_reference(tokens, kernel, bias)
     out = torch.empty(B * T, G4, device=device)
     index, stream = _stream(device)
     err = _library().ntm_token_proj_launch(
@@ -376,10 +453,14 @@ def weight_grads(cfg: NTMConfig, IN: int, operands) -> list:
 
 class _ScanBPTT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, L, rows_bwd, tokens, *flat):
+    def forward(ctx, cfg, L, rows_fwd, rows_bwd, tokens, *flat):
         params, state = unflatten_scan_args(flat, L)
-        logits, final, res = bptt_forward(params, cfg, tokens, state)
-        ctx.cfg, ctx.L, ctx.rows_bwd, ctx.res = cfg, L, rows_bwd, res
+        layer0 = params["controller"][0]
+        # the token part of every step's layer-0 product, once: the forward
+        # reads it, and it is kept for the backward
+        proj = token_projection(tokens, layer0["kernel"], layer0["bias"])
+        logits, final, res = bptt_forward(params, cfg, tokens, state, proj, rows_per_block=rows_fwd)
+        ctx.cfg, ctx.L, ctx.rows_bwd, ctx.res, ctx.proj = cfg, L, rows_bwd, res, proj
         ctx.save_for_backward(tokens, *flat)
         # distinct tensors, so that no output is a view of another
         return (logits, *[t.clone() for t in flatten_state(final)])
@@ -389,19 +470,19 @@ class _ScanBPTT(torch.autograd.Function):
         cfg, L = ctx.cfg, ctx.L
         tokens, *flat = ctx.saved_tensors
         params, _ = unflatten_scan_args(flat, L)
-        # the residuals are freed as soon as the backward kernel has read them
-        res, ctx.res = ctx.res, None
+        # the residuals and the projection are freed as soon as the backward
+        # kernel has read them
+        res, proj, ctx.res, ctx.proj = ctx.res, ctx.proj, None, None
         if res is None:
             raise RuntimeError("the fused BPTT backward runs once per forward (no retain_graph)")
         dlogits = dlogits.contiguous()
-        proj = token_projection(tokens, params["controller"][0]["kernel"], params["controller"][0]["bias"])
         dtokens, dstate0, operands = bptt_backward(
             params, cfg, tokens, proj, res, dlogits, unflatten_state([d.contiguous() for d in dfinal], L),
-            need_dtokens=ctx.needs_input_grad[3], rows_per_block=ctx.rows_bwd,
+            need_dtokens=ctx.needs_input_grad[4], rows_per_block=ctx.rows_bwd,
         )
         del res, proj
         grads = [*flatten_state(dstate0), *weight_grads(cfg, tokens.shape[2], operands)]
-        return (None, None, None, dtokens, *grads)
+        return (None, None, None, None, dtokens, *grads)
 
 
 def ntm_scan_fused_bptt(
@@ -409,6 +490,7 @@ def ntm_scan_fused_bptt(
     cfg: NTMConfig,
     tokens: torch.Tensor,
     state: Dict[str, Any],
+    forward_rows_per_block: Optional[int] = None,
     backward_rows_per_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """T NTM steps, differentiable wrt params, tokens and the initial state.
@@ -416,8 +498,10 @@ def ntm_scan_fused_bptt(
     Args:
       tokens: [B, T, IN] float32; params and state on the tokens' device,
         float32 and contiguous.
-      backward_rows_per_block: the backward kernel's tile (BACKWARD_ROWS);
-        None = backward_rows' choice from B and the card's SM count.
+      forward_rows_per_block, backward_rows_per_block: the forward and
+        backward kernels' tiles (FORWARD_ROWS, BACKWARD_ROWS); None =
+        forward_rows' and backward_rows' choice from B and the card's SM
+        count.
     Returns:
       (logits [B, T, output_dim], final state). See the module docstring
       for the route each device and grad mode takes.
@@ -434,5 +518,5 @@ def ntm_scan_fused_bptt(
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in [tokens, *flat])):
         return ntm_scan_fused(params, cfg, tokens, state)
     L = cfg.controller_num_layers
-    logits, *final = _ScanBPTT.apply(cfg, L, backward_rows_per_block, tokens, *flat)
+    logits, *final = _ScanBPTT.apply(cfg, L, forward_rows_per_block, backward_rows_per_block, tokens, *flat)
     return logits, unflatten_state(final, L)

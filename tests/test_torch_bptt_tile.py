@@ -1,11 +1,12 @@
-"""The training backward's redesign (ops/kernels/scan_bptt.py and
+"""The training kernels' tiled design (ops/kernels/scan_bptt.py and
 csrc/scan_bptt.cu) on the CPU: the hoisted token projection against the
-JAX package's LSTM gates; the autograd Function's tokens rule (no dtokens
-unless the tokens need a gradient) with its launches replaced by plain
-stand-ins, against jax.grad of the JAX package's fused BPTT kernel in
-interpret mode; the reduction's row chunks; the backward's tile rule; the
-kernel source. The CUDA kernels are held against their plain versions on
-the card by chip_smoke.py."""
+JAX package's LSTM gates; the autograd Function with its launches replaced
+by plain stand-ins, against jax.grad of the JAX package's fused BPTT
+kernel in interpret mode: one projection per step, launched in the forward
+and handed to the backward, and no dtokens unless the tokens need a
+gradient; the reduction's row chunks; the backward's tile rule; the kernel
+source. The CUDA kernels are held against their plain versions on the
+card by chip_smoke.py."""
 
 import re
 
@@ -61,21 +62,20 @@ def test_token_projection_plus_recurrent_part_gives_the_jax_gates(name):
     np.testing.assert_allclose(new_h.numpy(), np.asarray(j_h), rtol=GATES_RTOL, atol=GATES_RTOL)
 
 
-# ---- plain CPU stand-ins for the three launches of _ScanBPTT -------------------
+# ---- plain CPU stand-ins for the launches of _ScanBPTT -------------------------
 
-def plain_bptt_forward(params, cfg, tokens, state):
-    """bptt_forward's outputs from the plain cell step: (logits, final,
-    residuals), the residuals each step's input state."""
-    T = tokens.shape[1]
-    res, logits = [], []
-    with torch.no_grad():
-        for t in range(T):
-            res.append((state["M"], state["w"], state["read"].flatten(1),
-                        torch.stack([c for c, _ in state["controller_state"]], 1),
-                        torch.stack([h for _, h in state["controller_state"]], 1)))
-            _, logit, state = ntm_cell_step(params, cfg, tokens[:, t], state)
-            logits.append(logit)
-    return torch.stack(logits, 1), state, tuple(torch.stack(r, 1) for r in zip(*res))
+def plain_token_projection(tokens, kernel, bias):
+    """token_projection's plain version; records each projection it makes."""
+    out = scan_bptt.token_projection_reference(tokens, kernel, bias)
+    plain_token_projection.made.append(out)
+    return out
+
+
+def plain_bptt_forward(params, cfg, tokens, state, proj, rows_per_block=None):
+    """bptt_forward's plain version (logits, final, residuals: each step's
+    input state); records the projection it was handed."""
+    plain_bptt_forward.projs.append(proj)
+    return scan_bptt.bptt_forward_reference(params, cfg, tokens, state, proj)
 
 
 def plain_bptt_backward(params, cfg, tokens, proj, res, dlogits, dfinal, need_dtokens=True, rows_per_block=None):
@@ -84,11 +84,13 @@ def plain_bptt_backward(params, cfg, tokens, proj, res, dlogits, dfinal, need_dt
     cotangents, then the logits'). Each step's LSTM biases and head bias
     carry a zero probe [B, width], so the gradients of the probes are the
     gate and head-control cotangents. Checks that proj is the token
-    projection of these tokens; records need_dtokens in `calls`."""
+    projection of these tokens; records need_dtokens in `calls` and the
+    projection it was handed in `projs`."""
     layer = params["controller"][0]
     torch.testing.assert_close(proj, scan_bptt.token_projection_reference(tokens, layer["kernel"], layer["bias"]),
                                rtol=0, atol=0)
     plain_bptt_backward.calls.append(need_dtokens)
+    plain_bptt_backward.projs.append(proj)
     with torch.enable_grad():  # an autograd Function's backward runs without it
         return _plain_bptt_backward(params, cfg, tokens, res, dlogits, dfinal, need_dtokens)
 
@@ -142,9 +144,11 @@ def _plain_bptt_backward(params, cfg, tokens, res, dlogits, dfinal, need_dtokens
 
 @pytest.fixture
 def stand_ins(monkeypatch):
-    plain_bptt_backward.calls = []
+    plain_token_projection.made = []
+    plain_bptt_forward.projs = []
+    plain_bptt_backward.calls, plain_bptt_backward.projs = [], []
+    monkeypatch.setattr(scan_bptt, "token_projection", plain_token_projection)
     monkeypatch.setattr(scan_bptt, "bptt_forward", plain_bptt_forward)
-    monkeypatch.setattr(scan_bptt, "token_projection", scan_bptt.token_projection_reference)
     monkeypatch.setattr(scan_bptt, "bptt_backward", plain_bptt_backward)
     monkeypatch.setattr(scan_bptt, "grad_reduce", scan_bptt.grad_reduce_reference)
     return plain_bptt_backward.calls
@@ -153,7 +157,7 @@ def stand_ins(monkeypatch):
 def function_route(params, tcfg, tokens, state):
     """T steps through _ScanBPTT, the CUDA route's autograd Function."""
     L = tcfg.controller_num_layers
-    logits, *final = scan_bptt._ScanBPTT.apply(tcfg, L, None, tokens, *flatten_scan_args(params, state))
+    logits, *final = scan_bptt._ScanBPTT.apply(tcfg, L, None, None, tokens, *flatten_scan_args(params, state))
     return logits, unflatten_state(final, L)
 
 
@@ -190,6 +194,34 @@ def test_function_computes_dtokens_only_when_the_tokens_need_them(name, stand_in
     assert stand_ins == [False, True]
     got = {n: g.numpy() for n, g in zip(names + ["tokens"], grads)}
     assert_grads(got, g_ref)
+
+
+@pytest.mark.parametrize("name", ["flagship_shape", "slotwise"])
+def test_function_projects_once_in_the_forward_and_hands_the_backward_that_tensor(name, stand_ins):
+    jcfg = CONFIGS[name]
+    tcfg = port_cfg(jcfg)
+    params, _state, tokens, cot = setup_case(jcfg, seed=41)
+    _, g_ref = jax_value_and_grad(lambda p, t, s: jax_fused_bptt(p, jcfg, t, s, interpret=True),
+                                  jcfg, params, tokens, cot)
+    tp = ntm_params_from_flat(flatten_ntm_params(params))
+    names = list(flatten_ntm_params(params))
+    leaves = [tp["controller"][int(n[11:n.index("]")])][n.split(".")[-1]] if n.startswith("controller[") else tp[n]
+              for n in names]
+    for t in leaves:
+        t.requires_grad_()
+    tok = torch.tensor(np.asarray(tokens)).requires_grad_()
+    value, _, _ = port_loss(function_route, tcfg, torch_cot(cot))(tp, tok)
+
+    # the forward made the step's one projection and read it
+    made = plain_token_projection.made
+    assert len(made) == 1 and len(plain_bptt_forward.projs) == 1 and plain_bptt_forward.projs[0] is made[0]
+    assert plain_bptt_backward.projs == []
+    grads = torch.autograd.grad(value, leaves + [tok])
+    # the backward launched no projection of its own: it read the forward's
+    assert len(plain_token_projection.made) == 1
+    assert len(plain_bptt_backward.projs) == 1 and plain_bptt_backward.projs[0] is made[0]
+    assert stand_ins == [True]
+    assert_grads({n: g.numpy() for n, g in zip(names + ["tokens"], grads)}, g_ref)
 
 
 # ---- the reduction's row chunks --------------------------------------------------
@@ -262,6 +294,15 @@ def test_bptt_source_is_plain_c_with_no_float_atomics():
     for fn in ("ntm_bptt_fwd_launch", "ntm_bptt_bwd_launch", "ntm_token_proj_launch", "ntm_grad_reduce_launch",
                "ntm_bptt_smem_bytes"):
         assert f'extern "C" int {fn}' in src
+    # the train route's forward is the tiled kernel at every instantiated
+    # tile, B1's one-row loop (ntm_scan_kernel) is not on it
+    for rows in scan_bptt.FORWARD_ROWS:
+        assert f"launch_tiles(ntm_bptt_fwd_kernel<{rows}>" in src
+    for rows in scan_bptt.BACKWARD_ROWS:
+        assert f"launch_tiles(ntm_bptt_bwd_kernel<{rows}>" in src
+    assert "ntm_scan_kernel" not in src and "launch_scan" not in src
+    # both recurrences run one tile step, so the recompute's gates are the forward's
+    assert "tile_step<RT, true>" in src and "tile_step<RT, false>" in src
     for text in (src, (_build.CSRC / "ntm_step.cuh").read_text()):
         assert not re.search(r"\batomic\w*\s*\(", text)  # no atomicAdd, atomicCAS, ...
     # f32 only: no tensor-core (TF32) instruction in the GEMMs
