@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ntm_tracker_tpu_torch) on one NVIDIA
 H100: builds the CUDA kernels from csrc/ (one nvcc per source, in
-parallel), holds each against its plain PyTorch version on the card,
+parallel), holds each against its plain PyTorch version on the card (B1
+on both of its routes: a thread-block cluster per row at small B, B2's
+forward tile step without residuals at large B),
 drives the streaming tracker's frame step, the batched fleet and the
 device-resident loop with NTMConfig.use_pallas (the addressing kernel at
 every cell step) and the cached-token training step at full width, holds
@@ -547,6 +549,71 @@ def phase_bptt(dev: torch.device, IN: int) -> dict:
     return {"backward": ran, "forward": fwd_ran, "forward_max_abs_err": fwd_worst}
 
 
+def reset_counts() -> None:
+    """Set B1's launch counts (in all, by route) and the token projection's
+    to 0: both B1 routes launch the projection first."""
+    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import token_projection
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+
+    ntm_scan_fused.launches = token_projection.launches = 0
+    for route in ntm_scan_fused.launches_by_route:
+        ntm_scan_fused.launches_by_route[route] = 0
+
+
+def phase_cluster_info(dev: torch.device, IN: int) -> dict:
+    """B1's cluster route as the card sees it: the cluster size, one CTA's
+    shared memory (the wrapper's count held equal to the kernel's own), its
+    registers and local bytes per thread (cudaFuncGetAttributes), the
+    clusters resident at once (cudaOccupancyMaxActiveClusters), and which
+    configs' slices fit; the tile route's shared memory beside it."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt, scan_cell
+
+    ncfg = NTMConfig()
+    occ = scan_cell.cluster_occupancy(ncfg, IN, dev)
+    c_bytes = scan_cell._library().ntm_scan_cluster_smem_bytes(*scan_cell._dims(ncfg, IN), scan_cell.CLUSTER_SIZE)
+    two = NTMConfig(controller_num_layers=2, write_first=True, shift_range=2, write_head_size=2)
+    fits = {name: scan_cell.cluster_smem_bytes(c, IN) for name, c in (("flagship", ncfg), ("2layer_2write_s5", two))}
+    log("cluster", f"cluster route: {scan_cell.CLUSTER_SIZE} CTAs of {scan_cell.NT_THREADS} threads per batch row; "
+                   f"shared memory per CTA {occ['smem_bytes']} B (the wrapper's count {fits['flagship']} B, the kernel's "
+                   f"{c_bytes} B; limit {scan_cell.MAX_SMEM_BYTES} B); {occ['registers']} registers and "
+                   f"{occ['local_bytes']} local bytes per thread; cudaOccupancyMaxActiveClusters "
+                   f"{occ['max_active_clusters']} on {scan_bptt.sm_count(dev)} SMs; the two-layer, two-write config needs "
+                   f"{fits['2layer_2write_s5']} B per CTA (the tile route); tile route shared memory per block "
+                   + ", ".join(f"{r} rows {scan_bptt.smem_bytes(ncfg, IN, False, r)} B" for r in scan_bptt.FORWARD_ROWS))
+    if not occ["smem_bytes"] == fits["flagship"] == c_bytes or occ["max_active_clusters"] < 1:
+        raise AssertionError("the cluster route's shared memory counts disagree, or the card holds no cluster")
+    return {"cluster_size": scan_cell.CLUSTER_SIZE, **occ, "sms": scan_bptt.sm_count(dev),
+            "smem_bytes_2layer_2write_s5": fits["2layer_2write_s5"]}
+
+
+def route_times(dev: torch.device, smi: str, IN: int, batches=(1, 8, 16, 64), T: int = 65) -> dict:
+    """B1 on both routes at the flagship config, T = 65, at each B (CUDA
+    events, two turns of 10 calls each, the projection included), with the
+    route the rule picks: {B: {"cluster", "tile", "rule"}}."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_params, init_ntm_state
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import route_for, run_route
+
+    ncfg = NTMConfig()
+    params = init_ntm_params(ncfg, IN, torch.Generator().manual_seed(140), dev)
+    out = {}
+    with torch.no_grad():
+        for B in batches:
+            state = init_ntm_state(params, ncfg, B)
+            toks = torch.tensor(np.random.RandomState(141).randn(B, T, IN).astype(np.float32), device=dev)
+            ms = {r: [] for r in ("cluster", "tile")}
+            for rep in range(2):
+                for r in (("cluster", "tile") if rep == 0 else ("tile", "cluster")):
+                    ms[r].append(cuda_ms(lambda r=r: run_route(r, params, ncfg, toks, state), iters=10, warmup=2))
+            out[B] = {r: float(np.mean(v)) for r, v in ms.items()}
+            out[B]["rule"] = route_for(ncfg, B, IN, dev)
+    log("times", f"{smi}: B1 by route at T={T} (flagship, the projection included; CUDA events, 2 x 10 calls in "
+                 f"turns): " + "; ".join(f"B={B} cluster {v['cluster']:.4f} ms, tile {v['tile']:.4f} ms (rule: "
+                                         f"{v['rule']})" for B, v in out.items()))
+    return out
+
+
 def addressing_inputs(ncfg, B: int, seed: int, dev: torch.device) -> list:
     """B3's nine inputs as the cell step hands them over: the head controls
     are views into one [B, P] tensor (torch.split, then reshape), M_prev
@@ -678,6 +745,7 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
 
     from ntm_tracker_tpu_torch.models.core import make_core
     from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
+    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import token_projection
     from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
     from ntm_tracker_tpu_torch.tracking.fleet import FleetTracker
     from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker, build_frame_step, make_device_track_step
@@ -701,6 +769,7 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
         return out
 
     fleet._step_rest = recording_rest
+    reset_counts()
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
@@ -712,13 +781,16 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     fleet_counts = {k.__name__: k.launches for k in kernels}
-    expected = {"ntm_scan_fused": FLEET_CAP, "fused_ntm_addressing": T * FLEET_STEPS}
+    fleet_counts["token_projection"] = token_projection.launches
+    fleet_routes = dict(ntm_scan_fused.launches_by_route)
+    expected = {"ntm_scan_fused": FLEET_CAP, "fused_ntm_addressing": T * FLEET_STEPS, "token_projection": FLEET_CAP}
     arr = np.asarray([[out[s] for s in slots] for out in outs], np.float64)
     log("fleet", f"FleetTracker use_pallas=True capacity {FLEET_CAP} on {FLEET_HW[0]}x{FLEET_HW[1]} frames: {FLEET_CAP} adds "
                  f"{t1 - t0:.2f}s, {FLEET_STEPS} steps {t2 - t1:.2f}s; launches {fleet_counts} (expected {expected}: B1 once "
-                 f"per add at B=1, B3 {T} times per fleet step); regions {arr.shape}, finite {bool(np.isfinite(arr).all())}, "
-                 f"slot 0 {[round(v, 2) for v in arr[-1, 0]]}")
-    if fleet_counts != expected or not np.isfinite(arr).all():
+                 f"per add at B=1, after its projection; B3 {T} times per fleet step), B1 by route {fleet_routes}; "
+                 f"regions {arr.shape}, finite {bool(np.isfinite(arr).all())}, slot 0 {[round(v, 2) for v in arr[-1, 0]]}")
+    if (fleet_counts != expected or fleet_routes != {"cluster": FLEET_CAP, "tile": 0}
+            or not np.isfinite(arr).all()):
         failed.append("fleet launches or regions")
 
     # the first fleet step against the plain per-step route (use_pallas off)
@@ -739,6 +811,7 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
     init_fn, step_fn = make_device_track_step(cfg_p, core_p, vgg, params, device=dev)
     bbox = torch.as_tensor(normalized_bboxes(regions), device=dev)
     state = core_p.init_state(params, FLEET_CAP)
+    reset_counts()
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
@@ -751,7 +824,8 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     loop_counts = {k.__name__: k.launches for k in kernels}
-    loop_expected = {"ntm_scan_fused": 0, "fused_ntm_addressing": T * (1 + FLEET_STEPS)}
+    loop_counts["token_projection"] = token_projection.launches
+    loop_expected = {"ntm_scan_fused": 0, "fused_ntm_addressing": T * (1 + FLEET_STEPS), "token_projection": 0}
     loop_arr = torch.stack(loop_regions).cpu().double().numpy()
     log("fleet", f"make_device_track_step use_pallas=True B={FLEET_CAP}: init + {FLEET_STEPS} steps {loop_s:.2f}s; "
                  f"launches {loop_counts} (expected {loop_expected}); finite {bool(np.isfinite(loop_arr).all())}")
@@ -862,8 +936,8 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
                      f"top kernels {prof['top']}")
         del dframes
     check_budget("fleet times")
-    return {"fleet_counts": fleet_counts, "loop_counts": loop_counts, "fleet_ms": fleet_ms, "loop_ms": loop_ms,
-            "frame_ms": frame_ms}
+    return {"fleet_counts": fleet_counts, "fleet_routes": fleet_routes, "loop_counts": loop_counts,
+            "fleet_ms": fleet_ms, "loop_ms": loop_ms, "frame_ms": frame_ms}
 
 
 def offsets_grads(exp, params, batch, dtype=torch.float32):
@@ -934,7 +1008,7 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     from ntm_tracker_tpu_torch.config import TrackerConfig, TrainConfig
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
     from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused, route_for, run_route
     from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, synthetic_cached_batch
     from ntm_tracker_tpu_torch.train.optim import tree_leaves, tree_map
     from ntm_tracker_tpu_torch.train.serialize import serialize_tokens
@@ -952,6 +1026,7 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
                scan_bptt.grad_reduce)
 
     # ---- the main path: 1 warm-up + 3 timed train steps, 1 eval step -----------
+    reset_counts()
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -971,12 +1046,14 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     eval_loss = float(aux["loss"])
     eval_ms = 1e3 * (time.perf_counter() - t0)
     counts = {k.__name__: k.launches for k in kernels}
-    expected = {"ntm_scan_fused": 1, "bptt_forward": 4, "token_projection": 4, "bptt_backward": 4,
+    eval_routes = dict(ntm_scan_fused.launches_by_route)
+    expected = {"ntm_scan_fused": 1, "bptt_forward": 4, "token_projection": 5, "bptt_backward": 4,
                 "grad_reduce": 4 * (L + 1)}
-    log("train", f"main path launches {counts} (expected {expected}; each grad_reduce call is two kernels, "
-                 f"the partial sums and their fixed-order sum; one call per LSTM layer and one for the head and "
-                 f"output linears together)")
-    if counts != expected:
+    log("train", f"main path launches {counts} (expected {expected}: a projection per train step and one for the "
+                 f"eval step's B1; each grad_reduce call is two kernels, the partial sums and their fixed-order sum; "
+                 f"one call per LSTM layer and one for the head and output linears together); B1 by route "
+                 f"{eval_routes}")
+    if counts != expected or eval_routes != {"cluster": 0, "tile": 1}:
         raise AssertionError("the training path did not run through the kernels as expected")
     # an update far below a parameter's ulp leaves it as it was (init_w's
     # gradient is small), so the check is on the parameters as a whole
@@ -1059,8 +1136,14 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
         tokens = serialize_tokens(feats, batch["gts"].float().reshape(TRAIN_B, TRAIN_L, -1)[:, 0]).contiguous()
         state = init_ntm_state(params, ncfg, TRAIN_B)
         B, T, _ = tokens.shape
-        b1_err = max_abs(ntm_scan_fused(params, ncfg, tokens, state)[0], plogits)
+        b1_route = route_for(ncfg, B, IN, dev)
+        b1_logits, b1_final = ntm_scan_fused(params, ncfg, tokens, state)
+        b1_err = max_abs(b1_logits, plogits)
         b1_ms = cuda_ms(lambda: ntm_scan_fused(params, ncfg, tokens, state), iters=2, warmup=0)
+        # the other route at this shape (the rule does not pick it here)
+        other = "cluster" if b1_route == "tile" else "tile"
+        b1_ms_by_route = {b1_route: b1_ms,
+                          other: cuda_ms(lambda: run_route(other, params, ncfg, tokens, state), iters=1, warmup=0)}
         # the token projection, its plain version and one library call, in
         # turns
         W0, b0 = params["controller"][0]["kernel"], params["controller"][0]["bias"]
@@ -1096,6 +1179,11 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
                                 iters=2, warmup=1) for r in scan_bptt.FORWARD_ROWS}
         fwd_ms = fwd_ms_by[fwd_rows]
         logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state, proj)
+        # B1's tile route is B2's forward tile step without the residuals:
+        # on the same projection, the same bits
+        b1_same_b2 = torch.equal(b1_logits, logits) and all(
+            torch.equal(a, b) for a, b in zip(scan_bptt.flatten_state(b1_final), scan_bptt.flatten_state(final)))
+        del b1_logits, b1_final
         dlogits = torch.randn_like(logits) * 1e-2
         dfinal = tree_map(torch.zeros_like, final)
         # the backward on the same projection: as the route runs it (its
@@ -1135,10 +1223,13 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
         tiles = {f"{k + 1}x{g.shape[1]}": list(scan_bptt.gemm_tile(k + 1, g.shape[1])) for _, g, k in products}
         del ops, li, dgates, ctrl, dctl, products
     b1_bound = bound(*scan_cell_work(ncfg, B, T, IN))
-    log("times", f"{smi}: B1 (the eval step's kernel) at B={B} T={T}: {b1_ms:.3f} ms, bound {b1_bound[0]:.3f} ms "
-                 f"by {b1_bound[1]}; logits vs the plain loop's max_abs {b1_err:.3e} (tol {F32_TOL:g})")
-    if b1_err > F32_TOL:
-        raise AssertionError("B1 disagrees with the plain loop at the training shape")
+    log("times", f"{smi}: B1 (the eval step's kernel) at B={B} T={T}: route {b1_route} {b1_ms:.3f} ms (the projection "
+                 f"included), {other} route {b1_ms_by_route[other]:.3f} ms, bound {b1_bound[0]:.3f} ms by {b1_bound[1]}; "
+                 f"logits vs the plain loop's max_abs {b1_err:.3e} (tol {F32_TOL:g}); logits and final state the same "
+                 f"bits as B2's forward at {fwd_rows} rows per block on the same projection: {b1_same_b2}")
+    if b1_err > F32_TOL or b1_route != "tile" or not b1_same_b2:
+        raise AssertionError("B1 disagrees with the plain loop or with B2's forward at the training shape, or did not "
+                             "take the tile route")
     work = scan_bptt_work(ncfg, B, T, IN)
     log("times", f"{smi}: B2 token projection at B={B} T={T} (once per train step, in the forward), CUDA events, "
                  f"two turns: kernel ({proj_tile[0]}x{proj_tile[1]} tile) {proj_ms:.3f} ms, plain "
@@ -1185,7 +1276,9 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
         "projection_tile": proj_tile,
         "backward_rows": rows, "recurrence_variants": rec_variants, "reduce_tiles": tiles,
         "b1": {"launches": counts["ntm_scan_fused"], "B": B, "T": T, "ms": b1_ms, "bound_ms": b1_bound[0],
-               "bound_by": b1_bound[1], "max_abs_err": b1_err},
+               "bound_by": b1_bound[1], "max_abs_err": b1_err, "route": b1_route, "ms_by_route": b1_ms_by_route,
+               "same_bits_as_b2_forward": b1_same_b2},
+        "eval_routes": eval_routes,
         "inputs": (params, ncfg, tokens),
     }
 
@@ -1416,7 +1509,10 @@ def main() -> int:
     from ntm_tracker_tpu_torch.models.core import make_core
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_params, init_ntm_state
     from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN, extract_features, init_vgg_params, vgg16_features
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused, ntm_scan_fused_reference
+    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import token_projection
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
+        CLUSTER_WAVES, flatten_state, ntm_scan_fused, ntm_scan_fused_reference, run_route,
+    )
     from ntm_tracker_tpu_torch.tracking.tracker import (
         StreamingTracker, build_frame_step, first_frame_gt, region_geometry,
     )
@@ -1446,33 +1542,57 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     IN = TrackerConfig().input_depth
+    cluster = phase_cluster_info(dev, IN)
+    # (cfg, B, compute dtype, route): None = the route the rule picks
+    # (ntm_scan_fused), else that route forced (run_route)
     cases = {
-        "a_flagship_b1": (NTMConfig(), 1, None),
-        "b_flagship_b4": (NTMConfig(), 4, None),
+        "a_flagship_b1": (NTMConfig(), 1, None, None),
+        "b_flagship_b4": (NTMConfig(), 4, None, None),
         "c_2layer_writefirst_s5_2w": (
-            NTMConfig(controller_num_layers=2, write_first=True, shift_range=2, write_head_size=2), 1, None),
-        "d_flagship_bf16": (NTMConfig(), 1, torch.bfloat16),
+            NTMConfig(controller_num_layers=2, write_first=True, shift_range=2, write_head_size=2), 1, None, None),
+        "d_flagship_bf16": (NTMConfig(), 1, torch.bfloat16, None),
+        "e_flagship_b16_cluster": (NTMConfig(), 16, None, "cluster"),
+        "f_flagship_b16": (NTMConfig(), 16, None, None),
+        "h_flagship_b64": (NTMConfig(), 64, None, None),
+        "g_flagship_b4_bf16_tile": (NTMConfig(), 4, torch.bfloat16, "tile"),
     }
-    flagship_err = None
-    for i, (name, (ncfg, B, cd)) in enumerate(cases.items()):
+    flagship_err, case_routes = None, {}
+    for i, (name, (ncfg, B, cd, forced)) in enumerate(cases.items()):
         gen = torch.Generator().manual_seed(100 + i)
         params = init_ntm_params(ncfg, IN, gen, dev)
         state = init_ntm_state(params, ncfg, B)
         toks = torch.tensor(np.random.RandomState(200 + i).randn(B, 65, IN).astype(np.float32), device=dev)
-        logits, final = ntm_scan_fused(params, ncfg, toks, state, compute_dtype=cd)
+        before = dict(ntm_scan_fused.launches_by_route)
+        run = (functools.partial(ntm_scan_fused, params, ncfg, toks, state, compute_dtype=cd) if forced is None
+               else functools.partial(run_route, forced, params, ncfg, toks, state, cd))
+        logits, final = run()
         torch.cuda.synchronize()
+        route = [r for r, n in ntm_scan_fused.launches_by_route.items() if n != before[r]]
+        again = run()
+        same = torch.equal(logits, again[0]) and all(
+            torch.equal(a, b) for a, b in zip(flatten_state(final), flatten_state(again[1])))
         ref_logits, ref_final = ntm_scan_fused_reference(params, ncfg, toks, state, compute_dtype=cd)
         diffs = state_diffs(logits, final, ref_logits, ref_final)
         tol = BF16_TOL if cd == torch.bfloat16 else F32_TOL
         worst = max(diffs.values())
         finite = bool(torch.isfinite(logits).all())
-        log("kernel", f"{name} B={B} T=65 IN={IN} max_abs={worst:.3e} tol={tol:g} finite={finite} "
+        case_routes[name] = route[0] if len(route) == 1 else route
+        log("kernel", f"{name} B={B} T=65 IN={IN} route {case_routes[name]} ({'forced' if forced else 'the rule'}) "
+                      f"max_abs={worst:.3e} tol={tol:g} finite={finite} same bits on a rerun {same} "
                       + " ".join(f"{k}={v:.2e}" for k, v in diffs.items()))
-        if not finite or worst > tol:
-            raise AssertionError(f"{name}: kernel disagrees with the plain version ({worst:.3e} > {tol})")
+        if not finite or worst > tol or not same or len(route) != 1:
+            raise AssertionError(f"{name}: kernel disagrees with the plain version ({worst:.3e} > {tol}), is not "
+                                 f"deterministic, or ran no single route ({route})")
         if name == "a_flagship_b1":
             flagship_err = worst
             flag_args = (params, ncfg, toks, state)
+    expected_routes = {"a_flagship_b1": "cluster", "b_flagship_b4": "cluster", "c_2layer_writefirst_s5_2w": "tile",
+                       "d_flagship_bf16": "cluster", "e_flagship_b16_cluster": "cluster",
+                       "f_flagship_b16": "cluster" if 16 <= CLUSTER_WAVES * cluster["max_active_clusters"] else "tile",
+                       "g_flagship_b4_bf16_tile": "tile",
+                       "h_flagship_b64": "cluster" if 64 <= CLUSTER_WAVES * cluster["max_active_clusters"] else "tile"}
+    if case_routes != expected_routes:
+        raise AssertionError(f"routes {case_routes}, expected {expected_routes}")
     # T = 0 echoes the state and launches nothing
     params, ncfg, toks, state = flag_args
     before = ntm_scan_fused.launches
@@ -1500,7 +1620,7 @@ def main() -> int:
     trk = StreamingTracker(cfg, vgg, params, device="cuda")
     init_bbox = geometry.initial_transformed_bbox(cfg.data.cropbox_grid, cfg.data.bbox_grid)
 
-    ntm_scan_fused.launches = 0
+    reset_counts()
     trk.init(video[0], region0)
     per_frame = [ntm_scan_fused.launches]
     cropboxes, offsets, regions = [list(trk.cropbox)], [], []
@@ -1510,8 +1630,13 @@ def main() -> int:
         offsets.append([trk.output_bbox[0] - init_bbox[0], trk.output_bbox[1] - init_bbox[1]])
         per_frame.append(ntm_scan_fused.launches)
     main_path_launches = ntm_scan_fused.launches
+    frame_routes = dict(ntm_scan_fused.launches_by_route)
+    frame_proj = token_projection.launches
     if per_frame != list(range(1, 2 + n_track)):
         raise AssertionError(f"kernel launches per frame {per_frame}: expected one per frame")
+    if frame_routes != {"cluster": 1 + n_track, "tile": 0} or frame_proj != 1 + n_track:
+        raise AssertionError(f"the frame path ran B1's routes {frame_routes} and {frame_proj} projections: expected "
+                             f"the cluster route and one projection per frame")
     offsets = np.asarray(offsets)
     if offsets.shape != (n_track, 2) or not np.isfinite(offsets).all() or not np.isfinite(regions).all():
         raise AssertionError(f"bad tracker output: offsets {offsets}")
@@ -1537,7 +1662,7 @@ def main() -> int:
         plain_offsets.append(off[0].cpu().numpy())
     off_err = float(np.abs(offsets - np.asarray(plain_offsets, np.float64)).max())
     log("frame", f"StreamingTracker full width: init + {n_track} frames, launches per frame "
-                 f"{np.diff([0] + per_frame).tolist()}, offsets[-1]={offsets[-1].tolist()} "
+                 f"{np.diff([0] + per_frame).tolist()} (B1 by route {frame_routes}, projections {frame_proj}), offsets[-1]={offsets[-1].tolist()} "
                  f"region[-1]={[round(float(v), 2) for v in regions[-1]]}; fused vs plain loop on the same crops: "
                  f"max_abs(offsets)={off_err:.3e} tol={F32_TOL:g}")
     if off_err > F32_TOL:
@@ -1561,9 +1686,10 @@ def main() -> int:
     nbytes, nops = scan_cell_work(ncfg, 1, 65, IN)
     bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOP_PER_S) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > nops / F32_FLOP_PER_S else "operations"
-    log("times", f"{smi}: scan_cell B=1 T=65 kernel {kernel_ms:.4f} ms (100 launches, L2 warm), "
-                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+    log("times", f"{smi}: scan_cell B=1 T=65 kernel {kernel_ms:.4f} ms (100 calls, the projection and the cluster "
+                 f"route, L2 warm), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
                  f"({nbytes / 1e6:.3f} MB, {nops / 1e6:.3f} MFLOP)")
+    by_route = route_times(dev, smi, IN)
 
     with torch.no_grad():
         vgg_ms = cuda_ms(lambda: frame_tokens(cfg, vgg, c0), iters=20, warmup=3)
@@ -1599,13 +1725,20 @@ def main() -> int:
     # ---- 8. result -----------------------------------------------------------
     # B1 runs on every main path: `launches` is the frame path's count; the
     # fleet's (its adds at B=1), the device loop's, the train path's (its
-    # eval step) and B1's numbers at the training shape beside it
+    # eval step), the route each took, both routes' times and B1's numbers
+    # at the training shape beside it. `source` is the cluster route's; the
+    # tile route's kernel is B2's forward (BPTT_SOURCE)
     kernels = [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": main_path_launches, "max_abs_err": flagship_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "launches_by_path": {"frame_step": main_path_launches, "fleet": fleet["fleet_counts"]["ntm_scan_fused"],
                              "device_loop": fleet["loop_counts"]["ntm_scan_fused"], "train": train["b1"]["launches"]},
+        "route_by_path": {"frame_step": frame_routes, "fleet": fleet["fleet_routes"],
+                          "device_loop": {"cluster": 0, "tile": 0}, "train": train["eval_routes"]},
+        "ms_by_route": {"T65": {str(B): v for B, v in by_route.items()},
+                        f"B{train['b1']['B']}_T{train['b1']['T']}": train["b1"]["ms_by_route"]},
+        "routes_in_kernel_cases": case_routes, "cluster": cluster, "tile_route_source": BPTT_SOURCE,
         "train_shape": {k: v for k, v in train["b1"].items() if k != "launches"},
     }]
     bptt = {}
@@ -1627,7 +1760,11 @@ def main() -> int:
         "train_logits_vs_plain_step": train["logits_vs_plain"], "reads": "the token projection (no token rows of W0)",
     })
     bptt["token_projection"].update({
-        "launched_in": "_ScanBPTT.forward, once per train step; the forward and the backward both read it",
+        "launched_in": "_ScanBPTT.forward, once per train step (the forward and the backward both read it), and "
+                       "first in every B1 call (its two routes read it)",
+        "launches_by_path": {"frame_step": frame_proj, "fleet": fleet["fleet_counts"]["token_projection"],
+                             "device_loop": fleet["loop_counts"]["token_projection"],
+                             "train": train["counts"]["token_projection"]},
         "tile": list(train["projection_tile"]),
         "ratio_to_library": train["token_projection"][0] / train["token_projection"][2],
     })

@@ -1,8 +1,8 @@
-// One NTM cell step on a batch row held in shared memory, and the T-step
-// loop around it (the streaming kernel, scan_cell.cu); the shared-memory
-// layout, the addressing phases and the tile product that the training
-// kernels (scan_bptt.cu), the addressing kernel and the packed kernels
-// share with it.
+// The NTM cell step's shared pieces: the dimensions and weight pointers,
+// the shared-memory layout of one batch row, the addressing phases, the
+// tile product and the cp.async helpers. scan_cell.cu (B1's cluster
+// route), scan_bptt.cu (B2's kernels and B1's tile route), addressing.cu
+// (B3) and scan_packed.cu (B4) include it.
 //
 // Each step: stacked LSTM on [x | read | h], the fused head linear,
 // tanh(k), cosine against memory (across-slot or slotwise), softplus-beta
@@ -11,11 +11,10 @@
 // write, and the output linear (ntm_tracker_tpu/ops/pallas/scan_cell.py:
 // _step_kernel, scan_bptt.py:_forward_math).
 //
-// One thread block of NT threads owns one batch row. The step reads its
-// input state from the *_in arrays and writes the new state to the *_out
-// arrays; the forward kernels alias the two (an in-place update, safe
+// A batch row's state lives in shared memory (make_layout). The forward
+// kernels update it in place (the *_in and *_out arrays alias, safe
 // because every phase that overwrites a state array runs after the last
-// phase that reads it), the backward kernel keeps them apart. Every
+// phase that reads it); the backward kernels keep them apart. Every
 // intermediate the backward needs stays in its own shared array.
 //
 // compute_dtype=bf16 is reproduced as the JAX package does it
@@ -153,6 +152,11 @@ __host__ __device__ inline Layout make_layout(const Dims& d, bool backward) {
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+// a matmul's sum plus its bias under the compute dtype: bf16 rounds the
+// sum first, then adds the bias in f32 (the JAX package's mm, then + b)
+__device__ __forceinline__ float mm_bias(float acc, float bias, bool bf16) {
+  return (bf16 ? bf16_round(acc) : acc) + bias;
+}
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 __device__ __forceinline__ float softplus_f(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
@@ -171,24 +175,21 @@ __device__ __forceinline__ int wrap(int i, int N) {
   return i < 0 ? i + N : i;
 }
 
-// out[j] = bias[j] + sum_k in[k] * Wm[k, j] for j < ncol, one column per
-// thread; consecutive threads read consecutive columns (coalesced).
-__device__ __forceinline__ void gemv(const float* __restrict__ Wm,
-                                     const float* __restrict__ bias,
-                                     const float* in, int K, int ncol,
-                                     float* out, int bf16) {
-  for (int j = threadIdx.x; j < ncol; j += NT) {
-    float acc = 0.f;
-    if (bf16) {
-      for (int k = 0; k < K; ++k)
-        acc = fmaf(bf16_round(in[k]), bf16_round(__ldg(Wm + (size_t)k * ncol + j)), acc);
-      acc = bf16_round(acc);
-    } else {
-#pragma unroll 8
-      for (int k = 0; k < K; ++k) acc = fmaf(in[k], __ldg(Wm + (size_t)k * ncol + j), acc);
-    }
-    out[j] = acc + __ldg(bias + j);
-  }
+// cp.async copies from global to shared memory (Ampere and later): 4 or
+// 16 bytes, committed in groups; cp_async_wait<n> returns once at most n
+// groups are still in flight.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 // ---- a product over a tile of RT batch rows (scan_bptt.cu's forward and
@@ -242,8 +243,8 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ Wm, int ld, i
 // The addressing phases of one step, everything after the head linear:
 // from the raw head controls in ctl (the fused linear's column order k,
 // beta, g, sw, gamma, erase, add) and M_in / w_in, the new w_out, read_out
-// and M_out, with every intermediate kept in its shared array. ntm_step()
-// and the single-step addressing kernel (addressing.cu) both run it. Enters
+// and M_out, with every intermediate kept in its shared array. B1's
+// cluster kernel (scan_cell.cu) and B3's kernel (addressing.cu) run it. Enters
 // after a __syncthreads() that published ctl, M_in and w_in; returns after
 // one that publishes the outputs.
 __device__ __forceinline__ void ntm_addressing(const Dims& dm, const Flags& fl, float* smem,
@@ -402,177 +403,4 @@ __device__ __forceinline__ void ntm_addressing(const Dims& dm, const Flags& fl, 
     }
     __syncthreads();
   }
-}
-
-// One cell step of the block's row. x: the step's token (global, [IN]);
-// logit: where the step's output logits go (global, [O]), or nullptr.
-// Enters after a __syncthreads() that published the *_in arrays and
-// returns after one that publishes the *_out arrays and intermediates.
-__device__ void ntm_step(const Weights& wt, const Dims& dm, const Flags& fl,
-                         float* smem, const Layout& lay,
-                         const float* __restrict__ x, float* logit) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int IN = dm.IN, Hc = dm.Hc, L = dm.L, O = dm.O;
-  const float* read_in = smem + lay.read_in;
-  const float* c_in = smem + lay.c_in;
-  const float* h_in = smem + lay.h_in;
-  float* c_out = smem + lay.c_out;
-  float* h_out = smem + lay.h_out;
-  float* inp = smem + lay.inp;
-  float* ctl = smem + lay.ctl;
-  const int P = head_width(dm), RD = dm.R * dm.D;
-
-  // ---- stacked LSTM controller --------------------------------------------
-  for (int i = tid; i < IN; i += NT) inp[i] = x[i];
-  for (int i = tid; i < RD; i += NT) inp[IN + i] = read_in[i];
-  for (int i = tid; i < Hc; i += NT) inp[IN + RD + i] = h_in[i];
-  __syncthreads();
-  for (int l = 0; l < L; ++l) {
-    const int K = (l == 0 ? IN + RD : Hc) + Hc;
-    float* gates = smem + lay.gates + l * 4 * Hc;
-    gemv(wt.lstm_w[l], wt.lstm_b[l], inp, K, 4 * Hc, gates, fl.bf16);
-    __syncthreads();
-    for (int j = tid; j < Hc; j += NT) {
-      const float ig = gates[j], jg = gates[Hc + j], fg = gates[2 * Hc + j],
-                  og = gates[3 * Hc + j];
-      const float c_new = c_in[l * Hc + j] * sigmoid_f(fg) + sigmoid_f(ig) * tanhf(jg);
-      const float h_new = tanhf(c_new) * sigmoid_f(og);
-      if (l + 1 < L) {
-        inp[j] = h_new;
-        inp[Hc + j] = h_in[(l + 1) * Hc + j];
-      }
-      c_out[l * Hc + j] = c_new;
-      h_out[l * Hc + j] = h_new;
-    }
-    __syncthreads();
-  }
-  const float* ctrl = h_out + (L - 1) * Hc;
-
-  // ---- head controls and the output linear ---------------------------------
-  gemv(wt.heads_w, wt.heads_b, ctrl, Hc, P, ctl, fl.bf16);
-  if (logit != nullptr) {
-    for (int o = warp; o < O; o += NWARPS) {
-      float acc = 0.f;
-      for (int k = lane; k < Hc; k += 32) {
-        const float wv = __ldg(wt.out_w + (size_t)k * O + o);
-        acc = fl.bf16 ? fmaf(bf16_round(ctrl[k]), bf16_round(wv), acc) : fmaf(ctrl[k], wv, acc);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) logit[o] = (fl.bf16 ? bf16_round(acc) : acc) + __ldg(wt.out_b + o);
-    }
-  }
-  __syncthreads();
-
-  // ---- addressing, read and the erase/add write ----------------------------
-  ntm_addressing(dm, fl, smem, lay);
-}
-
-struct ScanArgs {
-  const float* tokens;          // [B, T, IN]
-  Weights wt;
-  const float* M0;              // [B, N, D]
-  const float* w0;              // [B, H, N]
-  const float* read0;           // [B, R, D]
-  const float* c0[MAX_LAYERS];  // [B, Hc]
-  const float* h0[MAX_LAYERS];  // [B, Hc]
-  float* logits;                // [B, T, O]
-  float* M;                     // [B, N, D]
-  float* w;                     // [B, H, N]
-  float* read;                  // [B, R, D]
-  float* c;                     // [L, B, Hc]
-  float* h;                     // [L, B, Hc]
-  Dims dm;
-  Flags fl;
-  int B, T;
-};
-
-// T cell steps of batch row blockIdx.x with the state resident in shared
-// memory.
-__global__ void __launch_bounds__(NT, 1) ntm_scan_kernel(const ScanArgs a) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const Dims dm = a.dm;
-  const int IN = dm.IN, N = dm.N, D = dm.D, H = dm.H, Hc = dm.Hc, L = dm.L, O = dm.O;
-  const int RD = dm.R * D, T = a.T;
-  const Layout lay = make_layout(dm, false);
-  float* Ms = smem + lay.M_in;
-  float* ws = smem + lay.w_in;
-  float* rd = smem + lay.read_in;
-  float* cs = smem + lay.c_in;
-  float* hs = smem + lay.h_in;
-
-  for (int i = tid; i < N * D; i += NT) Ms[i] = a.M0[(size_t)b * N * D + i];
-  for (int i = tid; i < H * N; i += NT) ws[i] = a.w0[(size_t)b * H * N + i];
-  for (int i = tid; i < RD; i += NT) rd[i] = a.read0[(size_t)b * RD + i];
-  for (int l = 0; l < L; ++l)
-    for (int i = tid; i < Hc; i += NT) {
-      cs[l * Hc + i] = a.c0[l][(size_t)b * Hc + i];
-      hs[l * Hc + i] = a.h0[l][(size_t)b * Hc + i];
-    }
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    const size_t bt = (size_t)b * T + t;
-    ntm_step(a.wt, dm, a.fl, smem, lay, a.tokens + bt * IN, a.logits + bt * O);
-  }
-
-  for (int i = tid; i < N * D; i += NT) a.M[(size_t)b * N * D + i] = Ms[i];
-  for (int i = tid; i < H * N; i += NT) a.w[(size_t)b * H * N + i] = ws[i];
-  for (int i = tid; i < RD; i += NT) a.read[(size_t)b * RD + i] = rd[i];
-  for (int l = 0; l < L; ++l)
-    for (int i = tid; i < Hc; i += NT) {
-      a.c[((size_t)l * a.B + b) * Hc + i] = cs[l * Hc + i];
-      a.h[((size_t)l * a.B + b) * Hc + i] = hs[l * Hc + i];
-    }
-}
-
-// Fill ScanArgs from ntm_scan_cell_launch's plain-C arguments. The
-// pointer arrays are host arrays of L device pointers.
-inline ScanArgs make_scan_args(
-    const void* tokens, const void* const* lstm_w, const void* const* lstm_b,
-    const void* heads_w, const void* heads_b, const void* out_w, const void* out_b,
-    const void* M0, const void* w0, const void* read0, const void* const* c0,
-    const void* const* h0, void* logits, void* M, void* w, void* read, void* c,
-    void* h, int B, int T, const Dims& dm, const Flags& fl) {
-  ScanArgs a;
-  a.tokens = (const float*)tokens;
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    a.wt.lstm_w[l] = l < dm.L ? (const float*)lstm_w[l] : nullptr;
-    a.wt.lstm_b[l] = l < dm.L ? (const float*)lstm_b[l] : nullptr;
-    a.c0[l] = l < dm.L ? (const float*)c0[l] : nullptr;
-    a.h0[l] = l < dm.L ? (const float*)h0[l] : nullptr;
-  }
-  a.wt.heads_w = (const float*)heads_w;
-  a.wt.heads_b = (const float*)heads_b;
-  a.wt.out_w = (const float*)out_w;
-  a.wt.out_b = (const float*)out_b;
-  a.M0 = (const float*)M0;
-  a.w0 = (const float*)w0;
-  a.read0 = (const float*)read0;
-  a.logits = (float*)logits;
-  a.M = (float*)M;
-  a.w = (float*)w;
-  a.read = (float*)read;
-  a.c = (float*)c;
-  a.h = (float*)h;
-  a.dm = dm;
-  a.fl = fl;
-  a.B = B;
-  a.T = T;
-  return a;
-}
-
-// Launches ntm_scan_kernel with one block per batch row on `stream`;
-// returns the CUDA error code of the launch (0 = launched).
-inline int launch_scan(const ScanArgs& a, int device, void* stream) {
-  if (a.dm.L < 1 || a.dm.L > MAX_LAYERS || a.B < 1 || a.T < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int smem = make_layout(a.dm, false).total * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(ntm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ntm_scan_kernel<<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
 }

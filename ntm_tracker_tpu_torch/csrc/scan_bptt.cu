@@ -11,10 +11,10 @@
 //               product, which does not depend on the recurrence. One
 //               launch per train step, before the forward; the forward and
 //               the backward both read it.
-//   forward     ntm_bptt_fwd_kernel<RT>: one block per tile of RT batch
-//               rows walks t = 0 .. T-1. Each step writes the rows' INPUT
-//               state (M, w, read, c, h) to [B, T, ...] residual streams,
-//               then runs tile_step: layer 0's gates from proj plus
+//   forward     ntm_bptt_fwd_kernel<RT, true>: one block per tile of RT
+//               batch rows walks t = 0 .. T-1. Each step writes the rows'
+//               INPUT state (M, w, read, c, h) to [B, T, ...] residual
+//               streams, then runs tile_step: layer 0's gates from proj plus
 //               [read | h] W0[IN:], the other layers and the head and
 //               output linears as tile products, the addressing, read and
 //               erase/add write of all the tile's rows at once.
@@ -71,7 +71,16 @@
 //   projection takes 7.2 ms against torch.addmm's 6.4, the reduction
 //   11.3 ms against torch.matmul's 11.7.
 //
-// f32 only (no TF32): the training path raises for a bf16 compute dtype.
+// B1's tile route (ops/kernels/scan_cell.py) is the projection and
+// ntm_bptt_fwd_kernel<RT, false>: the same tile step without the residual
+// streams, so its logits and final state are the same bits as B2's
+// forward on the same projection. It alone takes compute_dtype=bf16: the
+// caller rounds the tokens and the weights to bf16 on the card and hands
+// the projection a zero bias, and tile_step rounds the products' inputs
+// and sums (mm_bias).
+//
+// The training path is f32 only (no TF32): it raises for a bf16 compute
+// dtype.
 //
 // Plain C interface (no PyTorch headers): built by nvcc into a shared
 // library and called through ctypes (ntm_tracker_tpu_torch/_build.py).
@@ -373,16 +382,23 @@ struct StepIO {
 // then addressing_tile. Row r's step is bt0 + r * T in the [B*T, ...]
 // streams. kFwd: the forward (logits, the read and the write); else the
 // backward's recompute (li, ctrl; the read skipped). Each product sums its
-// K terms in order whatever RT is, so both get the same gates. Enters
-// after a __syncthreads() that published the input state; returns after
-// one that publishes the outputs.
-template <int RT, bool kFwd>
+// K terms in order whatever RT is, so both get the same gates. kBf16 (the
+// forward of B1's tile route only): compute_dtype=bf16, the products'
+// inputs rounded as they enter xT, the weights already rounded by the
+// caller, proj without b0, and each product's sum rounded before its bias
+// (mm_bias); a template switch, so the f32 instances are the same code as
+// without it. Enters after a __syncthreads() that published the input
+// state; returns after one that publishes the outputs.
+template <int RT, bool kFwd, bool kBf16 = false>
 __device__ __forceinline__ void tile_step(const StepIO& io, const Dims& dm, const Flags& fl, float* smem,
                                           const Layout& lay, int row, float* xT, int nr, size_t bt0, int T) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int IN = dm.IN, Hc = dm.Hc, L = dm.L, O = dm.O, RD = dm.R * dm.D, G4 = 4 * Hc;
   const int P = head_width(dm), K0 = RD + Hc;
+  static_assert(kFwd || !kBf16, "the backward's recompute is float32 only");
+  constexpr bool bf = kBf16;
   const auto bt_of = [&](int r) { return bt0 + (size_t)r * T; };
+  const auto in_round = [&](float v) { return bf ? bf16_round(v) : v; };
 #define SP(r, f) (smem + (r) * row + lay.f)
 
   // layer 0's input [read | h], transposed (the token part comes from the
@@ -391,7 +407,7 @@ __device__ __forceinline__ void tile_step(const StepIO& io, const Dims& dm, cons
   for (int i = tid; i < nr * K0; i += NT) {
     const int r = i / K0, k = i - r * K0;
     const float v = k < RD ? SP(r, read_in)[k] : SP(r, h_in)[k - RD];
-    xT[k * RT + r] = v;
+    xT[k * RT + r] = in_round(v);
     if (!kFwd) io.li[bt_of(r) * io.KM + IN + k] = v;
   }
   if (!kFwd)
@@ -414,7 +430,11 @@ __device__ __forceinline__ void tile_step(const StepIO& io, const Dims& dm, cons
         if (j >= G4) break;
         for (int r = 0; r < nr; ++r) {
           const float base = l == 0 ? io.proj[bt_of(r) * G4 + j] : __ldg(io.wt.lstm_b[l] + j);
-          SP(r, gates)[l * G4 + j] = acc[c][r] + base;
+          if constexpr (bf)  // proj without b0: the rounded sum, then the bias
+            SP(r, gates)[l * G4 + j] = l == 0 ? mm_bias(acc[c][r] + base, __ldg(io.wt.lstm_b[0] + j), true)
+                                              : mm_bias(acc[c][r], base, true);
+          else
+            SP(r, gates)[l * G4 + j] = acc[c][r] + base;
         }
       }
     }
@@ -426,8 +446,8 @@ __device__ __forceinline__ void tile_step(const StepIO& io, const Dims& dm, cons
       const float h_new = tanhf(c_new) * sigmoid_f(gl[3 * Hc + j]);
       if (l + 1 < L) {
         const float h_next = SP(r, h_in)[(l + 1) * Hc + j];
-        xT[j * RT + r] = h_new;
-        xT[(Hc + j) * RT + r] = h_next;
+        xT[j * RT + r] = in_round(h_new);
+        xT[(Hc + j) * RT + r] = in_round(h_next);
         if (!kFwd) {
           float* li = io.li + ((size_t)(l + 1) * io.BT + bt_of(r)) * io.KM;
           li[j] = h_new;
@@ -445,7 +465,7 @@ __device__ __forceinline__ void tile_step(const StepIO& io, const Dims& dm, cons
   for (int i = tid; i < nr * Hc; i += NT) {
     const int r = i / Hc, k = i - r * Hc;
     const float v = SP(r, h_out)[hoff + k];
-    xT[k * RT + r] = v;
+    xT[k * RT + r] = in_round(v);
     if (!kFwd) io.ctrl[bt_of(r) * Hc + k] = v;
   }
   __syncthreads();
@@ -453,7 +473,7 @@ __device__ __forceinline__ void tile_step(const StepIO& io, const Dims& dm, cons
     float acc[1][RT];
     tile_dot<RT, 1, PROD_UNROLL>(io.wt.heads_w, P, j, P, xT, Hc, acc);
     const float bj = __ldg(io.wt.heads_b + j);
-    for (int r = 0; r < nr; ++r) SP(r, ctl)[j] = acc[0][r] + bj;
+    for (int r = 0; r < nr; ++r) SP(r, ctl)[j] = mm_bias(acc[0][r], bj, bf);
   }
   if (kFwd)
     // a warp per logit column, from the last warp down (the head product
@@ -467,7 +487,7 @@ __device__ __forceinline__ void tile_step(const StepIO& io, const Dims& dm, cons
       }
       for (int r = 0; r < RT; ++r) acc[r] = warp_sum(acc[r]);
       if (lane == 0)
-        for (int r = 0; r < nr; ++r) io.logits[bt_of(r) * O + o] = acc[r] + __ldg(io.wt.out_b + o);
+        for (int r = 0; r < nr; ++r) io.logits[bt_of(r) * O + o] = mm_bias(acc[r], __ldg(io.wt.out_b + o), bf);
     }
   __syncthreads();
   addressing_tile(dm, fl, smem, lay, row, nr, kFwd);
@@ -477,9 +497,11 @@ __device__ __forceinline__ void tile_step(const StepIO& io, const Dims& dm, cons
 #define RP(r, f) (smem + (r) * tile.row + lay.f)
 
 // T cell steps of the tile's rows b0 .. b0 + nr - 1 with their state
-// resident in shared memory (in place: make_layout(dm, false)), each
-// step's input state streamed to the residuals first.
-template <int RT>
+// resident in shared memory (in place: make_layout(dm, false)). kRes:
+// each step's input state streamed to the residuals first (B2's forward);
+// without, the same steps and nothing else (B1's tile route, which alone
+// takes kBf16).
+template <int RT, bool kRes, bool kBf16 = false>
 __global__ void __launch_bounds__(NT, 1) ntm_bptt_fwd_kernel(const FwdArgs a) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
@@ -509,24 +531,26 @@ __global__ void __launch_bounds__(NT, 1) ntm_bptt_fwd_kernel(const FwdArgs a) {
     // the step's input state; tile_step overwrites it only after its
     // first barrier
     const size_t bt0 = (size_t)b0 * T + t;
-    for (int i = tid; i < nr * ND; i += NT) {
-      const int r = i / ND, q = i - r * ND;
-      a.res_M[(bt0 + (size_t)r * T) * ND + q] = RP(r, M_in)[q];
+    if constexpr (kRes) {
+      for (int i = tid; i < nr * ND; i += NT) {
+        const int r = i / ND, q = i - r * ND;
+        a.res_M[(bt0 + (size_t)r * T) * ND + q] = RP(r, M_in)[q];
+      }
+      for (int i = tid; i < nr * HN; i += NT) {
+        const int r = i / HN, q = i - r * HN;
+        a.res_w[(bt0 + (size_t)r * T) * HN + q] = RP(r, w_in)[q];
+      }
+      for (int i = tid; i < nr * RD; i += NT) {
+        const int r = i / RD, q = i - r * RD;
+        a.res_read[(bt0 + (size_t)r * T) * RD + q] = RP(r, read_in)[q];
+      }
+      for (int i = tid; i < nr * LH; i += NT) {
+        const int r = i / LH, q = i - r * LH;
+        a.res_c[(bt0 + (size_t)r * T) * LH + q] = RP(r, c_in)[q];
+        a.res_h[(bt0 + (size_t)r * T) * LH + q] = RP(r, h_in)[q];
+      }
     }
-    for (int i = tid; i < nr * HN; i += NT) {
-      const int r = i / HN, q = i - r * HN;
-      a.res_w[(bt0 + (size_t)r * T) * HN + q] = RP(r, w_in)[q];
-    }
-    for (int i = tid; i < nr * RD; i += NT) {
-      const int r = i / RD, q = i - r * RD;
-      a.res_read[(bt0 + (size_t)r * T) * RD + q] = RP(r, read_in)[q];
-    }
-    for (int i = tid; i < nr * LH; i += NT) {
-      const int r = i / LH, q = i - r * LH;
-      a.res_c[(bt0 + (size_t)r * T) * LH + q] = RP(r, c_in)[q];
-      a.res_h[(bt0 + (size_t)r * T) * LH + q] = RP(r, h_in)[q];
-    }
-    tile_step<RT, true>(io, dm, a.fl, smem, lay, tile.row, xT, nr, bt0, T);
+    tile_step<RT, true, kBf16>(io, dm, a.fl, smem, lay, tile.row, xT, nr, bt0, T);
   }
 
   for (int i = tid; i < nr * ND; i += NT) a.M[(size_t)b0 * ND + i] = RP(i / ND, M_out)[i % ND];
@@ -938,20 +962,6 @@ struct Gemm {
 using GemmWide = Gemm<10, 10, 8, 16, 2>;
 using GemmSquare = Gemm<8, 8, 16, 16, 2>;
 
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 // dst[r * (BW + 4) + c] = src[(m0 + r) * ld + c0 + c] for the GK x BW slab,
 // by NT_ threads: rows m0 + r < m_end and columns c0 + c < ncols; kOnes
 // puts 1 at column ncols (the bias's column of ones), everything else is 0.
@@ -1167,19 +1177,24 @@ static int launch_tiles(Kernel kernel, const Args& a, int rows, int smem, cudaSt
   return (int)cudaGetLastError();
 }
 
-// The forward with residual streams: one block per `rows` (1, 2 or 4)
-// batch rows. proj holds X W0[:IN] + b0 per step [B*T, 4*Hc]
-// (ntm_token_proj_launch's output); the initial and final c and h are
-// stacked [L, B, Hc]; lstm_w and lstm_b are host arrays of L device
-// pointers. f32 only.
+// The forward: one block per `rows` (1, 2 or 4) batch rows. proj holds
+// layer 0's token part per step [B*T, 4*Hc] (ntm_token_proj_launch's
+// output: X W0[:IN] + b0, or at bf16 the rounded operands' X W0[:IN]
+// without b0); the initial and final c and h are stacked [L, B, Hc];
+// lstm_w and lstm_b are host arrays of L device pointers. With the five
+// residual pointers set, B2's forward (f32 only); with all five null, B1's
+// tile route, which also takes bf16 (the weights rounded by the caller).
 extern "C" int ntm_bptt_fwd_launch(
     const void* proj, const void* const* lstm_w, const void* const* lstm_b, const void* heads_w,
     const void* heads_b, const void* out_w, const void* out_b, const void* M0, const void* w0,
     const void* read0, const void* c0, const void* h0, void* logits, void* M, void* w, void* read,
     void* c, void* h, void* res_M, void* res_w, void* res_read, void* res_c, void* res_h, int B,
     int T, int IN, int N, int D, int H, int R, int W, int S, int Hc, int L, int O,
-    int write_first, int slotwise, int rows, int device, void* stream) {
-  if (L < 1 || L > MAX_LAYERS || B < 1 || T < 1 || (rows != 1 && rows != 2 && rows != 4) || proj == nullptr)
+    int write_first, int slotwise, int bf16, int rows, int device, void* stream) {
+  const int nres = (res_M != nullptr) + (res_w != nullptr) + (res_read != nullptr) + (res_c != nullptr) +
+                   (res_h != nullptr);
+  if (L < 1 || L > MAX_LAYERS || B < 1 || T < 1 || (rows != 1 && rows != 2 && rows != 4) || proj == nullptr ||
+      (nres != 0 && nres != 5) || (nres == 5 && bf16))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -1203,14 +1218,24 @@ extern "C" int ntm_bptt_fwd_launch(
   a.res_c = (float*)res_c;
   a.res_h = (float*)res_h;
   a.dm = Dims{IN, N, D, H, R, W, S, Hc, L, O};
-  a.fl = Flags{write_first, slotwise, 0};
+  a.fl = Flags{write_first, slotwise, bf16};
   a.B = B;
   a.T = T;
   const int smem = make_tile(a.dm, rows, false).total * (int)sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (rows == 1) return launch_tiles(ntm_bptt_fwd_kernel<1>, a, 1, smem, st);
-  if (rows == 2) return launch_tiles(ntm_bptt_fwd_kernel<2>, a, 2, smem, st);
-  return launch_tiles(ntm_bptt_fwd_kernel<4>, a, 4, smem, st);
+  if (nres == 5) {
+    if (rows == 1) return launch_tiles(ntm_bptt_fwd_kernel<1, true>, a, 1, smem, st);
+    if (rows == 2) return launch_tiles(ntm_bptt_fwd_kernel<2, true>, a, 2, smem, st);
+    return launch_tiles(ntm_bptt_fwd_kernel<4, true>, a, 4, smem, st);
+  }
+  if (bf16) {
+    if (rows == 1) return launch_tiles(ntm_bptt_fwd_kernel<1, false, true>, a, 1, smem, st);
+    if (rows == 2) return launch_tiles(ntm_bptt_fwd_kernel<2, false, true>, a, 2, smem, st);
+    return launch_tiles(ntm_bptt_fwd_kernel<4, false, true>, a, 4, smem, st);
+  }
+  if (rows == 1) return launch_tiles(ntm_bptt_fwd_kernel<1, false>, a, 1, smem, st);
+  if (rows == 2) return launch_tiles(ntm_bptt_fwd_kernel<2, false>, a, 2, smem, st);
+  return launch_tiles(ntm_bptt_fwd_kernel<4, false>, a, 4, smem, st);
 }
 
 // The backward: one block per `rows` (1 or 2) batch rows. The final-state

@@ -13,10 +13,12 @@ Counterpart of ntm_tracker_tpu/ops/pallas/scan_bptt.py:ntm_scan_fused_bptt.
     reduction per weight matrix (no float atomics: fixed summation
     order). The backward computes the tokens' gradient only when the
     tokens require one (the training path's cached features do not);
-  * without (torch.no_grad(), or no input that requires grad): B1, the
-    residual-free ntm_scan_fused kernel, as scan_bptt.py:866-875 does.
+  * without (torch.no_grad(), or no input that requires grad): B1,
+    ntm_scan_fused, as scan_bptt.py:866-875 does (at the train shape its
+    tile route: this module's projection and forward without residuals).
 CPU tensors run `ntm_scan_fused_bptt_reference`, autograd through the
-plain loop. Other devices raise. f32 only.
+plain loop. Other devices raise. f32 only (B1's tile route alone takes
+bf16, through `_forward_launch`).
 
 The init_* parameters reach their gradients through the state argument:
 build it with init_ntm_state under the same autograd graph.
@@ -78,7 +80,7 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ntm_bptt_smem_bytes.argtypes = [i32] * 12
     lib.ntm_bptt_smem_bytes.restype = i32
-    lib.ntm_bptt_fwd_launch.argtypes = [ptr] * 23 + [i32] * 16 + [ptr]
+    lib.ntm_bptt_fwd_launch.argtypes = [ptr] * 23 + [i32] * 17 + [ptr]
     lib.ntm_bptt_fwd_launch.restype = i32
     lib.ntm_bptt_bwd_launch.argtypes = [ptr] * 29 + [i32] * 17 + [ptr]
     lib.ntm_bptt_bwd_launch.restype = i32
@@ -198,8 +200,15 @@ def bptt_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torc
 bptt_forward.launches = 0
 
 
-def _forward_launch(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torch.Tensor, rows: int):
-    """bptt_forward's launch at `rows` rows per block, inputs checked."""
+def _forward_launch(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torch.Tensor, rows: int,
+                    residuals: bool = True, bf16: bool = False):
+    """bptt_forward's launch at `rows` rows per block, inputs checked.
+    residuals=False launches the same tile step without the residual
+    streams (B1's tile route, scan_cell.run_route; the third result is then
+    None), which alone takes bf16=True: the weights rounded to bf16 by the
+    caller, proj the rounded operands' product without b0."""
+    if bf16 and residuals:
+        raise ValueError("the forward with residuals (the training path) is float32 only")
     B, T, IN = tokens.shape
     device = tokens.device
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
@@ -212,7 +221,7 @@ def _forward_launch(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: t
     h_out = torch.empty(L, B, Hc, device=device)
     res = (torch.empty(B, T, N, D, device=device), torch.empty(B, T, H, N, device=device),
            torch.empty(B, T, R * D, device=device), torch.empty(B, T, L, Hc, device=device),
-           torch.empty(B, T, L, Hc, device=device))
+           torch.empty(B, T, L, Hc, device=device)) if residuals else None
     c0 = torch.stack([c for c, _ in state["controller_state"]])
     h0 = torch.stack([h for _, h in state["controller_state"]])
     ctrl = params["controller"]
@@ -224,8 +233,8 @@ def _forward_launch(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: t
         params["out_w"].data_ptr(), params["out_b"].data_ptr(),
         state["M"].data_ptr(), state["w"].data_ptr(), state["read"].data_ptr(), c0.data_ptr(), h0.data_ptr(),
         logits.data_ptr(), M.data_ptr(), w.data_ptr(), read.data_ptr(),
-        c_out.data_ptr(), h_out.data_ptr(), *[r.data_ptr() for r in res],
-        B, T, *_dims(cfg, IN), int(cfg.write_first), int(cfg.slotwise_cosine), rows, index, stream,
+        c_out.data_ptr(), h_out.data_ptr(), *([r.data_ptr() for r in res] if residuals else [None] * 5),
+        B, T, *_dims(cfg, IN), int(cfg.write_first), int(cfg.slotwise_cosine), int(bf16), rows, index, stream,
     )
     if err != 0:
         raise RuntimeError(f"scan_bptt forward kernel launch failed: CUDA error {err}")

@@ -294,15 +294,18 @@ def test_bptt_source_is_plain_c_with_no_float_atomics():
     for fn in ("ntm_bptt_fwd_launch", "ntm_bptt_bwd_launch", "ntm_token_proj_launch", "ntm_grad_reduce_launch",
                "ntm_bptt_smem_bytes"):
         assert f'extern "C" int {fn}' in src
-    # the train route's forward is the tiled kernel at every instantiated
-    # tile, B1's one-row loop (ntm_scan_kernel) is not on it
+    # the train route's forward is the tiled kernel with residuals at every
+    # instantiated tile, B1's tile route the same kernel without them; the
+    # old one-row loop (ntm_scan_kernel) is gone
     for rows in scan_bptt.FORWARD_ROWS:
-        assert f"launch_tiles(ntm_bptt_fwd_kernel<{rows}>" in src
+        assert f"launch_tiles(ntm_bptt_fwd_kernel<{rows}, true>" in src
+        assert f"launch_tiles(ntm_bptt_fwd_kernel<{rows}, false>" in src
     for rows in scan_bptt.BACKWARD_ROWS:
         assert f"launch_tiles(ntm_bptt_bwd_kernel<{rows}>" in src
     assert "ntm_scan_kernel" not in src and "launch_scan" not in src
-    # both recurrences run one tile step, so the recompute's gates are the forward's
-    assert "tile_step<RT, true>" in src and "tile_step<RT, false>" in src
+    # both recurrences run one tile step, so the recompute's gates are the
+    # forward's (the forward's bf16 switch is B1's tile route alone)
+    assert "tile_step<RT, true, kBf16>" in src and "tile_step<RT, false>" in src
     for text in (src, (_build.CSRC / "ntm_step.cuh").read_text()):
         assert not re.search(r"\batomic\w*\s*\(", text)  # no atomicAdd, atomicCAS, ...
     # f32 only: no tensor-core (TF32) instruction in the GEMMs

@@ -108,7 +108,7 @@ def test_kernel_source_builds_without_pytorch_headers():
     # the build route: nvcc on a plain-C source for sm_90a, loaded by ctypes
     src = (_build.CSRC / "scan_cell.cu").read_text()
     assert "torch/extension.h" not in src and "#include <torch" not in src
-    assert 'extern "C" int ntm_scan_cell_launch' in src
+    assert 'extern "C" int ntm_scan_cluster_launch' in src
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     path = _build.library_path("scan_cell")
     assert path.parent.parent == _build.BUILD_ROOT and path.name == "libscan_cell.so"
