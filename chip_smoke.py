@@ -10,7 +10,7 @@ every cell step) and the cached-token training step at full width, holds
 the lane-packed kernels against their plain version, B1 and B2 at the
 frame and train shapes, and times the kernels, their plain versions, the
 frame step, the fleet step on three cell routes, the device loop and the
-train step.
+train step; splits B3's phases with its probe variant (clock64() stamps).
 
     python3 chip_smoke.py
 
@@ -587,7 +587,7 @@ def phase_cluster_info(dev: torch.device, IN: int) -> dict:
             "smem_bytes_2layer_2write_s5": fits["2layer_2write_s5"]}
 
 
-def route_times(dev: torch.device, smi: str, IN: int, batches=(1, 8, 16, 64), T: int = 65) -> dict:
+def route_times(dev: torch.device, smi: str, IN: int, batches=(1, 8, 16, 24, 32, 40, 48, 64), T: int = 65) -> dict:
     """B1 on both routes at the flagship config, T = 65, at each B (CUDA
     events, two turns of 10 calls each, the projection included), with the
     route the rule picks: {B: {"cluster", "tile", "rule"}}."""
@@ -632,6 +632,43 @@ def addressing_inputs(ncfg, B: int, seed: int, dev: torch.device) -> list:
             add.reshape(B, W, D), M, w]
 
 
+def addressing_probe_split(dev: torch.device, smi: str) -> dict:
+    """B3's per-phase split on the card: its probe variant (clock64() by
+    thread 0 after every block barrier, and inside head 0's chain) at B = 1
+    and 64 on the flagship config, each block's cycles per span (mean and
+    max over the blocks of the last of 20 calls) converted to us by the SM
+    clock (cudaDevAttrClockRate); beside it the device time of an empty
+    kernel (torch.profiler), the floor of any one-launch B3. The probe's
+    outputs are held to the default kernel's bits."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.ops.kernels import addressing
+
+    ncfg = NTMConfig()
+    kw = dict(read_heads=ncfg.read_head_size, write_first=ncfg.write_first, slotwise=ncfg.slotwise_cosine)
+    khz = addressing.sm_clock_khz(dev)
+    split = {}
+    with torch.no_grad():
+        for B in (1, FLEET_CAP):
+            args = addressing_inputs(ncfg, B, 450 + B, dev)
+            for _ in range(20):
+                out, spans = addressing.addressing_probe(*args, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(out, addressing.fused_ntm_addressing(*args, **kw))):
+                raise AssertionError("B3's probe variant disagrees with the default kernel")
+            split[B] = {name: {"cycles": float(v.double().mean()), "max_cycles": int(v.max()),
+                               "us": float(v.double().mean()) / khz * 1e3} for name, v in spans.items()}
+            total = sum(p["cycles"] for name, p in split[B].items() if not name.startswith("chain"))
+            log("probe", f"{smi}: B3 at B={B} (flagship; SM clock {khz / 1e3:.0f} MHz, cudaDevAttrClockRate; mean "
+                         f"over {B} blocks): " + "; ".join(f"{name} {p['cycles']:.0f} cyc {p['us']:.3f} us"
+                                                           for name, p in split[B].items())
+                         + f"; entry to the end {total:.0f} cyc {total / khz * 1e3:.3f} us")
+        prof = device_profile(lambda: addressing.empty_launch(dev), reps=200)
+        empty_ms = prof["busy_ms"]
+    log("probe", f"{smi}: an empty kernel launch: "
+                 f"{'not measured' if empty_ms is None else f'{empty_ms * 1e3:.3f} us'} of device time "
+                 f"(torch.profiler, 200 launches)")
+    return {"sm_clock_khz": khz, "phases": {str(B): v for B, v in split.items()}, "empty_launch_ms": empty_ms}
+
+
 def phase_addressing(dev: torch.device, smi: str) -> dict:
     """B3 against its plain version on the card: the flagship shape at
     B = 1, 64 and 256 and four variants (M, w and read within F32_TOL, the
@@ -640,6 +677,8 @@ def phase_addressing(dev: torch.device, smi: str) -> dict:
     plain version's and the bound."""
     from ntm_tracker_tpu_torch.config import NTMConfig
     from ntm_tracker_tpu_torch.ops.kernels.addressing import (
+        _library,
+        addressing_smem_bytes,
         fused_ntm_addressing,
         fused_ntm_addressing_reference,
     )
@@ -657,6 +696,13 @@ def phase_addressing(dev: torch.device, smi: str) -> dict:
         "g_n16_d8": (NTMConfig(mem_size=16, mem_dim=8, read_head_size=2), 8),
     }
     worst, failed = 0.0, []
+    # the wrapper's count of B3's shared memory against the kernel's own
+    for ncfg, _ in cases.values():
+        dims = (ncfg.mem_size, ncfg.mem_dim, ncfg.num_heads, ncfg.read_head_size, ncfg.write_head_size,
+                ncfg.shift_space)
+        mirror, kernel = addressing_smem_bytes(*dims), _library().ntm_addressing_smem_bytes(*dims)
+        if mirror != kernel:
+            raise AssertionError(f"B3's shared memory: the wrapper counts {mirror} B, the kernel {kernel} B")
     with torch.no_grad():
         for i, (name, (ncfg, B)) in enumerate(cases.items()):
             args = addressing_inputs(ncfg, B, 400 + i, dev)
@@ -714,7 +760,8 @@ def phase_addressing(dev: torch.device, smi: str) -> dict:
                          f"the wrapper's host work included), kernel alone on the card "
                          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (torch.profiler, 50 calls), "
                          f"plain {p_ms:.4f} ms, bound {b_ms * 1e3:.4f} us by {b_by}")
-    return {"max_abs_err": worst, "grad_err": gerr, "times": times}
+    probe = addressing_probe_split(dev, smi)
+    return {"max_abs_err": worst, "grad_err": gerr, "times": times, "probe": probe}
 
 
 def fleet_regions(n: int, hw=FLEET_HW) -> list:
@@ -1283,6 +1330,53 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     }
 
 
+def initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_names, b2, b4, rows: int = 4) -> dict:
+    """Which of B2 and B4 carries their gap on the initial-state
+    gradients: both kernels' gradients (b2, b4, in grad_names order, on the
+    same params, tokens, state and cotangents) and the plain loop's in
+    float32 against the plain loop in float64, on the `rows` batch rows
+    where the kernels differ most on c0. A row's initial-state gradient
+    depends on that row alone, so the plain loops run those rows only.
+    Returns, per initial-state tensor, max |x - float64| / max |float64|
+    over those rows for each of B2, B4 and the plain float32 loop, and the
+    rows."""
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused_reference
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    L = ncfg.controller_num_layers
+    names = ["M0", "w0", "read0", *[f"c0[{l}]" for l in range(L)], *[f"h0[{l}]" for l in range(L)]]
+    at = [grad_names.index(n) for n in names]
+    c0 = grad_names.index("c0[0]")
+    gap = (b4[c0].double() - b2[c0].double()).abs().reshape(b4[c0].shape[0], -1).amax(1)
+    pick = torch.topk(gap, rows).indices.sort().values
+    t0 = time.perf_counter()
+
+    def plain(dtype):
+        with torch.enable_grad():
+            p = tree_map(lambda t: t.detach().to(dtype), params)
+            leaves = [t[pick].detach().to(dtype).requires_grad_() for t in scan_bptt.flatten_state(state)]
+            st = {"M": leaves[0], "w": leaves[1], "read": leaves[2],
+                  "controller_state": list(zip(leaves[3:3 + L], leaves[3 + L:3 + 2 * L]))}
+            logits, final = ntm_scan_fused_reference(p, ncfg, tokens[pick].to(dtype), st)
+            loss = (logits * dlogits[pick].to(dtype)).sum() + sum(
+                (a * b[pick].to(dtype)).sum() for a, b in zip(scan_bptt.flatten_state(final),
+                                                              scan_bptt.flatten_state(dfinal)))
+            return torch.autograd.grad(loss, leaves)
+
+    g64, g32 = plain(torch.float64), plain(torch.float32)
+    out = {}
+    for name, i, g, h in zip(names, at, g64, g32):
+        scale = max(float(g.abs().max()), 1e-30)
+        out[name] = {"b2": max_abs(b2[i][pick], g) / scale, "b4": max_abs(b4[i][pick], g) / scale,
+                     "plain_f32": max_abs(h, g) / scale}
+    log("packed", f"initial-state gradients at B={tokens.shape[0]} T={tokens.shape[1]} on rows {pick.tolist()} (the "
+                  f"{rows} where B4 and B2 differ most on c0; {time.perf_counter() - t0:.1f}s) against the plain loop in "
+                  f"float64, max rel B2 / B4 / the plain loop in float32: "
+                  + ", ".join(f"{k} {v['b2']:.2e} / {v['b4']:.2e} / {v['plain_f32']:.2e}" for k, v in out.items()))
+    return {"rows": pick.tolist(), "max_rel": out}
+
+
 def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
     """The lane-packed kernels (B4) against their plain version and against
     the row kernels, the counterpart of tests/hw_check_pallas.py's
@@ -1432,8 +1526,10 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
             worst["fwd_abs"] = max(worst["fwd_abs"], fwd)
             worst["grad_rel"] = max(worst["grad_rel"], gerr)
             worst["grad_abs_train"] = max(worst.get("grad_abs_train", 0.0), gabs)
-            del got, lo, fi
             train_out[(rows, brows)] = {"peak_gb": peak_gb, "fwd_abs": fwd, "grad_rel": gerr}
+            if (rows, brows) == tiles[-1]:
+                referee = initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_names, ref, got)
+            del got, lo, fi
             check_budget("packed")
         # every instantiated tile, each kernel's launches back to back
         ms = {"forward": {}, "forward_residuals": {}, "backward": {}}
@@ -1494,7 +1590,7 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
     check_budget("packed")
     return {"counts": counts, "frame": frame_out, "train": train_out, "ms": ms, "tiles": tiles, "worst": worst,
             "plain": {"forward": plain_fwd, "forward_residuals": plain_res_fwd, "backward": plain_bwd},
-            "bounds": bounds, "smem": smem, "B": B, "T": T}
+            "bounds": bounds, "smem": smem, "B": B, "T": T, "initial_state_referee": referee}
 
 
 def main() -> int:
@@ -1683,12 +1779,17 @@ def main() -> int:
     params, ncfg, toks, state = flag_args
     kernel_ms = cuda_ms(lambda: ntm_scan_fused(params, ncfg, toks, state), iters=100, warmup=5)
     plain_ms = cuda_ms(lambda: ntm_scan_fused_reference(params, ncfg, toks, state), iters=10, warmup=2)
+    layer0 = params["controller"][0]
+    proj_ms = cuda_ms(lambda: token_projection(toks, layer0["kernel"], layer0["bias"]), iters=100, warmup=5)
+    # the cluster route's time per cell step: B1 at B=1 less its projection
+    step_us = (kernel_ms - proj_ms) / toks.shape[1] * 1e3
     nbytes, nops = scan_cell_work(ncfg, 1, 65, IN)
     bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOP_PER_S) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > nops / F32_FLOP_PER_S else "operations"
     log("times", f"{smi}: scan_cell B=1 T=65 kernel {kernel_ms:.4f} ms (100 calls, the projection and the cluster "
                  f"route, L2 warm), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
-                 f"({nbytes / 1e6:.3f} MB, {nops / 1e6:.3f} MFLOP)")
+                 f"({nbytes / 1e6:.3f} MB, {nops / 1e6:.3f} MFLOP); the projection alone {proj_ms:.4f} ms, so "
+                 f"{step_us:.3f} us per cell step on the cluster route")
     by_route = route_times(dev, smi, IN)
 
     with torch.no_grad():
@@ -1739,6 +1840,7 @@ def main() -> int:
         "ms_by_route": {"T65": {str(B): v for B, v in by_route.items()},
                         f"B{train['b1']['B']}_T{train['b1']['T']}": train["b1"]["ms_by_route"]},
         "routes_in_kernel_cases": case_routes, "cluster": cluster, "tile_route_source": BPTT_SOURCE,
+        "cluster_step_us": step_us, "projection_ms_b1": proj_ms, "cluster_waves": CLUSTER_WAVES,
         "train_shape": {k: v for k, v in train["b1"].items() if k != "launches"},
     }]
     bptt = {}
@@ -1789,6 +1891,8 @@ def main() -> int:
         "plain_ms": at64["plain_ms"], "bound_ms": at64["bound_ms"], "bound_by": at64["bound_by"], "library_ms": None,
         "device_ms": at64["device_ms"],
         "times_by_batch": {str(b): t for b, t in addr["times"].items()},
+        "phases": addr["probe"]["phases"], "sm_clock_khz": addr["probe"]["sm_clock_khz"],
+        "empty_launch_ms": addr["probe"]["empty_launch_ms"],
     })
     # B4 at the train path's shape (B=256, T=1300) and the default tile;
     # no main path launches it: `launches` is phase_packed's count
@@ -1813,6 +1917,7 @@ def main() -> int:
         if name == "forward":
             entry["frame_shape"] = packed["frame"]
         if name == "backward":
+            entry["initial_state_vs_float64"] = packed["initial_state_referee"]
             entry["reduction_ms"] = {"packed_operands": packed["ms"]["reduction"], "row_kernels": train["grad_reduce"][0]}
             entry["peak_gb"] = {"rows_1": at[(1, 1)]["peak_gb"], f"rows_{rows}": at[default]["peak_gb"]}
             entry["smem_bytes"] = packed["smem"]

@@ -192,8 +192,8 @@ __device__ __forceinline__ void rows_dot_t(const float* __restrict__ W, int ld, 
   }
 }
 
-// ntm_addressing() (ntm_step.cuh) over the tile's nr rows at once, row r's
-// arrays at smem + r * row: the same operations in the same order per row;
+// The addressing over the tile's nr rows at once, row r's arrays (make_layout)
+// at smem + r * row, every intermediate kept for the backward;
 // a warp per (row, head) runs the softmax, gate, shift and sharpen of its
 // head in one phase. The forward (full) also does the read and the
 // erase/add write in the configured order; the backward's recompute skips

@@ -28,7 +28,8 @@
 //   r*U + u; their biases; a run of Pc = ceil(P / C) head-linear columns
 //   (the last runs may be shorter or empty: 7 x 22 + 16 of P = 170 at C =
 //   8); and the output linear. At the flagship config and C = 8 that is
-//   132 KB, beside the row's 39 KB of state (make_layout), 180 KB in all.
+//   132 KB, beside the row's 27 KB of state (the addressing's arrays,
+//   make_addr_layout, and the cell state), 167 KB in all.
 // - Each step, CTA r: (1) computes its units' gates from shared memory,
 //   the lanes of a warp one gate row each and the warps a run of the
 //   gathered [read | h] each (no shuffles; the partial sums are added in
@@ -41,10 +42,11 @@
 //   cluster.sync(); (4) runs the addressing, read and erase/add write
 //   (ntm_addressing() of ntm_step.cuh) on its own copy of M and w, so every
 //   CTA has the new read vector without a third exchange.
-// - What bounds it now (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W):
-//   ~16 us a step at B=1, most of it the addressing's seven
-//   barrier-separated phases, run alike on every CTA (B3 runs the same
-//   phases for one row in ~15 us), then the two cluster barriers.
+// - What bounds it now (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W;
+//   PERF.md): ~9 us a step at B=1. The addressing's phases (ntm_step.cuh,
+//   the same as B3's: ~4 us of them for one row) take a little under half
+//   of it; the gate product, the head linear and the two cluster barriers
+//   the rest.
 // - Every CTA computes the same addressing on the same bits in the same
 //   order: nothing in it depends on the rank, so the copies of M, w and
 //   read never drift apart. Each gate and head control is computed by one
@@ -93,12 +95,16 @@ struct ClusterArgs {
   int B, T, C;
 };
 
-// A CTA's share of the weights and the row's gather vectors: offsets (in
-// floats) in its shared memory after make_layout(dm, false). The matmul
-// operands come first, in one run (bf16 rounds it at load), then their
-// biases. Slice rows have an odd stride, so the transposing copies spread
-// over the banks, and so do a warp's lanes reading one gate row each.
+// A CTA's shared memory: the row's addressing state (make_addr_layout: the
+// memory transposed, w, the head controls, their scratch), its cell state
+// c, then its share of the weights and the row's gather vectors (offsets in
+// floats). The matmul operands come first, in one run (bf16 rounds it at
+// load), then their biases. Slice rows have an odd stride, so the
+// transposing copies spread over the banks, and so do a warp's lanes
+// reading one gate row each.
 struct Slice {
+  AddrLayout al;             // Mt [D][Np], w [H][Np], the head controls, their scratch
+  int c;                     // [L][Hc] the cell state
   int U, Pc;                 // hidden units and head-linear columns per CTA
   int wl[MAX_LAYERS];        // layer l's gate rows [4U][kl[l]]
   int kl[MAX_LAYERS];        // their stride: the layer's recurrent inputs K_l, made odd
@@ -115,9 +121,12 @@ struct Slice {
 __host__ __device__ inline Slice make_slice(const Dims& d, int C) {
   const int RD = d.R * d.D, Hc = d.Hc;
   Slice s;
+  s.al = make_addr_layout(d, NWARPS);
+  int o = s.al.total;
+  s.c = take(o, d.L * Hc);
   s.U = (Hc + C - 1) / C;
   s.Pc = (head_width(d) + C - 1) / C;
-  int o = (make_layout(d, false).total + 3) & ~3;
+  o = (o + 3) & ~3;
   for (int l = 0; l < MAX_LAYERS; ++l) {
     s.kl[l] = (l == 0 ? RD + Hc : 2 * Hc) | 1;
     s.wl[l] = l < d.L ? take(o, 4 * s.U * s.kl[l]) : -1;
@@ -187,8 +196,9 @@ __global__ void __launch_bounds__(NT, 1) ntm_scan_cluster_kernel(const ClusterAr
   const int T = a.T, B = a.B, C = a.C;
   const int rank = (int)cluster.block_rank(), b = blockIdx.x / C;
   const bool bf = a.fl.bf16 != 0;
-  const Layout lay = make_layout(dm, false);
   const Slice sl = make_slice(dm, C);
+  const AddrLayout& al = sl.al;
+  const int Np = al.Np;
   const int U = sl.U, u0 = rank * U, nU = max(0, min(U, Hc - u0));
   const int p0 = rank * sl.Pc, nP = max(0, min(sl.Pc, P - p0));
   const int ldh = sl.ldh;
@@ -225,16 +235,31 @@ __global__ void __launch_bounds__(NT, 1) ntm_scan_cluster_kernel(const ClusterAr
   }
   for (int o = tid; o < O; o += NT) smem[sl.ob + o] = a.wt.out_b[o];
   cp_async_commit();
-  // M and w in place; read and every layer's h in step 0's gather vector
+  // M transposed into Mt and w into rows of stride Np (their columns n >= N
+  // zero), both updated in place; read and every layer's h in step 0's
+  // gather vector
   float* x0 = smem + sl.xs[0];
-  for (int i = tid; i < ND; i += NT) smem[lay.M_in + i] = a.M0[(size_t)b * ND + i];
-  for (int i = tid; i < HN; i += NT) smem[lay.w_in + i] = a.w0[(size_t)b * HN + i];
+  for (int i = tid; i < ND; i += NT) {
+    const int n = i / D, d = i - n * D;
+    smem[al.Mt + d * Np + n] = a.M0[(size_t)b * ND + i];
+  }
+  for (int i = tid; i < H * Np; i += NT) {
+    const int hh = i / Np, n = i - hh * Np;
+    smem[al.w + i] = n < N ? a.w0[(size_t)b * HN + hh * N + n] : 0.f;
+  }
+  for (int i = tid; i < D * (Np - N); i += NT) {
+    const int d = i / (Np - N);
+    smem[al.Mt + d * Np + N + i - d * (Np - N)] = 0.f;
+  }
   for (int i = tid; i < RD; i += NT) x0[i] = a.read0[(size_t)b * RD + i];
   for (int i = tid; i < L * Hc; i += NT) {
     const int l = i / Hc, j = i - l * Hc;
     x0[RD + i] = a.h0[((size_t)l * B + b) * Hc + j];
-    smem[lay.c_in + i] = a.c0[((size_t)l * B + b) * Hc + j];
+    smem[sl.c + i] = a.c0[((size_t)l * B + b) * Hc + j];
   }
+  // the addressing's outputs: the new read into the next step's gather vector
+  AddrOut out;
+  out.w_copy = out.M_copy = nullptr;
   cp_async_wait<0>();
   __syncthreads();
   if (bf) {
@@ -278,7 +303,7 @@ __global__ void __launch_bounds__(NT, 1) ntm_scan_cluster_kernel(const ClusterAr
             g[q] = s + pj[q];
         }
         const int unit = u0 + tid;
-        float* c = smem + lay.c_in + l * Hc + unit;
+        float* c = smem + sl.c + l * Hc + unit;
         const float c_new = *c * sigmoid_f(g[2]) + sigmoid_f(g[0]) * tanhf(g[1]);
         const float h_new = tanhf(c_new) * sigmoid_f(g[3]);
         *c = c_new;
@@ -291,7 +316,7 @@ __global__ void __launch_bounds__(NT, 1) ntm_scan_cluster_kernel(const ClusterAr
     const float* ctrl = xout + RD + (L - 1) * Hc;
     for (int j = warp; j < nP; j += NWARPS) {
       const float v = mm_bias(row_dot(smem + sl.hw + j * ldh, ctrl, Hc, nullptr, 0, bf), smem[sl.hb + j], bf);
-      if (lane < C) cluster.map_shared_rank(smem + lay.ctl, lane)[p0 + j] = v;
+      if (lane < C) cluster.map_shared_rank(smem + al.ctl, lane)[p0 + j] = v;
     }
     if (rank == 0)
       // from the last warp down: the head columns keep the first ones busy
@@ -302,16 +327,22 @@ __global__ void __launch_bounds__(NT, 1) ntm_scan_cluster_kernel(const ClusterAr
     cluster.sync();
 
     // ---- (4) the addressing, read and write on this CTA's own copy -------------
-    Layout ls = lay;
-    ls.read_in = ls.read_out = sl.xs[(t & 1) ^ 1];  // the new read into step t+1's gather vector
-    ntm_addressing(dm, a.fl, smem, ls);
+    out.read = xout;
+    ntm_addressing<NT>(dm, a.fl, smem, al, out);
   }
 
   // ---- the final state: rank 0 the shared parts, every CTA its units' c ------
   const float* xf = smem + sl.xs[T & 1];
+  const float* Mf = smem + al.Mt;
   if (rank == 0) {
-    for (int i = tid; i < ND; i += NT) a.M[(size_t)b * ND + i] = smem[lay.M_in + i];
-    for (int i = tid; i < HN; i += NT) a.w[(size_t)b * HN + i] = smem[lay.w_in + i];
+    for (int i = tid; i < ND; i += NT) {
+      const int n = i / D, d = i - n * D;
+      a.M[(size_t)b * ND + i] = Mf[d * Np + n];
+    }
+    for (int i = tid; i < HN; i += NT) {
+      const int hh = i / N, n = i - hh * N;
+      a.w[(size_t)b * HN + i] = smem[al.w + hh * Np + n];
+    }
     for (int i = tid; i < RD; i += NT) a.read[(size_t)b * RD + i] = xf[i];
     for (int i = tid; i < L * Hc; i += NT) {
       const int l = i / Hc, j = i - l * Hc;
@@ -321,7 +352,7 @@ __global__ void __launch_bounds__(NT, 1) ntm_scan_cluster_kernel(const ClusterAr
   if (nU > 0)
     for (int i = tid; i < L * nU; i += NT) {
       const int l = i / nU, u = i - l * nU;
-      a.c[((size_t)l * B + b) * Hc + u0 + u] = smem[lay.c_in + l * Hc + u0 + u];
+      a.c[((size_t)l * B + b) * Hc + u0 + u] = smem[sl.c + l * Hc + u0 + u];
     }
 }
 
@@ -397,8 +428,10 @@ extern "C" int ntm_scan_cluster_launch(
     void* c, void* h, int B, int T, int IN, int N, int D, int H, int R, int W, int S, int Hc, int L,
     int O, int write_first, int slotwise, int bf16, int C, int device, void* stream) {
   // a CTA's units are finished by one thread each
+  // (and the addressing's limits: a warp holds at most ADDR_MAX_SLOTS
+  // slots, the shift wraps at most once)
   if (L < 1 || L > MAX_LAYERS || B < 1 || T < 1 || C < 1 || C > MAX_CLUSTER || (Hc + C - 1) / C > NT ||
-      proj == nullptr)
+      proj == nullptr || N < 1 || N > ADDR_MAX_SLOTS || S < 1 || S > N)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

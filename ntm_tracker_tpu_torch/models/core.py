@@ -18,7 +18,8 @@ class MemoryCore:
     """Functional bundle: params/state constructors, unroll, single step,
     in the JAX package's field order (build it by keyword)."""
 
-    # init_params(input_size, generator=None, device=None) -> params
+    # init_params(generator, input_size, device=None) -> params: JAX's
+    # (rng, input_size) order, a torch.Generator (or None) in the rng's place
     init_params: Callable[..., Any]
     # init_state(params, batch) -> state
     init_state: Callable[[Any, int], Any]
@@ -40,7 +41,7 @@ def make_core(cfg: TrackerConfig) -> MemoryCore:
         raise ValueError(f"unknown core: {cfg.core!r}")
     ncfg = cfg.ntm
 
-    def init_params(input_size, generator=None, device=None):
+    def init_params(generator, input_size, device=None):
         return ntm_cell.init_ntm_params(ncfg, input_size, generator, device)
 
     def init_state(params, batch):

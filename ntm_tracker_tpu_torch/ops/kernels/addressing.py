@@ -16,13 +16,20 @@ takes its autograd. That is the reference's design (JAX's custom VJP runs
 the jnp math, addressing.py:177-202, and it has no backward kernel), not a
 fallback. The kernel is deterministic (no atomics), so a checkpointed
 step's recompute gets the same bits.
+
+`addressing_split_reference` is the plain emulation of how the kernel's
+phases (csrc/ntm_step.cuh ntm_addressing(), which B1's cluster route
+shares) split the work: a warp per head with a run of slots per lane, the
+shift's shuffles across run boundaries, the transposed and padded memory.
+The tests hold it to JAX's kernel; nothing on the card calls it.
+`addressing_probe` runs the kernel's probe variant (chip_smoke.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,8 +42,50 @@ from ntm_tracker_tpu_torch.ops.memory import (
 
 # one block's dynamic shared memory on the card (H100: 227 KB)
 MAX_SMEM_BYTES = 232448
+# threads per block of B3's kernel (csrc/addressing.cu NT_ADDR)
+ADDR_THREADS = 512
+# the most slots the head chains hold: 32 lanes of 8 (csrc/ntm_step.cuh)
+ADDR_MAX_SLOTS = 256
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def addr_stride(N: int) -> int:
+    """The slot stride of the phases' transposed memory and weight rows
+    (csrc/ntm_step.cuh addr_stride): N rounded up to 4, plus 4 where that is
+    a multiple of 32."""
+    Np = (N + 3) // 4 * 4
+    return Np + 4 if Np % 32 == 0 else Np
+
+
+def addr_run(N: int) -> int:
+    """Slots per lane in a head chain: the fewest of 1, 2, 4, 8 that cover
+    N with 32 lanes (csrc/ntm_step.cuh addr_run)."""
+    return 1 if N <= 32 else 2 if N <= 64 else 4 if N <= 128 else 8
+
+
+def addressing_supported(N: int, S: int) -> bool:
+    """Whether the phases take this config: at most ADDR_MAX_SLOTS slots,
+    and a shift that wraps at most once (S <= N)."""
+    return 1 <= N <= ADDR_MAX_SLOTS and 1 <= S <= N
+
+
+def addressing_smem_floats(N: int, D: int, H: int, R: int, W: int, S: int, warps: int) -> int:
+    """Floats of the phases' shared arrays (csrc/ntm_step.cuh
+    make_addr_layout; chip_smoke.py holds B3's count equal): the memory
+    [D][Np], the weights [H][Np], tanh(k) [H][Dp] and the normalizer [Dp]
+    (Dp: D rounded up to 4), four scalars per head, the raw head controls,
+    the shift weights [H][S], erase and add [W][D], and each read warp's D
+    rows of 33 partial sums."""
+    Np, Dp = addr_stride(N), (D + 3) // 4 * 4
+    controls = H * D + 3 * H + S * H + 2 * W * D
+    return D * Np + H * Np + H * Dp + Dp + 4 * H + controls + H * S + 2 * W * D + min(R, warps) * D * 33
+
+
+def addressing_smem_bytes(N: int, D: int, H: int, R: int, W: int, S: int) -> int:
+    """B3's dynamic shared memory per block (csrc/addressing.cu
+    ntm_addressing_smem_bytes)."""
+    return 4 * addressing_smem_floats(N, D, H, R, W, S, ADDR_THREADS // 32)
 
 
 def fused_ntm_addressing_reference(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, *,
@@ -62,6 +111,149 @@ def fused_ntm_addressing_reference(k, beta, g, sw, gamma, erase, add, M_prev, w_
     return M, w, read
 
 
+def shift_sources(N: int, S: int, lane: int, i: int, j: int) -> Tuple[int, int]:
+    """(source lane, its element) of the slot that offset j of the circular
+    shift reads for slot lane * RL + i, by the head chain's shuffle plan
+    (csrc/ntm_step.cuh head_chain): the element index the source lane
+    offers is the same on every lane within a wrap class."""
+    RL = addr_run(N)
+    o = j - (S + 1) // 2
+    raw = lane * RL + i + o
+    cls = 1 if raw < 0 else (-1 if raw >= N else 0)
+    return ((raw + cls * N) // RL) & 31, (i + o + cls * N) % RL
+
+
+def _warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The butterfly warp_sum of csrc/ntm_step.cuh over the last dim (32
+    lanes): after five xor steps every lane holds the same total."""
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ off]
+    return x[..., 0]
+
+
+def _lane_total(parts: torch.Tensor) -> torch.Tensor:
+    """csrc/ntm_step.cuh lane_total over dim 1 (32 lanes): four runs of
+    eight in lane order, then (run 0 + run 1) + (run 2 + run 3)."""
+    q = []
+    for r in range(4):
+        acc = parts[:, 8 * r]
+        for j in range(1, 8):
+            acc = acc + parts[:, 8 * r + j]
+        q.append(acc)
+    return (q[0] + q[1]) + (q[2] + q[3])
+
+
+def addressing_split_reference(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, *, read_heads: int,
+                               write_first: bool = False, slotwise: bool = False,
+                               warps: int = ADDR_THREADS // 32) -> Outputs:
+    """The kernel's work split in plain PyTorch (csrc/ntm_step.cuh
+    ntm_addressing() with `warps` warps a block): the memory transposed
+    into rows of addr_stride(N) floats with zero columns past N; phase (a)'s
+    per-head tanh(k), |k|^-1 and shift weights and the across-slot
+    normalizer from each lane's four slots of a row and a warp sum; then
+    warp w runs heads w, w + warps, ..., each lane holding slots lane * RL
+    .. lane * RL + RL - 1 (RL = addr_run(N)): the similarity, the softmax
+    and the sharpen's sums as warp sums of the lanes' sums, the shift's
+    inputs taken, as the shuffles take them, from the source lane's element
+    (shift_sources), pow as exp2(gamma * log2(x)), a read head's read as
+    each lane's partial sums added by lane_total; then the erase/add write
+    and, write_first, the read of the new memory. Same arguments and results as
+    fused_ntm_addressing_reference."""
+    B, N, D = M_prev.shape
+    H, S, W, R = k.shape[1], sw.shape[-1], erase.shape[1], read_heads
+    if not addressing_supported(N, S):
+        raise ValueError(f"the addressing kernel takes 1 <= N <= {ADDR_MAX_SLOTS} slots and S <= N, got N={N}, S={S}")
+    Np, RL = addr_stride(N), addr_run(N)
+    lanes = torch.arange(32)
+    n0 = lanes * RL
+    slots = n0[:, None] + torch.arange(RL)           # [32, RL]
+    valid = slots < N
+    in_row = (slots < Np) & (n0 < N)[:, None]        # what a lane's run loads hold
+    Mt = M_prev.new_zeros(B, D, Np)
+    Mt[:, :, :N] = M_prev.transpose(1, 2)
+    ws = M_prev.new_zeros(B, H, Np)
+    softplus = torch.nn.functional.softplus
+    zero = M_prev.new_zeros(())
+
+    def run(row):
+        """A row [B, Np] as the lanes' runs [B, 32, RL]."""
+        return torch.where(in_row, row[:, slots.clamp(max=Np - 1)], zero)
+
+    def read(wn):
+        """sum_n w[n] M[n][d] for every d, as a read head's warp takes it:
+        each lane's sum over its run into its column, added by lane_total."""
+        return _lane_total(torch.stack([(wn * run(Mt[:, d])).sum(-1) for d in range(D)], -1))
+
+    # (a) the normalizer: each lane's four slots of a row, then a warp sum
+    quads = Mt.reshape(B, D, Np // 4, 4)
+    sq = quads[..., 3] ** 2
+    for c in (2, 1, 0):
+        sq = quads[..., c] * quads[..., c] + sq
+    per_lane = M_prev.new_zeros(B, D, 32)
+    for q in range(0, (N + 3) // 4):
+        per_lane[:, :, q % 32] = per_lane[:, :, q % 32] + sq[:, :, q]
+    minv = torch.rsqrt(torch.clamp_min(_warp_sum(per_lane), 1e-12))       # [B, D]
+    kt = torch.tanh(k)                                                     # [B, H, D]
+    kss = M_prev.new_zeros(B, H, 32)
+    for d in range(D):
+        kss[:, :, d % 32] = kss[:, :, d % 32] + kt[:, :, d] * kt[:, :, d]
+    kinv = torch.rsqrt(torch.clamp_min(_warp_sum(kss), 1e-12))             # [B, H]
+    smx = sw.amax(-1, keepdim=True)
+    swv = torch.exp(sw - smx) * (1 / torch.exp(sw - smx).sum(-1, keepdim=True))
+
+    reads = M_prev.new_zeros(B, R, D)
+    shift0, exact = -((S + 1) // 2), N % RL == 0
+    for warp in range(min(warps, H)):
+        for h in range(warp, H, warps):
+            bt, gt = softplus(beta[:, h])[:, None, None], torch.sigmoid(g[:, h])[:, None, None]
+            gm = (softplus(gamma[:, h]) + 1.0)[:, None, None]
+            wp = torch.where(valid, w_prev[:, h][:, slots.clamp(max=N - 1)], zero)
+            kd = kt[:, h] if slotwise else kt[:, h] * minv
+            sim, nrm = torch.zeros_like(wp), torch.zeros_like(wp)
+            for d in range(D):
+                m = run(Mt[:, d])
+                sim = sim + kd[:, d, None, None] * m
+                nrm = nrm + m * m
+            scale = torch.rsqrt(torch.clamp_min(nrm, 1e-12)) * kinv[:, h, None, None] if slotwise else \
+                kinv[:, h, None, None]
+            x = sim * scale * bt
+            mx = torch.where(valid, x, zero - torch.inf).amax((1, 2), keepdim=True)
+            ex = torch.where(valid, torch.exp(x - mx), zero)
+            tinv = 1 / _warp_sum(ex.sum(-1))[:, None, None]
+            wg = torch.where(valid, ex * tinv * gt + wp * (1 - gt), zero)
+            conv = torch.zeros_like(wg)
+            for j in range(S):
+                swj = swv[:, h, j, None]
+                o = shift0 + j
+                for i in range(RL):
+                    raw = n0 + i + o
+                    cls = torch.where(raw < 0, 1, torch.where(raw >= N, -1, 0))
+                    src = torch.div(raw + cls * N, RL, rounding_mode="floor") & 31
+                    v = wg[:, :, (i + o) % RL][:, src]
+                    if not exact:
+                        vp, vm = wg[:, :, (i + o + N) % RL][:, src], wg[:, :, (i + o - N) % RL][:, src]
+                        v = torch.where(cls > 0, vp, torch.where(cls < 0, vm, v))
+                    conv[:, :, i] = conv[:, :, i] + swj * v
+            pw = torch.where(valid, torch.exp2(gm * torch.log2(conv)), zero)
+            wn = pw * (1 / (_warp_sum(pw.sum(-1)) + 1e-3))[:, None, None]
+            ws[:, h, :N] = wn.reshape(B, 32 * RL)[:, :N]
+            if not write_first and h < R:
+                reads[:, h] = read(wn)
+    er, ad = torch.sigmoid(erase), torch.tanh(add)
+    ww = ws[:, R:, :N, None]                                     # [B, W, N, 1]
+    ek, ak = torch.ones_like(M_prev), torch.zeros_like(M_prev)
+    for wh in range(W):
+        ek = ek * (1 - ww[:, wh] * er[:, wh, None, :])
+        ak = ak + ww[:, wh] * ad[:, wh, None, :]
+    M = M_prev * ek + ak
+    if write_first:
+        Mt[:, :, :N] = M.transpose(1, 2)
+        for h in range(R):
+            reads[:, h] = read(run(ws[:, h]))
+    return M, ws[:, :, :N].clone(), reads
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from ntm_tracker_tpu_torch._build import load_library
@@ -72,6 +264,13 @@ def _library() -> ctypes.CDLL:
     lib.ntm_addressing_launch.restype = i32
     lib.ntm_addressing_smem_bytes.argtypes = [i32] * 6
     lib.ntm_addressing_smem_bytes.restype = i32
+    lib.ntm_addressing_probe_launch.argtypes = [ptr] * 12 + [i32] * 9 + [i32] * 9 + [i32, ptr, ptr]
+    lib.ntm_addressing_probe_launch.restype = i32
+    lib.ntm_addressing_probe_slots.restype = i32
+    lib.ntm_sm_clock_khz.argtypes = [i32]
+    lib.ntm_sm_clock_khz.restype = i32
+    lib.ntm_empty_launch.argtypes = [i32, ptr]
+    lib.ntm_empty_launch.restype = i32
     return lib
 
 
@@ -96,8 +295,9 @@ def _rows(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> Tup
 
 
 def _launch(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, R: int, write_first: bool,
-            slotwise: bool) -> Outputs:
-    """Check the inputs and launch csrc/addressing.cu (counted)."""
+            slotwise: bool, stamps: Optional[torch.Tensor] = None) -> Outputs:
+    """Check the inputs and launch csrc/addressing.cu (counted), or with
+    `stamps` its probe variant (not counted)."""
     device = M_prev.device
     B, N, D = M_prev.shape
     H, S, W = k.shape[1], sw.shape[-1], erase.shape[1]
@@ -107,6 +307,8 @@ def _launch(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, R: int, write_fir
               "erase": (B, W, D), "add": (B, W, D), "M_prev": (B, N, D), "w_prev": (B, H, N)}
     args = dict(zip(shapes, (k, beta, g, sw, gamma, erase, add, M_prev, w_prev)))
     rows = {name: _rows(name, args[name], shape, device) for name, shape in shapes.items()}
+    if not addressing_supported(N, S):
+        raise ValueError(f"the addressing kernel takes 1 <= N <= {ADDR_MAX_SLOTS} slots and S <= N, got N={N}, S={S}")
     lib = _library()
     smem = lib.ntm_addressing_smem_bytes(N, D, H, R, W, S)
     if smem > MAX_SMEM_BYTES:
@@ -114,14 +316,17 @@ def _launch(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, R: int, write_fir
     M = torch.empty(B, N, D, device=device)
     w = torch.empty(B, H, N, device=device)
     read = torch.empty(B, R, D, device=device)
-    err = lib.ntm_addressing_launch(
-        *[t.data_ptr() for t, _ in rows.values()], M.data_ptr(), w.data_ptr(), read.data_ptr(),
-        *[s for _, s in rows.values()], B, N, D, H, R, W, S, int(write_first), int(slotwise),
-        device.index, torch.cuda.current_stream(device).cuda_stream,
-    )
+    args = (*[t.data_ptr() for t, _ in rows.values()], M.data_ptr(), w.data_ptr(), read.data_ptr(),
+            *[s for _, s in rows.values()], B, N, D, H, R, W, S, int(write_first), int(slotwise),
+            device.index, torch.cuda.current_stream(device).cuda_stream)
+    if stamps is None:
+        err = lib.ntm_addressing_launch(*args)
+    else:
+        err = lib.ntm_addressing_probe_launch(*args, stamps.data_ptr())
     if err != 0:
         raise RuntimeError(f"addressing kernel launch failed: CUDA error {err}")
-    fused_ntm_addressing.launches += 1
+    if stamps is None:
+        fused_ntm_addressing.launches += 1
     return M, w, read
 
 
@@ -174,3 +379,44 @@ def fused_ntm_addressing(k: torch.Tensor, beta: torch.Tensor, g: torch.Tensor, s
 
 
 fused_ntm_addressing.launches = 0
+
+
+# ---- the per-phase probe (chip_smoke.py) -------------------------------------
+
+# the probe's spans (csrc/addressing.cu PROBE_SLOTS): name -> (from stamp,
+# to stamp). Stamps 0-5 are thread 0's at entry and after each block
+# barrier (the load, phases (a), (b), the write, the end); stamps 6-10 are
+# thread 0's inside head 0's chain in phase (b), and its last span is the
+# wait at phase (b)'s barrier.
+PROBE_SPANS = {
+    "load": (0, 1), "(a) heads' preparation, normalizer": (1, 2), "(b) head chains": (2, 3), "(c) write": (3, 4),
+    "(c) read after the write, memory out": (4, 5),
+    "chain: similarity": (2, 6), "chain: softmax, gate": (6, 7), "chain: shift": (7, 8),
+    "chain: sharpen, store w": (8, 9), "chain: read": (9, 10), "chain: wait at the barrier": (10, 3),
+}
+
+
+def addressing_probe(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, *, read_heads: int,
+                     write_first: bool = False, slotwise: bool = False) -> Tuple[Outputs, Dict[str, torch.Tensor]]:
+    """B3's probe variant on CUDA tensors: the same outputs, and each
+    block's clock64() cycles per span ({name: int64 [B]}, PROBE_SPANS).
+    Not counted in `fused_ntm_addressing.launches`."""
+    B, device = M_prev.shape[0], M_prev.device
+    stamps = torch.zeros(B, _library().ntm_addressing_probe_slots(), dtype=torch.int64, device=device)
+    out = _launch(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, read_heads, write_first, slotwise, stamps)
+    torch.cuda.synchronize(device)
+    stamps = stamps.cpu()
+    return out, {name: stamps[:, b] - stamps[:, a] for name, (a, b) in PROBE_SPANS.items()}
+
+
+def sm_clock_khz(device: torch.device) -> int:
+    """The SM clock the probe's cycles convert by (cudaDevAttrClockRate)."""
+    return _library().ntm_sm_clock_khz(device.index or 0)
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel on the current stream: the floor of any
+    one-launch B3."""
+    err = _library().ntm_empty_launch(device.index or 0, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")

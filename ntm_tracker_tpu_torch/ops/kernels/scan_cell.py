@@ -32,7 +32,11 @@ import torch
 
 from ntm_tracker_tpu_torch.config import NTMConfig
 from ntm_tracker_tpu_torch.models.ntm_cell import HEAD_PARAM_ORDER, cell_loop, head_param_sizes
-from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing_reference
+from ntm_tracker_tpu_torch.ops.kernels.addressing import (
+    addressing_smem_floats,
+    addressing_supported,
+    fused_ntm_addressing_reference,
+)
 
 # the kernels' limits: layer pointers travel in fixed arrays, and one
 # block's dynamic shared memory is capped by the card (H100: 227 KB)
@@ -44,7 +48,7 @@ NT_THREADS = 512
 CLUSTER_SIZE = 8
 # the cluster route runs while its B clusters fit the card in this many
 # waves (scan_route: the crossover measured on the H100)
-CLUSTER_WAVES = 2
+CLUSTER_WAVES = 3
 
 
 def ntm_scan_fused_reference(
@@ -180,29 +184,27 @@ def _recurrent_rows(cfg: NTMConfig) -> List[int]:
     return [R * D + Hc] + [2 * Hc] * (cfg.controller_num_layers - 1)
 
 
-def _row_state_floats(cfg: NTMConfig, IN: int) -> int:
-    """The floats of one batch row's state and step intermediates in shared
-    memory (csrc/ntm_step.cuh make_layout(dm, false))."""
-    N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
-    R, W, S = cfg.read_head_size, cfg.write_head_size, cfg.shift_space
-    Hc, L = cfg.controller_hidden_size, cfg.controller_num_layers
-    P = sum(head_param_sizes(cfg).values())
-    state = N * D + H * N + R * D + 2 * L * Hc
-    kin_max = max(IN + R * D + Hc, 2 * Hc)
-    addressing = 2 * max(N, D) + H * D + 6 * H + H * S + 6 * H * N + 2 * W * D
-    return state + kin_max + L * 4 * Hc + P + addressing
+def _row_state_floats(cfg: NTMConfig) -> int:
+    """The floats of one batch row's state in a CTA's shared memory
+    (csrc/scan_cell.cu make_slice, before the weights): the addressing's
+    arrays (make_addr_layout: the memory transposed, the weights, the head
+    controls, their scratch) and the cell state."""
+    addressing = addressing_smem_floats(cfg.mem_size, cfg.mem_dim, cfg.num_heads, cfg.read_head_size,
+                                        cfg.write_head_size, cfg.shift_space, NT_THREADS // 32)
+    return addressing + cfg.controller_num_layers * cfg.controller_hidden_size
 
 
 def cluster_smem_bytes(cfg: NTMConfig, IN: int, C: int = CLUSTER_SIZE) -> int:
     """One CTA's dynamic shared memory at cluster size C
     (csrc/scan_cell.cu make_slice; chip_smoke.py holds the two equal): the
     row's state, its slices of the weights with rows of odd stride, their
-    biases, two gather vectors and the warps' partial gate sums."""
+    biases, two gather vectors and the warps' partial gate sums. IN does
+    not enter it (the token rows live in the projection)."""
     R, D, Hc, L, O = (cfg.read_head_size, cfg.mem_dim, cfg.controller_hidden_size,
                       cfg.controller_num_layers, cfg.output_dim)
     P = sum(head_param_sizes(cfg).values())
     U, Pc = math.ceil(Hc / C), math.ceil(P / C)
-    floats = (math.ceil(_row_state_floats(cfg, IN) / 4) * 4
+    floats = (math.ceil(_row_state_floats(cfg) / 4) * 4
               + sum(4 * U * (k | 1) for k in _recurrent_rows(cfg))
               + (Pc + O) * (Hc | 1) + L * 4 * U + Pc + O
               + 2 * (R * D + L * Hc) + (NT_THREADS // 32) * 4 * U)
@@ -218,18 +220,23 @@ def scan_route(B: int, sms: int, cluster_smem: int, max_clusters: Optional[int] 
     cudaOccupancyMaxActiveClusters (15 clusters of 8 on an H100 SXM), or
     sms // C clusters where that is not known. Else "tile" (B2's forward
     tile step without residuals, csrc/scan_bptt.cu). The crossover,
-    measured by chip_smoke.py (NVIDIA H100 80GB HBM3 at 700 W, flagship
-    config, T = 65, the projection included; cluster / tile): 1.09-1.10 /
-    2.18 ms at B = 1 and 1.09 / 2.19-2.20 at B = 8 (one wave), 2.05-2.08 /
-    2.21-2.22 at B = 16 (two waves), 5.05-5.06 / 2.29 at B = 64 (five
-    waves): a wave takes ~1.04 ms, the tile route ~2.2 (PERF.md)."""
+    measured by chip_smoke.py's route times (NVIDIA H100 80GB HBM3 at 700 W,
+    flagship config, T = 65, the projection included; cluster / tile, ms):
+    0.63 / 2.14 at B = 1, 1.16-1.19 / 2.19-2.20 at B = 16 and 24 (two
+    waves), 1.70-1.77 / 2.23-2.27 at B = 32 and 40 (three), 2.27 / 2.28 at
+    B = 48 (four: a tie), 2.82 / 2.28 at B = 64 (five): a wave takes ~0.55
+    ms, the tile route ~2.2 (PERF.md)."""
     clusters = max_clusters if max_clusters is not None else sms // C
     return "cluster" if cluster_smem <= max_smem and B <= CLUSTER_WAVES * clusters else "tile"
 
 
 def route_for(cfg: NTMConfig, B: int, IN: int, device: torch.device) -> str:
     """scan_route for this config on `device`: its SM count, and where the
-    slices fit, the clusters it holds at once (raises where it holds none)."""
+    slices fit, the clusters it holds at once (raises where it holds none).
+    A config the cluster kernel's addressing does not take
+    (addressing_supported) takes the tile route."""
+    if not addressing_supported(cfg.mem_size, cfg.shift_space):
+        return "tile"
     sms = _bptt().sm_count(device)
     smem = cluster_smem_bytes(cfg, IN)
     clusters = max_active_clusters(cfg, IN, device) if smem <= MAX_SMEM_BYTES else None
@@ -512,6 +519,8 @@ def _cluster_launch(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: t
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
     R, Hc, L, O = cfg.read_head_size, cfg.controller_hidden_size, cfg.controller_num_layers, cfg.output_dim
     _check("proj", proj, (B * T, 4 * Hc), device)
+    if not addressing_supported(N, cfg.shift_space):
+        raise ValueError(f"the cluster route's addressing does not take N={N}, S={cfg.shift_space}")
     smem = cluster_smem_bytes(cfg, IN)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"a cluster of {CLUSTER_SIZE} needs {smem} B of shared memory per CTA at this config, "

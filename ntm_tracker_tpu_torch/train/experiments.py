@@ -62,7 +62,7 @@ class OffsetExperiment:
     # ---- parameter/optimizer construction -------------------------------
     def init(self, generator: torch.Generator | None = None):
         """(params, opt_state) on the experiment's device."""
-        params = self.core.init_params(self.cfg.input_depth, generator, self.device)
+        params = self.core.init_params(generator, self.cfg.input_depth, self.device)
         return params, self.optimizer().init(params)
 
     def optimizer(self) -> TFRMSProp:

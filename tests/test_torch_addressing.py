@@ -183,7 +183,7 @@ def test_flagged_unroll_and_plain_frame_step_reach_b3(monkeypatch):
     gen = torch.Generator().manual_seed(0)
     from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
 
-    vgg, params = init_vgg_params(gen), core.init_params(cfg.input_depth, gen)
+    vgg, params = init_vgg_params(gen), core.init_params(gen, cfg.input_depth)
     first, _ = build_frame_step(cfg, core, vgg, params, device="cpu")
     crops = torch.tensor(np.random.RandomState(4).uniform(-100, 100, (2, 224, 224, 3)).astype(np.float32))
     first(crops, None, core.init_state(params, 2))

@@ -170,16 +170,16 @@ def test_uneven_slices(name, C, units, cols):
 
 
 @pytest.mark.parametrize("B_, sms, smem, clusters, route", [
-    (1, 132, 179744, 15, "cluster"),      # the frame step at the flagship config on an H100 SXM
-    (15, 132, 179744, 15, "cluster"),     # one wave of 15 clusters of 8
-    (16, 132, 179744, 15, "cluster"),     # two waves still beat the tile route (PERF.md)
-    (30, 132, 179744, 15, "cluster"),
-    (31, 132, 179744, 15, "tile"),        # three waves
-    (64, 132, 179744, 15, "tile"),
-    (256, 132, 179744, 15, "tile"),       # the eval step
-    (1, 132, 358424, None, "tile"),       # two layers, two write heads: the slices do not fit
-    (32, 132, 179744, None, "cluster"),   # off the card: 132 // 8 = 16 clusters a wave
-    (33, 132, 179744, None, "tile"),
+    (1, 132, 166864, 15, "cluster"),      # the frame step at the flagship config on an H100 SXM
+    (15, 132, 166864, 15, "cluster"),     # one wave of 15 clusters of 8
+    (16, 132, 166864, 15, "cluster"),     # two waves
+    (45, 132, 166864, 15, "cluster"),     # three waves still beat the tile route (PERF.md)
+    (46, 132, 166864, 15, "tile"),        # four waves
+    (64, 132, 166864, 15, "tile"),
+    (256, 132, 166864, 15, "tile"),       # the eval step
+    (1, 132, 338488, None, "tile"),       # two layers, two write heads: the slices do not fit
+    (48, 132, 166864, None, "cluster"),   # off the card: 132 // 8 = 16 clusters a wave
+    (49, 132, 166864, None, "tile"),
     (1, 132, MAX_SMEM_BYTES, 15, "cluster"),
     (1, 132, MAX_SMEM_BYTES + 4, 15, "tile"),
 ])
@@ -192,9 +192,9 @@ def test_cluster_shared_memory():
     # equal): the flagship fits a cluster of 8, the two-layer, two-write
     # config does not and takes the tile route
     assert CLUSTER_SIZE == 8
-    assert cluster_smem_bytes(NTMConfig(), 514) == 179744 <= MAX_SMEM_BYTES
+    assert cluster_smem_bytes(NTMConfig(), 514) == 166864 <= MAX_SMEM_BYTES
     two = NTMConfig(controller_num_layers=2, write_first=True, shift_range=2, write_head_size=2)
-    assert cluster_smem_bytes(two, 514) == 358424 > MAX_SMEM_BYTES
+    assert cluster_smem_bytes(two, 514) == 338488 > MAX_SMEM_BYTES
     # the weights' share shrinks with the cluster
     assert cluster_smem_bytes(NTMConfig(), 514, 4) > cluster_smem_bytes(NTMConfig(), 514, 8)
 

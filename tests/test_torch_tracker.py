@@ -130,7 +130,7 @@ def test_fused_route_on_cpu_equals_plain_loop(B):
     gen = torch.Generator().manual_seed(0)
     from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
 
-    vgg, params = init_vgg_params(gen), core.init_params(tcfg.input_depth, gen)
+    vgg, params = init_vgg_params(gen), core.init_params(gen, tcfg.input_depth)
     crops = torch.tensor(np.random.RandomState(2).uniform(-100, 100, (B, 32, 32, 3)).astype(np.float32))
     gt = torch.full((B, tcfg.num_features), 0.25)
     outs = []
