@@ -29,7 +29,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
-import math
 import subprocess
 import sys
 import time
@@ -188,16 +187,18 @@ def scan_cell_work(cfg, B: int, T: int, IN: int) -> tuple[float, float]:
     return 4.0 * floats, float(B * T * per_step)
 
 
-def scan_bptt_work(cfg, B: int, T: int, IN: int, need_dtokens: bool = False, hoisted: bool = True) -> dict:
+def scan_bptt_work(cfg, B: int, T: int, IN: int, need_dtokens: bool = False, hoisted: bool = True,
+                   residuals: bool = True) -> dict:
     """(bytes, operations) per B2 kernel, as scan_cell_work counts them:
     every input read once, every output written once (float32), matmul
     FLOPs at 2 per multiply-add plus the element operations. hoisted counts
-    the kernels as the train route runs them: the token projection once
-    per step, the forward and the backward's recompute each reading it (no
-    token rows of W0 in their products, no tokens read by the forward),
-    and without dtokens no token rows in the backward's transposed product
-    and no dtokens write. hoisted=False counts kernels that do their own
-    token product (the packed kernels, B4)."""
+    the kernels as the train route and B4 run them: the token projection
+    once per step, the forward and the backward's recompute each reading
+    it (no token rows of W0 in their products, no tokens read by the
+    forward), and without dtokens no token rows in the backward's
+    transposed product and no dtokens write. hoisted=False counts kernels
+    that do their own token product. residuals=False counts a forward that
+    writes no residual streams."""
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
     R, W, S = cfg.read_head_size, cfg.write_head_size, cfg.shift_space
     Hc, L, O = cfg.controller_hidden_size, cfg.controller_num_layers, cfg.output_dim
@@ -212,7 +213,7 @@ def scan_bptt_work(cfg, B: int, T: int, IN: int, need_dtokens: bool = False, hoi
     fwd_ops = B * T * fwd_step
     fwd_weights = weights - (IN * G4 if hoisted else 0)
     fwd_floats = (fwd_weights + B * T * (G4 if hoisted else IN) + 2 * B * state + B * T * O
-                  + B * T * state)                          # the residual streams
+                  + (B * T * state if residuals else 0))    # the residual streams
     t_rows = [k_rows[0] - (0 if need_dtokens else IN)] + k_rows[1:]
     per_step_bwd = (
         sum(2 * k * G4 for k in t_rows) + 2 * Hc * (P + O)  # transposed products
@@ -438,6 +439,21 @@ def bptt_cases() -> dict:
         "c_2layer_2write_s5_writefirst": (NTMConfig(controller_num_layers=2, write_head_size=2, shift_range=2,
                                                     write_first=True), 3, 65),
         "d_slotwise": (NTMConfig(slotwise_cosine=True), 3, 65),
+    }
+
+
+def packed_wide_cases() -> dict:
+    """B4's cases past its runs of slots, {name: (cfg, B, T)}: more than
+    ADDR_MAX_SLOTS slots (the lane-per-slot phases; the forward's chains'
+    scratch), also slotwise, write-first with two write heads at S = 5;
+    and a shift wider than memory (its offsets taken mod N)."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+
+    return {
+        "f_n320": (NTMConfig(mem_size=320), 3, 65),
+        "g_n300_2write_s5_writefirst_slotwise": (NTMConfig(mem_size=300, write_head_size=2, shift_range=2,
+                                                           write_first=True, slotwise_cosine=True), 3, 33),
+        "h_n3_s5": (NTMConfig(mem_size=3, shift_range=2), 3, 65),
     }
 
 
@@ -1377,49 +1393,160 @@ def initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_nam
     return {"rows": pick.tolist(), "max_rel": out}
 
 
+def packed_tiles(ncfg, IN: int, backward: bool) -> list:
+    """The tiles (rows per block) B4's forward or backward is instantiated
+    at that fit this config's shared memory."""
+    from ntm_tracker_tpu_torch.ops.kernels import scan_packed
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import MAX_SMEM_BYTES
+
+    sizes = scan_packed.BACKWARD_ROWS if backward else scan_packed.FORWARD_ROWS
+    return [r for r in sizes if scan_packed.packed_smem_bytes(ncfg, IN, backward, r) <= MAX_SMEM_BYTES]
+
+
+def packed_smem_check(IN: int) -> dict:
+    """B4's shared memory: scan_packed.packed_smem_bytes (the Python mirror
+    the tile rule reads) against the kernel's own ntm_packed_smem_bytes at
+    every instantiated tile, on the flagship and the check cases' configs;
+    raises where they differ. Returns the flagship's bytes by tile."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.ops.kernels import scan_packed
+
+    cfgs = {"flagship": NTMConfig(), **{name: c for name, (c, _, _) in bptt_cases().items()},
+            **{name: c for name, (c, _, _) in packed_wide_cases().items()},
+            "n33_s5": NTMConfig(mem_size=33, mem_dim=8, shift_range=2, write_first=True),
+            "n196_slotwise": NTMConfig(mem_size=196, mem_dim=12, slotwise_cosine=True)}
+    flagship, checked = {}, 0
+    for name, c in cfgs.items():
+        for bwd, sizes in ((False, scan_packed.FORWARD_ROWS), (True, scan_packed.BACKWARD_ROWS)):
+            for rows in sizes:
+                mirror, kernel = scan_packed.packed_smem_bytes(c, IN, bwd, rows), scan_packed.smem_bytes(c, IN, bwd, rows)
+                if mirror != kernel:
+                    raise AssertionError(f"packed shared memory {name} backward={bwd} rows {rows}: the mirror says "
+                                         f"{mirror} B, the kernel {kernel} B")
+                checked += 1
+                if name == "flagship":
+                    flagship[f"{'backward' if bwd else 'forward'}_rows_{rows}"] = kernel
+    log("packed", f"shared memory per block, the mirror equal to the kernel's at {checked} (config, kernel, tile) "
+                  f"points; flagship (bytes): {flagship}")
+    return flagship
+
+
+def packed_tile_sweep(dev: torch.device, smi: str, IN: int = 514, batches=(64, 132, 256, 512), T: int = 1300) -> dict:
+    """B4's forward (on the projection, without residuals), forward with
+    residuals and backward (without dtokens) at every instantiated tile and
+    each batch, T=1300, flagship config, CUDA events; and the tile each
+    batch gets from scan_packed.tile_rows on this card. The sweep that
+    fixes the rule (PERF.md); chip_smoke's main run times B=256 alone.
+    Alone: python3 -c "import chip_smoke as c, torch;
+    c.packed_tile_sweep(torch.device('cuda'), 'card')" """
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt, scan_packed
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    ncfg = NTMConfig()
+    out = {}
+    for B in batches:
+        params, tokens, _ = scan_case(ncfg, B, T, 350 + B, dev, IN)
+        gen = torch.Generator(device=dev).manual_seed(B)
+        with torch.no_grad():
+            state = init_ntm_state(params, ncfg, B)
+            layer0 = params["controller"][0]
+            proj = scan_bptt.token_projection(tokens, layer0["kernel"], layer0["bias"])
+            ms = {"forward": {}, "forward_residuals": {}, "backward": {}}
+            for rows in packed_tiles(ncfg, IN, False):
+                ms["forward"][rows] = cuda_ms(lambda: scan_packed.packed_forward(params, ncfg, tokens, state, proj, rows),
+                                              iters=2, warmup=1)
+                ms["forward_residuals"][rows] = cuda_ms(lambda: scan_packed.packed_forward_residuals(
+                    params, ncfg, tokens, state, proj, rows), iters=2, warmup=1)
+            logits, final, res = scan_packed.packed_forward_residuals(params, ncfg, tokens, state, proj)
+            dlogits = torch.randn(logits.shape, generator=gen, device=dev) * 1e-2
+            dfinal = tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev) * 1e-2, final)
+            for rows in packed_tiles(ncfg, IN, True):
+                ms["backward"][rows] = cuda_ms(lambda: scan_packed.packed_backward(
+                    params, ncfg, tokens, proj, res, dlogits, dfinal, False, rows), iters=2, warmup=1)
+            del res, proj, logits, final
+        rule = {"forward": scan_packed.tile_for(ncfg, IN, B, dev, None, False),
+                "backward": scan_packed.tile_for(ncfg, IN, B, dev, None, True)}
+        out[B] = {"ms": ms, "rule": rule}
+        log("sweep", f"{smi}: B4 at B={B} T={T} by rows per block (CUDA events, 2 launches): "
+                     + "; ".join(f"{k} " + ", ".join(f"{r}: {v:.3f} ms" for r, v in ms[k].items()) for k in ms)
+                     + f"; the rule's tiles {rule}")
+    return out
+
+
+def packed_probe_split(dev, smi, params, ncfg, tokens, state, proj, res, dlogits, dfinal, ms) -> dict:
+    """Where B4's step goes: the probe variants (scan_packed.packed_probe,
+    block 0's clock64() between barriers) of the forward and the backward
+    at PROBE_ROWS rows per block, as us per step at the SM's rated clock and
+    as shares of the phase's cycles, beside the kernels' own times per
+    step (ms, CUDA events at the same tile)."""
+    from ntm_tracker_tpu_torch.ops.kernels import scan_packed
+    from ntm_tracker_tpu_torch.ops.kernels.addressing import sm_clock_khz
+
+    T = tokens.shape[1]
+    khz = sm_clock_khz(dev)
+    fwd, bwd = scan_packed.packed_probe(params, ncfg, tokens, state, proj, res, dlogits, dfinal)
+    out = {}
+    for name, cyc, kernel_ms in (("forward", fwd, ms["forward"][scan_packed.PROBE_ROWS]),
+                                 ("backward", bwd, ms["backward"][scan_packed.PROBE_ROWS])):
+        total = sum(cyc.values())
+        us = {k: v / T / khz * 1e3 for k, v in cyc.items()}
+        out[name] = {"us_per_step": us, "share": {k: v / total for k, v in cyc.items()},
+                     "kernel_us_per_step": kernel_ms / T * 1e3, "sm_clock_khz": khz}
+        log("probe", f"{smi}: B4 {name} at {scan_packed.PROBE_ROWS} rows, B={tokens.shape[0]} T={T}: us per step at "
+                     f"{khz / 1e3:.0f} MHz " + ", ".join(f"{k} {v:.2f}" for k, v in us.items())
+                     + f"; sum {sum(us.values()):.2f} against the kernel's {kernel_ms / T * 1e3:.2f} (CUDA events)")
+    return out
+
+
 def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
     """The lane-packed kernels (B4) against their plain version and against
     the row kernels, the counterpart of tests/hw_check_pallas.py's
-    check_packed: (a) phase_bptt's five cases, forward and every gradient,
-    at rows_per_block 1 and the default; (b) the frame path's shape B=1,
-    T=65 against B1; (c) the train path's shape B=256, T=1300 on
+    check_packed: (a) phase_bptt's five cases and packed_wide_cases' three,
+    forward and every gradient, at one row per block, the rule's tiles and
+    the largest tiles that fit, the flagship cases also without token
+    gradients; (b) the frame path's
+    shape B=1, T=65 against B1; (c) the train path's shape B=256, T=1300 on
     phase_train's params and tokens against B2's kernels, the same bits on
-    a rerun, and the times at both tiles beside B2's, the plain version's
-    and the bounds. No main path launches B4: the launches are this
-    phase's own."""
+    a rerun, the backward without dtokens the same bits as with them but
+    for dtokens, both kernels' initial-state gradients against float64,
+    and the times at every tile beside B2's, the plain version's and the
+    bounds; (d) the shared-memory mirror against the kernel; the token
+    projection's launches on B4's path. No main path launches B4 (checked:
+    its counts are 0 on entry); the launches are this phase's own."""
     from ntm_tracker_tpu_torch.config import NTMConfig
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
     from ntm_tracker_tpu_torch.ops.kernels import scan_bptt, scan_packed
     from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
     from ntm_tracker_tpu_torch.train.optim import tree_map
 
-    fwd_rows, bwd_rows = max(scan_packed.FORWARD_ROWS), max(scan_packed.BACKWARD_ROWS)
-    tiles = ((1, 1), (fwd_rows, bwd_rows))
     kernels = (scan_packed.packed_forward, scan_packed.packed_forward_residuals, scan_packed.packed_backward)
-    for k in kernels:
-        k.launches = 0
-    smem = {f"{'backward' if bwd else 'forward'}_rows_{rows}": scan_packed.smem_bytes(NTMConfig(), IN, bwd, rows)
-            for bwd, sizes in ((False, scan_packed.FORWARD_ROWS), (True, scan_packed.BACKWARD_ROWS)) for rows in sizes}
-    log("packed", f"shared memory per block at the flagship config (bytes): {smem}")
+    entry = {k.__name__: k.launches for k in kernels}
+    if any(entry.values()):
+        raise AssertionError(f"a main path launched B4: {entry}")
+    smem = packed_smem_check(IN)
     worst = {"fwd_abs": 0.0, "grad_rel": 0.0}
 
     # ---- (a) the kernels against the plain version ---------------------------------
-    def compare(name, ncfg, B, T, params, tokens, cot, state_fn):
+    def compare(name, ncfg, B, T, params, tokens, cot, state_fn, tiles):
         pl, pf, pg = grads_of(scan_packed.ntm_scan_packed_reference, params, ncfg, tokens, cot, state_fn)
         out = []
-        for rows, brows in ((1, 1), (None, None)):  # the control, then the default tiles
+        for rows, brows, token_grads in tiles:
             scan = functools.partial(scan_packed.ntm_scan_packed_bptt, rows_per_block=rows,
                                      backward_rows_per_block=brows)
-            kl, kf, kg = grads_of(scan, params, ncfg, tokens, cot, state_fn)
+            kl, kf, kg = grads_of(scan, params, ncfg, tokens, cot, state_fn, token_grads)
             with torch.no_grad():
                 nl, nf = scan_packed.ntm_scan_packed(params, ncfg, tokens, state_fn(params), rows_per_block=rows)
             fwd = max(max(state_diffs(kl, kf, pl, pf).values()), max(state_diffs(nl, nf, pl, pf).values()))
             gerr = grad_errors(kg, pg)
             finite = all(bool(torch.isfinite(g).all()) for g in [kl, nl, *kg.values()])
             gw = max(gerr, key=gerr.get)
-            tile = f"{scan_packed.tile_for(ncfg, IN, rows, False)}/{scan_packed.tile_for(ncfg, IN, brows, True)}"
-            log("packed", f"{name} B={B} T={T} rows {tile}: forward max_abs {fwd:.3e} (tol {F32_TOL:g}); "
-                          f"grads max rel {gerr[gw]:.3e} at {gw} (tol {GRAD_TOL:g}); finite {finite}")
+            tile = (f"{scan_packed.tile_for(ncfg, IN, B, dev, rows, False)}/"
+                    f"{scan_packed.tile_for(ncfg, IN, B, dev, brows, True)}")
+            log("packed", f"{name} B={B} T={T} rows {tile} ({'the rule' if rows is None else 'forced'}), token grads "
+                          f"{token_grads}: forward max_abs {fwd:.3e} (tol {F32_TOL:g}); grads max rel {gerr[gw]:.3e} at "
+                          f"{gw} (tol {GRAD_TOL:g}, {len(gerr)} gradients); finite {finite}")
             if not finite or fwd > F32_TOL or gerr[gw] > GRAD_TOL:
                 raise AssertionError(f"{name}: the packed kernels disagree with their plain version")
             worst["fwd_abs"] = max(worst["fwd_abs"], fwd)
@@ -1427,32 +1554,43 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
             out.append(kg)
         return out
 
+    def case_tiles(ncfg, flagship):
+        # one row per block (the control), the rule's tiles, the largest that fit
+        big = (max(packed_tiles(ncfg, IN, False)), max(packed_tiles(ncfg, IN, True)))
+        tiles = [(1, 1, True), (None, None, True), (*big, True)]
+        return tiles + ([(*big, False)] if flagship else [])
+
     for i, (name, (ncfg, B, T)) in enumerate(bptt_cases().items()):
         params, tokens, cot = scan_case(ncfg, B, T, 300 + i, dev, IN)
-        compare(name, ncfg, B, T, params, tokens, cot, lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B))
+        compare(name, ncfg, B, T, params, tokens, cot, lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B),
+                case_tiles(ncfg, "flagship" in name))
     ncfg, B, params, tokens, cot, zero_state, cols, _ = wconv_zero_case(dev, IN)
-    for kg in compare("e_wconv_zero", ncfg, B, 1, params, tokens, cot, zero_state):
+    for kg in compare("e_wconv_zero", ncfg, B, 1, params, tokens, cot, zero_state, case_tiles(ncfg, False)):
         if (kg["heads_b"][cols["gamma"]] != 0).any() or (kg["heads_w"][:, cols["gamma"]] != 0).any():
             raise AssertionError("packed: d/dgamma must be exactly 0 where w_conv is 0 or 1")
-    log("packed", "e_wconv_zero: packed dgamma exactly 0 at both tiles")
+    log("packed", "e_wconv_zero: packed dgamma exactly 0 at every tile")
+    for i, (name, (ncfg, B, T)) in enumerate(packed_wide_cases().items()):
+        params, tokens, cot = scan_case(ncfg, B, T, 320 + i, dev, IN)
+        compare(name, ncfg, B, T, params, tokens, cot, lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B),
+                case_tiles(ncfg, False))
     check_budget("packed")
 
     # ---- (b) the frame path's shape: B=1, T=65, against B1 -------------------------
     ncfg = NTMConfig()
     params, tokens, _ = scan_case(ncfg, 1, 65, 340, dev, IN)
     state = init_ntm_state(params, ncfg, 1)
-    frame = {}
+    frame, fwd_tiles = {}, packed_tiles(ncfg, IN, False)
     with torch.no_grad():
         b1_logits, b1_final = ntm_scan_fused(params, ncfg, tokens, state)
-        for rows in scan_packed.FORWARD_ROWS:
+        for rows in fwd_tiles:
             lo, fi = scan_packed.ntm_scan_packed(params, ncfg, tokens, state, rows_per_block=rows)
             err = max(state_diffs(lo, fi, b1_logits, b1_final).values())
             worst["fwd_abs"] = max(worst["fwd_abs"], err)
             if err > F32_TOL:
                 raise AssertionError(f"packed forward at rows {rows} disagrees with B1 at B=1, T=65: {err:.3e}")
             frame[rows] = {"max_abs_err_vs_b1": err}
-        # in turns: B1, packed 1, packed default, and back
-        order = ["b1", *scan_packed.FORWARD_ROWS]
+        # in turns: B1, packed at each tile, and back (each with its projection)
+        order = ["b1", *fwd_tiles]
         ms = {k: [] for k in order}
         for rep in range(2):
             for key in (order if rep == 0 else order[::-1]):
@@ -1461,32 +1599,37 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
                 ms[key].append(cuda_ms(fn, iters=50, warmup=3))
         plain = cuda_ms(lambda: scan_packed.ntm_scan_packed_reference(params, ncfg, tokens, state), iters=3, warmup=1)
     b_ms, b_by = bound(*scan_cell_work(ncfg, 1, 65, IN))
-    for rows in scan_packed.FORWARD_ROWS:
+    rule1 = scan_packed.tile_for(ncfg, IN, 1, dev, None, False)
+    for rows in fwd_tiles:
         frame[rows]["ms"] = float(np.mean(ms[rows]))
-    frame_out = {"B": 1, "T": 65, "ms": frame[fwd_rows]["ms"], "ms_rows_1": frame[1]["ms"],
+    frame_out = {"B": 1, "T": 65, "ms": frame[rule1]["ms"], "rows_per_block": rule1,
                  "ms_by_rows_per_block": {str(r): f["ms"] for r, f in frame.items()},
                  "row_kernel_ms": float(np.mean(ms["b1"])), "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                  "max_abs_err_vs_b1": max(f["max_abs_err_vs_b1"] for f in frame.values())}
-    log("times", f"{smi}: B=1 T=65: packed forward " + ", ".join(f"rows {r} {f['ms']:.4f} ms" for r, f in frame.items())
-                 + f", B1 {frame_out['row_kernel_ms']:.4f} ms (CUDA events, 50 launches, "
-                 f"two turns); plain {plain:.3f} ms; bound {b_ms:.6f} ms by {b_by}; vs B1 max_abs "
-                 f"{frame_out['max_abs_err_vs_b1']:.3e} (tol {F32_TOL:g})")
+    log("times", f"{smi}: B=1 T=65: packed forward with its projection "
+                 + ", ".join(f"rows {r} {f['ms']:.4f} ms" for r, f in frame.items())
+                 + f", B1 {frame_out['row_kernel_ms']:.4f} ms (CUDA events, 50 launches, two turns); plain {plain:.3f} "
+                 f"ms; bound {b_ms:.6f} ms by {b_by}; vs B1 max_abs {frame_out['max_abs_err_vs_b1']:.3e} "
+                 f"(tol {F32_TOL:g})")
     check_budget("packed")
 
     # ---- (c) the train path's shape: B=256, T=1300, against B2 ---------------------
     params, ncfg, tokens = train["inputs"]
     B, T, _ = tokens.shape
     gen = torch.Generator(device=dev).manual_seed(7)
+    rule = (scan_packed.tile_for(ncfg, IN, B, dev, None, False), scan_packed.tile_for(ncfg, IN, B, dev, None, True))
+    tiles = ((1, 1), rule)
     with torch.no_grad():
         state = init_ntm_state(params, ncfg, B)
         # B2 as the train route runs it: one projection, the forward and
-        # the backward on it (here with dtokens, as B4's backward computes)
-        proj = scan_bptt.token_projection(tokens, params["controller"][0]["kernel"], params["controller"][0]["bias"])
+        # the backward on it (here with dtokens, to hold B4's against them)
+        layer0 = params["controller"][0]
+        proj = scan_bptt.token_projection(tokens, layer0["kernel"], layer0["bias"])
         logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state, proj)
         dlogits = torch.randn(logits.shape, generator=gen, device=dev) * 1e-2
         dfinal = tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev) * 1e-2, final)
         dtok, dst, ops = scan_bptt.bptt_backward(params, ncfg, tokens, proj, res, dlogits, dfinal)
-        del res, proj
+        del res
         ref = [dtok, *scan_bptt.flatten_state(dst), *scan_bptt.weight_grads(ncfg, IN, ops)]
         del ops
         L = ncfg.controller_num_layers
@@ -1494,9 +1637,10 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
                       *[f"controller[{l}].kernel" for l in range(L)], *[f"controller[{l}].bias" for l in range(L)],
                       "heads_w", "heads_b", "out_w", "out_b"]
 
-        def packed_run(rows, brows):
-            lo, fi, res = scan_packed.packed_forward_residuals(params, ncfg, tokens, state, rows)
-            dt, ds, ops = scan_packed.packed_backward(params, ncfg, tokens, res, dlogits, dfinal, brows)
+        def packed_run(rows, brows, need_dtokens=True):
+            lo, fi, res = scan_packed.packed_forward_residuals(params, ncfg, tokens, state, proj, rows)
+            dt, ds, ops = scan_packed.packed_backward(params, ncfg, tokens, proj, res, dlogits, dfinal, need_dtokens,
+                                                      brows)
             del res
             return lo, fi, [dt, *scan_bptt.flatten_state(ds), *scan_bptt.weight_grads(ncfg, IN, ops)]
 
@@ -1515,43 +1659,63 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
             same = (torch.equal(lo, again[0]) and all(torch.equal(a, b) for a, b in zip(got, again[2]))
                     and all(torch.equal(a, b) for a, b in zip(scan_bptt.flatten_state(fi),
                                                               scan_bptt.flatten_state(again[1]))))
-            del again
+            # without dtokens: every other output the same bits
+            bare = packed_run(rows, brows, need_dtokens=False)
+            same_bare = bare[2][0] is None and all(torch.equal(a, b) for a, b in zip(got[1:], bare[2][1:]))
+            del again, bare
             finite = bool(torch.isfinite(lo).all()) and all(bool(torch.isfinite(g).all()) for g in got)
             log("packed", f"B={B} T={T} rows {rows}/{brows} vs B2's kernels: forward max_abs {fwd:.3e} (tol {F32_TOL:g}); "
                           f"gradients (tokens, initial state, weights) max rel {gerr:.3e} at {gw} (tol {GRAD_TOL:g}); "
-                          f"same bits on a rerun {same}; finite {finite}; peak {peak_gb:.2f} GB above the inputs "
-                          f"(forward with residuals + backward + reduction)")
-            if fwd > F32_TOL or gerr > GRAD_TOL or not same or not finite:
+                          f"same bits on a rerun {same}; without dtokens the rest the same bits {same_bare}; finite "
+                          f"{finite}; peak {peak_gb:.2f} GB above the inputs (forward with residuals + backward + "
+                          f"reduction)")
+            if fwd > F32_TOL or gerr > GRAD_TOL or not same or not same_bare or not finite:
                 raise AssertionError(f"packed kernels at rows {rows}/{brows} disagree with B2 at B={B}, T={T}")
             worst["fwd_abs"] = max(worst["fwd_abs"], fwd)
             worst["grad_rel"] = max(worst["grad_rel"], gerr)
             worst["grad_abs_train"] = max(worst.get("grad_abs_train", 0.0), gabs)
             train_out[(rows, brows)] = {"peak_gb": peak_gb, "fwd_abs": fwd, "grad_rel": gerr}
-            if (rows, brows) == tiles[-1]:
+            if (rows, brows) == rule:
                 referee = initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_names, ref, got)
             del got, lo, fi
             check_budget("packed")
         # every instantiated tile, each kernel's launches back to back
         ms = {"forward": {}, "forward_residuals": {}, "backward": {}}
-        for rows in scan_packed.FORWARD_ROWS:
-            ms["forward"][rows] = cuda_ms(lambda: scan_packed.packed_forward(params, ncfg, tokens, state, rows),
+        for rows in packed_tiles(ncfg, IN, False):
+            ms["forward"][rows] = cuda_ms(lambda: scan_packed.packed_forward(params, ncfg, tokens, state, proj, rows),
                                           iters=2, warmup=1)
             ms["forward_residuals"][rows] = cuda_ms(lambda: scan_packed.packed_forward_residuals(
-                params, ncfg, tokens, state, rows), iters=2, warmup=0)
-        _, _, res = scan_packed.packed_forward_residuals(params, ncfg, tokens, state, fwd_rows)
-        for brows in scan_packed.BACKWARD_ROWS:
+                params, ncfg, tokens, state, proj, rows), iters=2, warmup=0)
+        _, _, res = scan_packed.packed_forward_residuals(params, ncfg, tokens, state, proj, rule[0])
+        for brows in packed_tiles(ncfg, IN, True):
             ms["backward"][brows] = cuda_ms(lambda: scan_packed.packed_backward(
-                params, ncfg, tokens, res, dlogits, dfinal, brows), iters=2, warmup=0)
-        _, _, ops = scan_packed.packed_backward(params, ncfg, tokens, res, dlogits, dfinal, bwd_rows)
+                params, ncfg, tokens, proj, res, dlogits, dfinal, False, brows), iters=2, warmup=1)
+        ms["backward_dtokens"] = cuda_ms(lambda: scan_packed.packed_backward(
+            params, ncfg, tokens, proj, res, dlogits, dfinal, True, rule[1]), iters=2, warmup=0)
+        probe = packed_probe_split(dev, smi, params, ncfg, tokens, state, proj, res, dlogits, dfinal, ms)
+        _, _, ops = scan_packed.packed_backward(params, ncfg, tokens, proj, res, dlogits, dfinal, False, rule[1])
         del res
-        ms["reduction"] = cuda_ms(lambda: scan_bptt.weight_grads(ncfg, IN, ops), iters=2, warmup=0)
-        del ops
-        log("times", f"{smi}: B={B} T={T} packed kernels by rows per block (CUDA events, 2 launches each): "
+        # the reduction on B4's operands, timed two ways: as phase_train
+        # times B2's (the two grad_reduce calls of the flagship's one layer,
+        # 5 launches after 1 warm-up), which `reduction` compares with B2's
+        # in this run; and through weight_grads, 2 launches without a
+        # warm-up, as the packed phase timed it before li's rows were
+        # padded (`reduction_weight_grads`, to compare with such runs)
+        li, dgates, ctrl, dctl = ops
+        kin = IN + ncfg.read_head_size * ncfg.mem_dim + ncfg.controller_hidden_size
+        products = [(li[0], dgates[0], kin), (ctrl, dctl, ncfg.controller_hidden_size)]
+        ms["reduction_weight_grads"] = cuda_ms(lambda: scan_bptt.weight_grads(ncfg, IN, ops), iters=2, warmup=0)
+        ms["reduction"] = cuda_ms(lambda: [scan_bptt.grad_reduce(a, g, k) for a, g, k in products], iters=5, warmup=1)
+        del ops, li, dgates, ctrl, dctl, products, proj
+        log("times", f"{smi}: B={B} T={T} packed kernels by rows per block (CUDA events; the forwards on the "
+                     f"projection, the backward without dtokens): "
                      + "; ".join(f"{k} " + ", ".join(f"{r}: {v:.3f} ms" for r, v in ms[k].items())
                                  for k in ("forward", "forward_residuals", "backward"))
-                     + f"; reduction {ms['reduction']:.3f} ms; SMs used at B={B}: "
-                     + ", ".join(f"{r} rows {math.ceil(B / r)}" for r in sorted(set(scan_packed.FORWARD_ROWS)
-                                                                                | set(scan_packed.BACKWARD_ROWS))))
+                     + f"; backward with dtokens at {rule[1]} rows {ms['backward_dtokens']:.3f} ms; reduction "
+                     f"{ms['reduction']:.3f} ms as B2's is timed (B2's {train['grad_reduce'][0]:.3f}), through "
+                     f"weight_grads {ms['reduction_weight_grads']:.3f} ms (2 launches, no warm-up); the rule's tiles "
+                     f"{rule[0]}/"
+                     f"{rule[1]}; the projection {train['token_projection'][0]:.3f} ms (phase train)")
         del ref, dtok, dst, logits, final
 
     # the plain version at the same shape: forward without gradients, and
@@ -1572,10 +1736,12 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
     plain_res_fwd, plain_bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     plain_peak = torch.cuda.max_memory_allocated() / 1e9
     del lo, fi, loss, live
-    # B4's kernels do their own token product, and its backward writes dtokens
-    work = scan_bptt_work(ncfg, B, T, IN, need_dtokens=True, hoisted=False)
-    bounds = {"forward": bound(*scan_cell_work(ncfg, B, T, IN)), "forward_residuals": bound(*work["forward"]),
-              "backward": bound(*work["backward"]), "reduction": bound(*work["grad_reduce"])}
+    # B4's kernels read the projection (no token rows of W0); the backward
+    # as timed writes no dtokens
+    work = scan_bptt_work(ncfg, B, T, IN)
+    bounds = {"forward": bound(*scan_bptt_work(ncfg, B, T, IN, residuals=False)["forward"]),
+              "forward_residuals": bound(*work["forward"]), "backward": bound(*work["backward"]),
+              "reduction": bound(*work["grad_reduce"])}
     log("times", f"{smi}: B={B} T={T} plain packed version: forward {plain_fwd:.1f} ms (no gradients); recording "
                  f"gradients forward {plain_res_fwd:.1f} ms, backward {plain_bwd:.1f} ms (CUDA events, peak "
                  f"{plain_peak:.1f} GB); bounds "
@@ -1583,12 +1749,30 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
                  + f"; B2: projection {train['token_projection'][0]:.3f} ms, forward {train['forward'][0]:.3f} ms, "
                  f"backward {train['backward'][0]:.3f} ms, reduction {train['grad_reduce'][0]:.3f} ms; B1 "
                  f"{train['b1']['ms']:.3f} ms (phase train)")
-    counts = {k.__name__: k.launches for k in kernels}
-    log("packed", f"launches in this phase {counts}")
-    if min(counts.values()) == 0:
-        raise AssertionError("a packed kernel was not launched")
+
+    # ---- (d) B4's path: the projection launched once per call -------------------------
+    phase_counts = {k.__name__: k.launches for k in kernels}
+    ncfg = NTMConfig()
+    params, tokens, cot = scan_case(ncfg, 2, 65, 360, dev, IN)
+    for k in kernels:
+        k.launches = 0
+    proj0 = scan_bptt.token_projection.launches
+    with torch.no_grad():
+        scan_packed.ntm_scan_packed(params, ncfg, tokens, init_ntm_state(params, ncfg, 2))
+    grads_of(scan_packed.ntm_scan_packed_bptt, params, ncfg, tokens, cot, lambda p: init_ntm_state(p, ncfg, 2), False)
+    path = {"token_projection": scan_bptt.token_projection.launches - proj0,
+            **{k.__name__: k.launches for k in kernels}}
+    expected = {"token_projection": 2, "packed_forward": 1, "packed_forward_residuals": 1, "packed_backward": 1}
+    log("packed", f"B4's path, one forward and one train step (fwd + bwd, tokens without gradients): launches {path} "
+                  f"(expected {expected}); launches in this phase before it {phase_counts}")
+    if path != expected or min(phase_counts.values()) == 0:
+        raise AssertionError("B4's path did not launch one projection per call, or a packed kernel was not launched")
     check_budget("packed")
-    return {"counts": counts, "frame": frame_out, "train": train_out, "ms": ms, "tiles": tiles, "worst": worst,
+    rule_by_batch = {str(b): {"forward": scan_packed.tile_for(NTMConfig(), IN, b, dev, None, False),
+                              "backward": scan_packed.tile_for(NTMConfig(), IN, b, dev, None, True)}
+                     for b in (1, 64, 132, 133, 256, 264, 265, 512)}
+    return {"counts": path, "phase_counts": phase_counts, "probe": probe, "frame": frame_out, "train": train_out,
+            "ms": ms, "rule": rule, "rule_by_batch": rule_by_batch, "worst": worst,
             "plain": {"forward": plain_fwd, "forward_residuals": plain_res_fwd, "backward": plain_bwd},
             "bounds": bounds, "smem": smem, "B": B, "T": T, "initial_state_referee": referee}
 
@@ -1626,11 +1810,15 @@ def main() -> int:
     check_budget("device")
 
     # ---- 2. build ----------------------------------------------------------
+    # one nvcc per library, all started together (scan_packed.cu builds
+    # three: its forward, its backward, their probe variants); every build
+    # ends before the first timed phase
     t0 = time.perf_counter()
-    paths = _build.build_all(["scan_cell", "scan_bptt", "addressing", "scan_packed"])
+    paths = _build.build_all(["scan_cell", "scan_bptt", "addressing", "scan_packed", "scan_packed_bwd",
+                              "scan_packed_probe"])
     for name in paths:
         _build.load_library(name)
-    log("build", f"scan_cell, scan_bptt, addressing and scan_packed ready in {time.perf_counter() - t0:.2f}s (parallel nvcc; "
+    log("build", f"all libraries ready in {time.perf_counter() - t0:.2f}s (parallel nvcc; "
                  f"{', '.join(p.name for p in paths.values())})")
     check_budget("build")
 
@@ -1894,10 +2082,12 @@ def main() -> int:
         "phases": addr["probe"]["phases"], "sm_clock_khz": addr["probe"]["sm_clock_khz"],
         "empty_launch_ms": addr["probe"]["empty_launch_ms"],
     })
-    # B4 at the train path's shape (B=256, T=1300) and the default tile;
-    # no main path launches it: `launches` is phase_packed's count
-    (_, _), default = packed["tiles"]
+    # B4 at the train path's shape (B=256, T=1300) and the rule's tiles. No
+    # main path launches it: `launches` is its own path's count (phase
+    # packed (d): one forward, one train step), beside the whole phase's
+    default = packed["rule"]
     at = packed["train"]
+    need_dtokens_ms = {"with": packed["ms"]["backward_dtokens"], "without": packed["ms"]["backward"][default[1]]}
     for name, line, row_ms in (("forward", 225, train["b1"]["ms"]), ("forward_residuals", 290, train["forward"][0]),
                                ("backward", 336, train["backward"][0])):
         b_ms, b_by = packed["bounds"][name]
@@ -1907,18 +2097,26 @@ def main() -> int:
         entry = {
             "name": f"scan_packed.{name}", "route": "cuda", "source": PACKED_SOURCE,
             "replaces": f"ntm_tracker_tpu/ops/pallas/scan_packed.py:{line}", "launches": packed["counts"][fn],
+            "launches_in_phase": packed["phase_counts"][fn], "launches_on_main_paths": 0,
             "max_abs_err": packed["worst"]["grad_abs_train"] if name == "backward" else packed["worst"]["fwd_abs"],
             "max_rel_err": packed["worst"]["grad_rel"], "ms": packed["ms"][name][rows],
             "plain_ms": packed["plain"][name], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "rows_per_block": rows, "ms_rows_1": packed["ms"][name][1], "row_kernel_ms": row_ms,
             "ms_by_rows_per_block": {str(r): v for r, v in packed["ms"][name].items()},
-            "B": packed["B"], "T": packed["T"],
+            "B": packed["B"], "T": packed["T"], "tile_rule": packed["rule_by_batch"],
+            "need_dtokens_ms": need_dtokens_ms, "initial_state_vs_float64": packed["initial_state_referee"],
+            "projection_launches_on_path": packed["counts"]["token_projection"],
         }
+        if name != "forward_residuals":
+            entry["phases"] = packed["probe"][name]
+        if name != "backward":
+            entry["with_projection_ms"] = entry["ms"] + train["token_projection"][0]
         if name == "forward":
             entry["frame_shape"] = packed["frame"]
         if name == "backward":
-            entry["initial_state_vs_float64"] = packed["initial_state_referee"]
-            entry["reduction_ms"] = {"packed_operands": packed["ms"]["reduction"], "row_kernels": train["grad_reduce"][0]}
+            entry["reduction_ms"] = {"packed_operands": packed["ms"]["reduction"],
+                                     "row_kernels": train["grad_reduce"][0],
+                                     "packed_operands_weight_grads": packed["ms"]["reduction_weight_grads"]}
             entry["peak_gb"] = {"rows_1": at[(1, 1)]["peak_gb"], f"rows_{rows}": at[default]["peak_gb"]}
             entry["smem_bytes"] = packed["smem"]
         kernels.append(entry)

@@ -4,7 +4,8 @@ Each source is compiled on its own into a shared library with a plain C
 interface (no PyTorch headers, so nvcc takes seconds). The library lands
 in `_build/<hash>/`, keyed by a hash of the source, the shared headers
 (csrc/*.cuh) and the flags, and is built at first use in a process.
-`build_all` starts one nvcc per source at once.
+`build_all` starts one nvcc per library at once. A library in VARIANTS is
+built from another library's source with flags of its own.
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NVCC_TIMEOUT_S = 300
+# library name -> (the csrc/<source>.cu it is built from, its extra nvcc flags)
+VARIANTS = {
+    "scan_packed_bwd": ("scan_packed", ("-DNTM_PACKED_BACKWARD",)),
+    "scan_packed_probe": ("scan_packed", ("-DNTM_PACKED_PROBE",)),
+}
 
 
 def _nvcc() -> str:
@@ -35,18 +41,24 @@ def _nvcc() -> str:
     return path
 
 
+def _source_and_flags(name: str) -> tuple:
+    source, extra = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{source}.cu", (*NVCC_FLAGS, *extra)
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from csrc/<name>.cu lives."""
-    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    """Where the library `name` (csrc/<name>.cu, or its VARIANTS entry) lives."""
+    source, flags = _source_and_flags(name)
+    parts = [source.read_bytes()]
     parts += [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
-    parts.append(" ".join(NVCC_FLAGS).encode())
+    parts.append(" ".join(flags).encode())
     key = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     return BUILD_ROOT / key / f"lib{name}.so"
 
 
 def build_all(names) -> dict:
-    """Compile csrc/<name>.cu for every name whose library is not built
-    yet, one nvcc each, all started together; prints each nvcc time and
+    """Compile the library of every name not built yet (csrc/<name>.cu, or
+    its VARIANTS entry), one nvcc each, all started together; prints each nvcc time and
     ptxas's register, shared-memory and spill report. Returns
     {name: library path}."""
     outs = {name: library_path(name) for name in names}
@@ -56,7 +68,8 @@ def build_all(names) -> dict:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, flags = _source_and_flags(name)
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         running.append((name, out, tmp, proc, time.perf_counter()))
     failed = []
@@ -66,13 +79,13 @@ def build_all(names) -> dict:
         except subprocess.TimeoutExpired:
             proc.kill()
             stdout, stderr = proc.communicate()
-            failed.append(f"nvcc timed out after {NVCC_TIMEOUT_S} s building {name}.cu")
+            failed.append(f"nvcc timed out after {NVCC_TIMEOUT_S} s building {name}")
             continue
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc exited {proc.returncode} building {name}.cu:\n{stdout}{stderr}")
+            failed.append(f"nvcc exited {proc.returncode} building {name}:\n{stdout}{stderr}")
             continue
-        print(f"[build] {name}.cu: nvcc {secs:.2f} s\n{stderr.strip()}", flush=True)
+        print(f"[build] {name}: nvcc {secs:.2f} s\n{stderr.strip()}", flush=True)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -80,11 +93,11 @@ def build_all(names) -> dict:
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library is already built."""
+    """Compile the library `name` unless it is already built."""
     return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu's library, built if needed."""
+    """The ctypes handle of the library `name`, built if needed."""
     return ctypes.CDLL(str(build(name)))

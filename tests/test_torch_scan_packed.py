@@ -217,24 +217,26 @@ def test_other_devices_and_dtypes_raise(fn):
 
 
 def test_tile_sizes_match_the_kernel_instantiations():
-    """The default tile is the largest instantiation that fits the block's
-    shared memory; an explicit tile must be instantiated and fit."""
+    """The default tile is, of the instantiations that fit the block's
+    shared memory, the one whose blocks fill the card in the fewest waves,
+    then the fewest rows; an explicit tile must be instantiated and fit."""
     limit = scan_packed.MAX_SMEM_BYTES
 
-    def smem(per_row):
-        return lambda rows: per_row * rows
+    def fits(per_row):
+        return lambda rows: per_row * rows <= limit
 
-    assert tile_rows(smem(limit // 8), None, backward=False) == 8
-    assert tile_rows(smem(limit // 5), None, backward=False) == 4
-    assert tile_rows(smem(limit // 3), None, backward=True) == 2
-    assert tile_rows(smem(limit // 8), 1, backward=True) == 1
-    with pytest.raises(ValueError, match="above"):
-        tile_rows(smem(limit // 5), 8, backward=False)
-    with pytest.raises(ValueError, match="above"):
-        tile_rows(smem(limit + 1), None, backward=True)
-    for rows, backward in ((3, False), (8, True), (0, True)):
+    assert tile_rows(256, None, fits(limit // 8), 132, backward=False) == 2
+    assert tile_rows(512, None, fits(limit // 8), 132, backward=False) == 4
+    assert tile_rows(512, None, fits(limit // 3), 132, backward=False) == 2
+    assert tile_rows(100, None, fits(limit // 3), 132, backward=True) == 1
+    assert tile_rows(256, 1, fits(limit // 8), 132, backward=True) == 1
+    with pytest.raises(ValueError, match="shared memory above"):
+        tile_rows(256, 4, fits(limit // 3), 132, backward=False)
+    with pytest.raises(ValueError, match="shared memory above"):
+        tile_rows(256, None, fits(limit + 1), 132, backward=True)
+    for rows, backward in ((5, False), (4, True), (0, True)):
         with pytest.raises(ValueError, match="rows_per_block"):
-            tile_rows(smem(1), rows, backward)
+            tile_rows(256, rows, fits(1), 132, backward)
     src = SOURCE.read_text()
     fwd = re.search(r"fwd_rows_ok\(int rows\) \{ return (.*?); \}", src).group(1)
     bwd = re.search(r"bwd_rows_ok\(int rows\) \{ return (.*?); \}", src).group(1)
@@ -258,3 +260,11 @@ def test_kernel_source_builds_without_pytorch_headers():
         assert not re.search(rf"\b{selector}\b", src), selector
     path = _build.library_path("scan_packed")
     assert path.parent.parent == _build.BUILD_ROOT and path.name == "libscan_packed.so"
+    # the backward's entry point and the probe variants: the same source,
+    # each with its own flag and library
+    for name, flag in (("scan_packed_bwd", "-DNTM_PACKED_BACKWARD"), ("scan_packed_probe", "-DNTM_PACKED_PROBE")):
+        variant = _build.library_path(name)
+        assert variant.name == f"lib{name}.so" and variant.parent != path.parent
+        assert _build.VARIANTS[name] == ("scan_packed", (flag,))
+    assert "#ifdef NTM_PACKED_PROBE" in src and "#elif defined(NTM_PACKED_BACKWARD)" in src
+    assert src.count("#if NTM_PACKED_FWD_ENTRY") == src.count("#if NTM_PACKED_BWD_ENTRY") == 1
