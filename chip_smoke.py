@@ -10,7 +10,11 @@ every cell step) and the cached-token training step at full width, holds
 the lane-packed kernels against their plain version, B1 and B2 at the
 frame and train shapes, and times the kernels, their plain versions, the
 frame step, the fleet step on three cell routes, the device loop and the
-train step; splits B3's phases with its probe variant (clock64() stamps).
+train step; splits B3's phases with its probe variant (clock64() stamps);
+then the accuracy path: the demo config's NTM trains through B2 until its
+loss falls and tracks a held-out clip through B1 within the accuracy
+artifact's tripwires, the DNC's train step on the card is held against the
+CPU's, and the flagship width trains on build_dataset's tokens.
 
     python3 chip_smoke.py
 
@@ -78,6 +82,7 @@ PREVIOUS_MS = {"forward": 161.1, "backward": 383.4, "grad_reduce": 24.7}
 # the training slice's shape: the JAX bench's cached-token train step
 # (ntm_tracker_tpu/benchmarks.py:646), B=256 rows of L=20 frames
 TRAIN_B, TRAIN_L = 256, 20
+B8_L = 10
 PACKED_SOURCE = "ntm_tracker_tpu_torch/csrc/scan_packed.cu"
 ADDR_NAME = "addressing.fused_ntm_addressing"
 ADDR_SOURCE = "ntm_tracker_tpu_torch/csrc/addressing.cu"
@@ -95,6 +100,17 @@ REGION_TOL_PX = 1e-2
 # pixels: float32 device geometry against float64 host geometry
 # (tests/test_tracking.py's bound for the JAX package's loop)
 LOOP_TOL_PX = 5e-2
+# the accuracy phase: the demo config's NTM trains ACC_STEPS steps through
+# B2, the flagship width ACC_FLAG_STEPS full-batch steps on ACC_FLAG_SEQS
+# sequences; each loss must fall (the mean of the last ACC_WINDOW steps
+# under the mean of the first). The DNC's train step on the card against
+# the same step on the CPU: the loss within DNC_LOSS_RTOL, each gradient
+# within GRAD_TOL of its largest magnitude (float32 in other orders, over
+# 520 cell steps and the frozen VGG's cuDNN convs against the CPU's).
+ACC_STEPS, ACC_WINDOW = 60, 10
+ACC_FLAG_SEQS, ACC_FLAG_STEPS, ACC_FLAG_WINDOW = 64, 20, 5
+ACC_CLIP_FRAMES, ACC_DNC_FRAMES = 12, 4
+DNC_LOSS_RTOL = 1e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -1176,7 +1192,11 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     check_budget("train")
 
     # ---- one fused step against one plain autograd step at B=8 --------------------
-    cfg8 = dataclasses.replace(base, train=dataclasses.replace(base.train, batch_size=8, fused_bptt=True))
+    # at L=B8_L frames (T=650), half the main path's depth: the plain step's
+    # eager loop costs ~14 s a pass at T=1300, and the B=256 step above is
+    # held at the full depth
+    cfg8 = dataclasses.replace(base, train=dataclasses.replace(base.train, batch_size=8, sequence_length=B8_L,
+                                                               fused_bptt=True))
     cfg8p = dataclasses.replace(cfg8, train=dataclasses.replace(cfg8.train, fused_bptt=False))
     batch8 = exp.device_batch(synthetic_cached_batch(cfg8, np.random.RandomState(1)))
     runs, ms8 = {}, {}
@@ -1187,7 +1207,7 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
         q, s8, mm = e.make_train_step()(params, opt_state, batch8)
         ms8[tag] = 1e3 * (time.perf_counter() - t0)
         runs[tag] = (float(mm["loss"]), offsets_grads(e, params, batch8)[2], q, s8)
-    report_step(f"B=8 T={base.total_steps} one step fused vs plain autograd (remat full), "
+    report_step(f"B=8 T={cfg8.total_steps} one step fused vs plain autograd (remat full), "
                 f"step {ms8['fused']:.1f} ms fused vs {ms8['plain']:.1f} ms plain (host clock)",
                 step_errors(params, runs["fused"], runs["plain"]))
     del runs
@@ -1777,6 +1797,225 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
             "bounds": bounds, "smem": smem, "B": B, "T": T, "initial_state_referee": referee}
 
 
+
+def loss_fell(losses: list, window: int) -> tuple:
+    """(mean of the first `window` losses, mean of the last `window`)."""
+    return float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
+
+
+def kernel_counts() -> dict:
+    """The launch counts of B1 (and by route) and of B2's four wrappers."""
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+
+    out = {"ntm_scan_fused": ntm_scan_fused.launches, "ntm_scan_fused_by_route": dict(ntm_scan_fused.launches_by_route)}
+    for name in ("bptt_forward", "token_projection", "bptt_backward", "grad_reduce"):
+        out[name] = getattr(scan_bptt, name).launches
+    return out
+
+
+def reset_all_counts() -> None:
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
+
+    reset_counts()
+    for name in ("bptt_forward", "token_projection", "bptt_backward", "grad_reduce"):
+        getattr(scan_bptt, name).launches = 0
+
+
+def phase_accuracy(dev: torch.device, smi: str) -> dict:
+    """The accuracy path on the card: (a) the demo config's NTM trains
+    ACC_STEPS steps through B2 on synthetic clips, its loss must fall, then
+    tracks a held-out clip through the streaming tracker (B1's cluster
+    route) and the device loop, held to the artifact's tripwires; (b) the
+    DNC's train step on the card against the same step on the CPU, then a
+    DNC StreamingTracker; (c) the flagship width: build_dataset, then
+    ACC_FLAG_STEPS full-batch steps whose loss must fall."""
+    from ntm_tracker_tpu_torch.data.synthetic import make_video
+    from ntm_tracker_tpu_torch.models.core import make_core
+    from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
+    from ntm_tracker_tpu_torch.tools.track_artifact import DEVICE_IOU_GAP_MAX, STEP1_FRAC_MAX, serve_precision_drift
+    from ntm_tracker_tpu_torch.tools.track_flagship import build_dataset, flagship_config
+    from ntm_tracker_tpu_torch.tracking.demo import (
+        demo_config, eval_device_iou, eval_streaming_iou, mean_clamped_iou, training_batch,
+    )
+    from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment
+    from ntm_tracker_tpu_torch.train.optim import tree_leaves, tree_map
+    from ntm_tracker_tpu_torch.train.serialize import offsets_loss, serialize_tokens
+
+    out = {}
+    # ---- (a) the demo config's NTM ------------------------------------------
+    cfg = demo_config()
+    vgg = init_vgg_params(torch.Generator().manual_seed(0), dev)
+    exp = OffsetExperiment(cfg, vgg, image_mode="cropped", device=dev)
+    params, opt_state = exp.init(torch.Generator().manual_seed(1))
+    step = exp.make_train_step()
+    rng = np.random.RandomState(0)
+    reset_all_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(ACC_STEPS):
+        params, opt_state, m = step(params, opt_state, training_batch(cfg, rng, dev))
+        losses.append(m["loss"])  # read at the end: the next batch is made while the card steps
+        if i % 10 == 0 or i == ACC_STEPS - 1:
+            log("accuracy", f"demo NTM step {i}: loss {float(losses[-1]):.4f}")
+    losses = [float(v) for v in losses]
+    train_s = time.perf_counter() - t0
+    train_counts = kernel_counts()
+    first, last = loss_fell(losses, ACC_WINDOW)
+    log("accuracy", f"{smi}: demo NTM (B={cfg.train.batch_size}, T={cfg.total_steps}, memory "
+                    f"{cfg.ntm.mem_size}x{cfg.ntm.mem_dim}, hidden {cfg.ntm.controller_hidden_size}): {ACC_STEPS} steps "
+                    f"in {train_s:.2f}s ({train_s / ACC_STEPS * 1e3:.1f} ms a step, batch made on the host and cropped "
+                    f"on the card); loss mean of the first {ACC_WINDOW} {first:.4f}, of the last {last:.4f}; "
+                    f"launches {train_counts}")
+    if not last < first or not np.isfinite(losses).all():
+        raise AssertionError(f"the demo NTM's loss did not fall: {first:.4f} -> {last:.4f}")
+    if not (train_counts["bptt_forward"] == train_counts["bptt_backward"] == train_counts["token_projection"]
+            == ACC_STEPS and train_counts["grad_reduce"] > 0 and train_counts["ntm_scan_fused"] == 0):
+        raise AssertionError(f"the demo train steps did not each run B2 once: {train_counts}")
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    host = eval_streaming_iou(cfg, vgg, params, 0, ACC_CLIP_FRAMES, device=dev)
+    host_s = time.perf_counter() - t0
+    host_counts = kernel_counts()
+    reset_all_counts()
+    device = eval_device_iou(cfg, vgg, params, 0, ACC_CLIP_FRAMES, device=dev)
+    loop_counts = kernel_counts()
+    core = make_core(cfg)
+    drift_px, drift_frac, step1_px, step1_frac = serve_precision_drift(cfg, core, vgg, params, 0, ACC_CLIP_FRAMES,
+                                                                       device=dev)
+    gap = abs(mean_clamped_iou(host) - mean_clamped_iou(device))
+    log("accuracy", f"{smi}: demo NTM after {ACC_STEPS} steps, a {ACC_CLIP_FRAMES}-frame clip: host mean IoU "
+                    f"{mean_clamped_iou(host):.4f} ({host_s / ACC_CLIP_FRAMES * 1e3:.2f} ms a frame), device loop "
+                    f"{mean_clamped_iou(device):.4f}, gap {gap:.4f} (tripwire {DEVICE_IOU_GAP_MAX}); drift step 1 "
+                    f"{step1_px:.4f} px = {step1_frac:.5f} of the diagonal (tripwire {STEP1_FRAC_MAX}), trajectory "
+                    f"{drift_px:.4f} px; B1 launches host {host_counts['ntm_scan_fused_by_route']}, device loop "
+                    f"{loop_counts['ntm_scan_fused_by_route']}")
+    if step1_frac > STEP1_FRAC_MAX or gap > DEVICE_IOU_GAP_MAX or not np.isfinite(host + device).all():
+        raise AssertionError(f"an accuracy tripwire fired: step-1 drift {step1_frac}, IoU gap {gap}")
+    for counts in (host_counts, loop_counts):
+        if counts["ntm_scan_fused_by_route"] != {"cluster": ACC_CLIP_FRAMES, "tile": 0}:
+            raise AssertionError(f"the clip did not run B1's cluster route once a frame: {counts}")
+    out["ntm"] = {"losses": losses, "train_s": train_s, "host_iou": mean_clamped_iou(host),
+                  "device_iou": mean_clamped_iou(device), "gap": gap, "step1_frac": step1_frac,
+                  "train_counts": train_counts, "host_counts": host_counts, "loop_counts": loop_counts}
+    check_budget("accuracy_ntm")
+
+    # ---- (b) the DNC: the card's train step against the CPU's ---------------
+    # float32 on both sides: the train step's loss. The gradients are held in
+    # float64 on both sides, from the same tokens: the allocation's sort
+    # makes the DNC's gradient jump where two slots' usages tie to within
+    # rounding (the derivative of a slot's allocation takes the usages
+    # sorted before it), so two float32 runs, or two runs on inputs that
+    # differ by rounding, that order a near-tie apart differ by ~1e-3 of a
+    # gradient's largest entry however right both are.
+    dcfg = demo_config(core="dnc")
+    cpu = torch.device("cpu")
+    dexp = OffsetExperiment(dcfg, vgg, image_mode="cropped", device=dev)
+    dparams, dopt = dexp.init(torch.Generator().manual_seed(2))
+    dbatch = training_batch(dcfg, np.random.RandomState(1), dev)
+    cexp = OffsetExperiment(dcfg, tree_map(lambda t: t.to(cpu), vgg), image_mode="cropped", device=cpu)
+    to_cpu = functools.partial(tree_map, lambda t: t.to(cpu))
+    cbatch = {k: v.to(cpu) if isinstance(v, torch.Tensor) else v for k, v in dbatch.items()}
+
+    # the card's VGG tokens, given to both sides: the DNC's gradient jumps
+    # at near-tied usages even in float64 when the inputs differ (the
+    # convs' float32 rounding on two devices, ~1e-6)
+    with torch.no_grad():
+        features = dexp.batch_features(dexp.device_batch(dbatch)).double()
+
+    def loss_and_grads(e, p, b):
+        """The train step's loss and gradients in float64 on `features`."""
+        live = tree_map(lambda t: t.detach().double().requires_grad_(), p)
+        b = e.device_batch(b)
+        f = features.to(e.device)
+        B, L = f.shape[0], dcfg.train.sequence_length
+        tokens = serialize_tokens(f, b["gts"].double().reshape(B, L, -1)[:, 0])
+        state = tree_map(lambda t: t.double(), e.core.init_state(p, B))
+        logits, _ = e.core.unroll(live, tokens, state)
+        loss = offsets_loss(logits, e._targets(b, B).double(), dcfg.num_features)
+        return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(live))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_new, _, d_m = dexp.make_train_step()(dparams, dopt, dbatch)
+    d_loss = float(d_m["loss"])
+    card_s = time.perf_counter() - t0
+    with torch.no_grad():
+        c_loss = float(cexp.loss_fn(to_cpu(dparams), cbatch)[0])
+    t0 = time.perf_counter()
+    d64_loss, d64_grads = loss_and_grads(dexp, dparams, dbatch)
+    card64_s = time.perf_counter() - t0
+    c64_loss, c64_grads = loss_and_grads(cexp, to_cpu(dparams), cbatch)
+    loss_rel = abs(d_loss - c_loss) / abs(c_loss)
+    loss64_rel = abs(d64_loss - c64_loss) / abs(c64_loss)
+    grad_rel = max(max_abs(g.cpu(), r) / max(float(r.abs().max()), 1e-30) for g, r in zip(d64_grads, c64_grads))
+    log("accuracy", f"{smi}: demo DNC train step (B={dcfg.train.batch_size}, T={dcfg.total_steps}, memory "
+                    f"{dcfg.dnc.memory_size}x{dcfg.dnc.word_size}, plain PyTorch) card vs CPU: float32 loss "
+                    f"{d_loss:.6f} / {c_loss:.6f}, rel {loss_rel:.2e} (tol {DNC_LOSS_RTOL:g}); float64 on the same "
+                    f"tokens: loss rel {loss64_rel:.2e}, gradients max rel {grad_rel:.2e} (tol {GRAD_TOL:g}); float32 against "
+                    f"float64 loss rel {abs(d_loss - c64_loss) / abs(c64_loss):.2e}; the train step on the card "
+                    f"{card_s:.2f}s, float64 loss and gradients on the card {card64_s:.2f}s")
+    if loss_rel > DNC_LOSS_RTOL or loss64_rel > DNC_LOSS_RTOL or grad_rel > GRAD_TOL:
+        raise AssertionError(f"the DNC's train step on the card disagrees with the CPU's: loss {loss_rel:.2e} "
+                             f"(float64 {loss64_rel:.2e}), gradients {grad_rel:.2e}")
+    reset_all_counts()
+    trk = StreamingTracker(dcfg, vgg, d_new, device=dev)
+    frames, boxes = make_video(np.random.RandomState(3), 1 + ACC_DNC_FRAMES)
+    H, W = frames.shape[1:3]
+    b0 = boxes[0]
+    trk.init(frames[0], (b0[1] * W, b0[0] * H, (b0[3] - b0[1]) * W, (b0[2] - b0[0]) * H))
+    frame_ms = []
+    for t in range(1, 1 + ACC_DNC_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        region = trk.track(frames[t])
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    dnc_counts = kernel_counts()
+    log("accuracy", f"{smi}: DNC StreamingTracker {ACC_DNC_FRAMES} frames of {frames.shape[1]}x{frames.shape[2]}: "
+                    f"{', '.join(f'{v:.1f}' for v in frame_ms)} ms a frame (65 plain DNC steps each), region[-1] "
+                    f"{[round(float(v), 2) for v in region]}; kernel launches {dnc_counts}")
+    if not np.isfinite(region).all() or dnc_counts["ntm_scan_fused"] or dnc_counts["bptt_forward"]:
+        raise AssertionError("the DNC tracker's output is not finite, or it launched an NTM kernel")
+    out["dnc"] = {"loss_rel": loss_rel, "loss64_rel": loss64_rel, "grad64_rel": grad_rel, "step_s": card_s,
+                  "frame_ms": frame_ms}
+    check_budget("accuracy_dnc")
+
+    # ---- (c) the flagship width ---------------------------------------------
+    fcfg = flagship_config(ACC_FLAG_SEQS)
+    fvgg = init_vgg_params(torch.Generator().manual_seed(0), dev)
+    fexp = OffsetExperiment(fcfg, fvgg, image_mode="cropped", device=dev)
+    fparams, fopt = fexp.init(torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fbatch = build_dataset(fcfg, fvgg, ACC_FLAG_SEQS, 0, device=dev)
+    torch.cuda.synchronize()
+    dataset_s = time.perf_counter() - t0
+    fstep = fexp.make_train_step()
+    reset_all_counts()
+    flosses, step_ms = [], []
+    for i in range(ACC_FLAG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fparams, fopt, m = fstep(fparams, fopt, fbatch)
+        flosses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    flag_counts = kernel_counts()
+    first, last = loss_fell(flosses, ACC_FLAG_WINDOW)
+    log("accuracy", f"{smi}: flagship width B={ACC_FLAG_SEQS} T={fcfg.total_steps}: build_dataset "
+                    f"{tuple(fbatch['features'].shape)} in {dataset_s:.2f}s; {ACC_FLAG_STEPS} full-batch steps, "
+                    f"step p50 {np.median(step_ms):.2f} ms; loss {flosses[0]:.3f} -> {flosses[-1]:.3f} (mean of the "
+                    f"first {ACC_FLAG_WINDOW} {first:.3f}, of the last {last:.3f}); launches {flag_counts}")
+    if not last < first or not np.isfinite(flosses).all():
+        raise AssertionError(f"the flagship-width loss did not fall: {first:.3f} -> {last:.3f}")
+    if flag_counts["bptt_forward"] != ACC_FLAG_STEPS or flag_counts["bptt_backward"] != ACC_FLAG_STEPS:
+        raise AssertionError(f"the flagship-width steps did not each run B2 once: {flag_counts}")
+    out["flagship"] = {"losses": flosses, "step_ms": step_ms, "dataset_s": dataset_s, "counts": flag_counts}
+    check_budget("accuracy")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
@@ -2011,6 +2250,9 @@ def main() -> int:
     # ---- 7b. the lane-packed kernels (B4) at the frame and train shapes -------
     packed = phase_packed(dev, smi, IN, train)
 
+    # ---- 7c. the accuracy path: training learns, the trackers track ---------
+    accuracy = phase_accuracy(dev, smi)
+
     # ---- 8. result -----------------------------------------------------------
     # B1 runs on every main path: `launches` is the frame path's count; the
     # fleet's (its adds at B=1), the device loop's, the train path's (its
@@ -2022,7 +2264,11 @@ def main() -> int:
         "launches": main_path_launches, "max_abs_err": flagship_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "launches_by_path": {"frame_step": main_path_launches, "fleet": fleet["fleet_counts"]["ntm_scan_fused"],
-                             "device_loop": fleet["loop_counts"]["ntm_scan_fused"], "train": train["b1"]["launches"]},
+                             "device_loop": fleet["loop_counts"]["ntm_scan_fused"], "train": train["b1"]["launches"],
+                             "accuracy_clip": accuracy["ntm"]["host_counts"]["ntm_scan_fused"],
+                             "accuracy_device_loop": accuracy["ntm"]["loop_counts"]["ntm_scan_fused"],
+                             "accuracy_demo_train": accuracy["ntm"]["train_counts"]["ntm_scan_fused"],
+                             "accuracy_flagship_train": accuracy["flagship"]["counts"]["ntm_scan_fused"]},
         "route_by_path": {"frame_step": frame_routes, "fleet": fleet["fleet_routes"],
                           "device_loop": {"cluster": 0, "tile": 0}, "train": train["eval_routes"]},
         "ms_by_route": {"T65": {str(B): v for B, v in by_route.items()},
@@ -2041,6 +2287,9 @@ def main() -> int:
             "name": f"scan_bptt.{name}", "route": "cuda", "source": BPTT_SOURCE, "replaces": BPTT_REPLACES[name],
             "launches": train["counts"][launches], "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "launches_on_accuracy_path": {"demo_train": accuracy["ntm"]["train_counts"][launches],
+                                          "flagship_train": accuracy["flagship"]["counts"][launches],
+                                          "clip": accuracy["ntm"]["host_counts"][launches]},
         }
         kernels.append(bptt[name])
     bptt["forward"].update({

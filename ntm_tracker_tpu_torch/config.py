@@ -1,8 +1,7 @@
 """Typed configuration, field for field the one of ntm_tracker_tpu/config.py.
 
 Same dataclasses, fields and defaults; `TrackerConfig.compute_dtype` is a
-torch dtype. `DNCConfig` is kept as data so configs stay interchangeable,
-but the port has no DNC core yet (models/core.py raises for it).
+torch dtype.
 """
 
 from __future__ import annotations
@@ -57,6 +56,8 @@ class DNCConfig:
     num_writes: int = 1
     hidden_size: int = 200
     clip_value: float = 20.0
+    # checkpoint chunks of C steps in training (models/dnc/dnc.dnc_unroll);
+    # None is the port's auto, 0: one saved state per step
     remat_chunk: Optional[int] = None
 
 

@@ -4,11 +4,13 @@ A flat dict of numpy arrays is the interchange format (it is also what
 `np.savez` writes). NTM keys keep the JAX pytree names:
 `controller[l].kernel` [in+Hc, 4Hc] (gate order i, j, f, o),
 `controller[l].bias`, `heads_w`, `heads_b`, `out_w`, `out_b`,
-`init_M` [N, D], `init_w` [H, N], `init_read` [R, D]. VGG keys are
+`init_M` [N, D], `init_w` [H, N], `init_read` [R, D]. DNC keys are
+`controller[0].kernel` / `.bias`, `access.interface_w`, `access.interface_b`,
+`out_w` and `out_b`. VGG keys are
 `<layer>/weights` in the JAX package's HWIO layout and `<layer>/biases`
 (`conv1/conv1_1/weights`, ...); the port holds VGG weights as OIHW.
-Optimizer state (TF RMSProp's `ms` and `mom`, trees shaped like the NTM
-params) flattens to `ms/<param key>` and `mom/<param key>`.
+Optimizer state (TF RMSProp's `ms` and `mom`, trees shaped like the
+params of either core) flattens to `ms/<param key>` and `mom/<param key>`.
 """
 
 from __future__ import annotations
@@ -22,21 +24,26 @@ import torch
 _CTRL = re.compile(r"controller\[(\d+)\]\.(kernel|bias)$")
 
 
-def flatten_ntm_params(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """NTM params (the JAX pytree, or the port's dict) -> flat float32 numpy dict."""
+def flatten_params(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """NTM or DNC params (the JAX pytree, or the port's dict) -> flat
+    float32 numpy dict: `controller[l].kernel`, a nested dict's leaves as
+    `<name>.<leaf>` (the DNC's `access.interface_w`), the rest by name."""
     flat = {}
     for key, value in tree.items():
         if key == "controller":
             for layer, p in enumerate(value):
                 flat[f"controller[{layer}].kernel"] = _np(p["kernel"])
                 flat[f"controller[{layer}].bias"] = _np(p["bias"])
+        elif isinstance(value, Mapping):
+            flat.update({f"{key}.{k}": _np(v) for k, v in value.items()})
         else:
             flat[key] = _np(value)
     return flat
 
 
-def ntm_params_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[str, Any]:
-    """Flat numpy dict -> the port's NTM params (float32 tensors on `device`)."""
+def params_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[str, Any]:
+    """Flat numpy dict -> the port's NTM or DNC params (float32 tensors on
+    `device`)."""
     params: Dict[str, Any] = {}
     layers: Dict[int, Dict[str, torch.Tensor]] = {}
     for key, value in flat.items():
@@ -44,6 +51,9 @@ def ntm_params_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[st
         t = torch.tensor(np.asarray(value, np.float32), device=device)
         if m:
             layers.setdefault(int(m.group(1)), {})[m.group(2)] = t
+        elif "." in key:
+            outer, inner = key.split(".", 1)
+            params.setdefault(outer, {})[inner] = t
         else:
             params[key] = t
     if sorted(layers) != list(range(len(layers))):
@@ -52,9 +62,15 @@ def ntm_params_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[st
     return params
 
 
+# the two cores' trees flatten the same way
+flatten_ntm_params = flatten_dnc_params = flatten_params
+ntm_params_from_flat = dnc_params_from_flat = params_from_flat
+
+
 def _rmsprop_trees(opt_state: Any):
     """(ms, mom) of the port's {"ms", "mom"} dict, or of the JAX package's
-    optimizer state: a TFRMSPropState, or an optax chain holding one."""
+    optimizer state: a TFRMSPropState, or an optax chain holding one. The
+    trees are shaped like the params, of either core."""
     if isinstance(opt_state, Mapping):
         return opt_state["ms"], opt_state["mom"]
     if hasattr(opt_state, "ms") and hasattr(opt_state, "mom"):
@@ -69,8 +85,8 @@ def flatten_opt_state(opt_state: Any) -> Dict[str, np.ndarray]:
     """TF RMSProp state (the port's or the JAX package's) -> flat float32
     numpy dict with `ms/...` and `mom/...` keys."""
     ms, mom = _rmsprop_trees(opt_state)
-    flat = {f"ms/{k}": v for k, v in flatten_ntm_params(ms).items()}
-    flat.update({f"mom/{k}": v for k, v in flatten_ntm_params(mom).items()})
+    flat = {f"ms/{k}": v for k, v in flatten_params(ms).items()}
+    flat.update({f"mom/{k}": v for k, v in flatten_params(mom).items()})
     return flat
 
 
@@ -79,7 +95,7 @@ def opt_state_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[str
     out = {}
     for name in ("ms", "mom"):
         prefix = f"{name}/"
-        out[name] = ntm_params_from_flat(
+        out[name] = params_from_flat(
             {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}, device
         )
     return out

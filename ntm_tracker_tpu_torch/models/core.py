@@ -1,5 +1,7 @@
-"""The MemoryCore facade (counterpart of ntm_tracker_tpu/models/core.py),
-NTM only: the DNC core is not ported yet."""
+"""The MemoryCore facade: the NTM and DNC cores behind one functional
+bundle (counterpart of ntm_tracker_tpu/models/core.py). The reference's
+two training entries differ only in the recurrent core
+(direct_offset_output.py, direct_offset_output_with_dnc.py)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import torch
 
 from ntm_tracker_tpu_torch.config import TrackerConfig
 from ntm_tracker_tpu_torch.models import ntm_cell
+from ntm_tracker_tpu_torch.models.dnc import dnc as dnc_mod
 from ntm_tracker_tpu_torch.models.ntm_tracker import ntm_tracker_unroll
 
 
@@ -36,7 +39,7 @@ class MemoryCore:
 
 def make_core(cfg: TrackerConfig) -> MemoryCore:
     if cfg.core == "dnc":
-        raise NotImplementedError("the DNC core is not ported yet")
+        return _dnc_core(cfg)
     if cfg.core != "ntm":
         raise ValueError(f"unknown core: {cfg.core!r}")
     ncfg = cfg.ntm
@@ -66,5 +69,26 @@ def make_core(cfg: TrackerConfig) -> MemoryCore:
             fused_bptt=cfg.train.fused_bptt if fused_bptt is None else fused_bptt,
         )
         return logits, final
+
+    return MemoryCore(init_params=init_params, init_state=init_state, unroll=unroll, step=step)
+
+
+def _dnc_core(cfg: TrackerConfig) -> MemoryCore:
+    dcfg = cfg.dnc
+
+    def init_params(generator, input_size, device=None):
+        return dnc_mod.init_dnc_params(dcfg, input_size, generator, device)
+
+    def init_state(params, batch):
+        # the DNC's initial state is all zeros (dnc/dnc.py:129-134)
+        return dnc_mod.init_dnc_state(dcfg, batch, device=params["out_w"].device)
+
+    def unroll(params, inputs, state=None, remat=True, fused_bptt=None):
+        # no fused kernel serves the DNC: fused_bptt is not read
+        return dnc_mod.dnc_unroll(params, dcfg, inputs, state=state, remat=remat,
+                                  remat_chunk=dcfg.remat_chunk)
+
+    def step(params, x, state):
+        return dnc_mod.dnc_step(params, dcfg, x, state)
 
     return MemoryCore(init_params=init_params, init_state=init_state, unroll=unroll, step=step)

@@ -56,6 +56,29 @@ def init_vgg_params(generator: Optional[torch.Generator] = None, device=None) ->
     return params
 
 
+def load_params_npz(path: str, device=None) -> Params:
+    """VGG params from a .npz with slim checkpoint names
+    (`vgg_16/<block>/<layer>/weights` [3,3,in,out] HWIO, `/biases` [out]),
+    the JAX package's convert-vgg output; the weights come out OIHW. conv5
+    may be missing (it serves only the pool5 endpoint)."""
+    data = np.load(path)
+    params: Params = {}
+    for name, out_ch, _ in VGG16_PREFIX:
+        key = f"vgg_16/{name}/weights"
+        if key not in data:
+            if name.startswith("conv5"):
+                continue
+            raise KeyError(key)
+        w = np.asarray(data[key], np.float32)
+        if w.ndim != 4 or w.shape[-1] != out_ch:
+            raise ValueError(f"{key} has shape {w.shape}, expected [3, 3, in, {out_ch}]")
+        params[name] = {
+            "weights": torch.tensor(np.ascontiguousarray(w.transpose(3, 2, 0, 1)), device=device),
+            "biases": torch.tensor(np.asarray(data[f"vgg_16/{name}/biases"], np.float32), device=device),
+        }
+    return params
+
+
 def _conv_relu(x, w, b, compute_dtype=None, padding: int = 1):
     """3x3 conv + bias + ReLU on NCHW. With a compute_dtype the operands
     are cast to it and the bias is added in float32."""

@@ -62,3 +62,10 @@ def sharpen(w: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-3) -> torch.Te
     """w^gamma / (sum w^gamma + 1e-3); w [B,H,N] >= 0, gamma [B,H,1]."""
     powed = torch.pow(w, gamma)
     return powed / (torch.sum(powed, dim=2, keepdim=True) + eps)
+
+
+def weighted_softmax(activations: torch.Tensor, strengths: torch.Tensor, strength_op) -> torch.Tensor:
+    """softmax(activations * strength_op(strengths)[..., None]) over the
+    last axis (the DNC's content weighting, dnc/addressing.py:39-55).
+    activations [B,H,N], strengths [B,H]."""
+    return torch.softmax(activations * strength_op(strengths)[..., None], dim=-1)

@@ -28,17 +28,12 @@ from ntm_tracker_tpu_torch.models.core import MemoryCore, make_core
 from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN
 from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
 from ntm_tracker_tpu_torch.train.experiments import frame_tokens
+from ntm_tracker_tpu_torch.train.optim import tree_map
 from ntm_tracker_tpu_torch.train.serialize import serialize_streaming_batch
 
 
 def _to_device(tree, device):
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    return tree
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def use_fused_kernel(cfg: TrackerConfig, batch: int, device: torch.device) -> bool:

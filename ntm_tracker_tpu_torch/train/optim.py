@@ -13,8 +13,9 @@ after tf.clip_by_global_norm (direct_offset_output.py:611-626):
 torch.optim.RMSprop starts ms at zeros and adds eps outside the sqrt, and
 clip_grad_norm_ divides by norm + 1e-6, so neither is used. The update is
 functional over the params tree (a dict whose "controller" is a list of
-per-layer dicts): the state {"ms", "mom"} is a pair of trees of the same
-shape, so a checkpoint of {"params", "opt_state"} holds both.
+per-layer dicts; the DNC's also nests its "access" dict): the state
+{"ms", "mom"} is a pair of trees of the same shape, so a checkpoint of
+{"params", "opt_state"} holds both.
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ Tree = Any
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """Map fn over the tensor leaves of nested dicts and lists."""
+    """Map fn over the tensor leaves of nested dicts, lists, tuples and
+    NamedTuples (the DNC's state, rebuilt from its fields)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *[r[k] for r in rest]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *[r[i] for r in rest]) for i, v in enumerate(tree))
+        children = [tree_map(fn, v, *[r[i] for r in rest]) for i, v in enumerate(tree)]
+        return type(tree)(*children) if hasattr(tree, "_fields") else type(tree)(children)
     return fn(tree, *rest)
 
 

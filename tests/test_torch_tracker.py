@@ -165,8 +165,13 @@ def test_entry_points_need_a_card_unless_told_cpu():
         ttracker.build_frame_step(cfg, make_core(cfg), {}, {})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttracker.StreamingTracker(cfg, {}, {})
-    with pytest.raises(NotImplementedError):
-        make_core(dataclasses.replace(cfg, core="dnc"))
+    # the DNC core is ported: its StreamingTracker needs a card too
+    dnc = dataclasses.replace(cfg, core="dnc")
+    assert make_core(dnc).init_params is not None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttracker.StreamingTracker(dnc, {}, {})
+    with pytest.raises(ValueError, match="unknown core"):
+        make_core(dataclasses.replace(cfg, core="lstm"))
 
 
 @pytest.mark.parametrize("with_target,delimiter_first", [(True, True), (True, False), (False, False)])
