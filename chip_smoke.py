@@ -14,7 +14,11 @@ train step; splits B3's phases with its probe variant (clock64() stamps);
 then the accuracy path: the demo config's NTM trains through B2 until its
 loss falls and tracks a held-out clip through B1 within the accuracy
 artifact's tripwires, the DNC's train step on the card is held against the
-CPU's, and the flagship width trains on build_dataset's tokens.
+CPU's, and the flagship width trains on build_dataset's tokens; last the
+real-data path through the CLI on a synthetic VID tree: preprocess,
+cache-features (tokens against the CPU's), train-offsets on cached tokens
+(step 0's loss against the CPU's, B2's and B1's launches counted) and on
+decoded frames (host and device resize), and a resume from a checkpoint.
 
     python3 chip_smoke.py
 
@@ -36,6 +40,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -82,7 +87,7 @@ PREVIOUS_MS = {"forward": 161.1, "backward": 383.4, "grad_reduce": 24.7}
 # the training slice's shape: the JAX bench's cached-token train step
 # (ntm_tracker_tpu/benchmarks.py:646), B=256 rows of L=20 frames
 TRAIN_B, TRAIN_L = 256, 20
-B8_L = 10
+B8_L = 4
 PACKED_SOURCE = "ntm_tracker_tpu_torch/csrc/scan_packed.cu"
 ADDR_NAME = "addressing.fused_ntm_addressing"
 ADDR_SOURCE = "ntm_tracker_tpu_torch/csrc/addressing.cu"
@@ -110,7 +115,30 @@ LOOP_TOL_PX = 5e-2
 ACC_STEPS, ACC_WINDOW = 60, 10
 ACC_FLAG_SEQS, ACC_FLAG_STEPS, ACC_FLAG_WINDOW = 64, 20, 5
 ACC_CLIP_FRAMES, ACC_DNC_FRAMES = 12, 4
+# the DNC's card-against-CPU train step runs 3 frames a clip (T = 195), not
+# the demo's 8: its eager step is host dispatch, ~0.5 s a frame on each side
+ACC_DNC_L = 3
 DNC_LOSS_RTOL = 1e-4
+# the data phase: a synthetic VID tree (seqname, split, (width, height),
+# frames, objects; an object is a track, so a sequence dir after
+# preprocess): 8 train tracks at 1280x720, 8 val tracks at 640x360 (the
+# TF1 resize), driven through the port's CLI at TrackerConfig()'s width.
+# The cached run trains DATA_EPOCHS steps at B = DATA_B (one an epoch), the
+# raw-frame runs DATA_RAW_STEPS at B = DATA_RAW_B over the first
+# DATA_RAW_LIMIT train tracks (more steps than the prefetcher's 2 batches
+# ahead, so its wait shows). Tokens: the card's against the CPU's on the
+# same crops (float32 VGG, TF32 off), <= 1e-4 of the largest; step 0's
+# loss on the card against the CPU's, <= 1e-4, and so the resumed run's
+# first validation and the device resize's step 0 against the host's.
+DATA_SEQS = (
+    ("ILSVRC2015_train_00000000", "train", (1280, 720), 24, 4),
+    ("ILSVRC2015_train_00000001", "train", (1280, 720), 24, 4),
+    ("ILSVRC2015_val_00000000", "val", (640, 360), 24, 8),
+)
+DATA_B, DATA_EPOCHS = 8, 10
+DATA_RAW_B, DATA_RAW_STEPS, DATA_RAW_LIMIT = 2, 6, 6
+DATA_TOKEN_FRAMES = 4
+DATA_TOL = 1e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -1078,13 +1106,36 @@ def report_step(tag: str, err: dict) -> None:
         raise AssertionError(f"{tag}: the fused train step disagrees with the plain one")
 
 
-def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
+def train_reference(dev: torch.device) -> dict:
+    """The training slice's inputs and its float64 referee, in plain
+    PyTorch (no kernel of the port), so that main runs them while nvcc
+    builds: the config, params, optimizer state, the device batch (cached
+    tokens, B=256 rows of L=20 frames) and the plain loop's gradients in
+    float64 from those params on that batch."""
+    from ntm_tracker_tpu_torch.config import TrackerConfig, TrainConfig
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, synthetic_cached_batch
+
+    base = TrackerConfig(train=TrainConfig(batch_size=TRAIN_B, sequence_length=TRAIN_L))
+    exp = OffsetExperiment(base, None, device=dev)  # fused_bptt="auto": the kernels on cuda at f32
+    params, opt_state = exp.init(torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    batch = exp.device_batch(synthetic_cached_batch(base, np.random.RandomState(0)))
+    batch_s = time.perf_counter() - t0
+    expp = OffsetExperiment(dataclasses.replace(base, train=dataclasses.replace(base.train, fused_bptt=False)),
+                            None, device=dev)
+    t0 = time.perf_counter()
+    g64 = offsets_grads(expp, params, batch, torch.float64)[2]
+    return {"base": base, "exp": exp, "expp": expp, "params": params, "opt_state": opt_state, "batch": batch,
+            "batch_s": batch_s, "g64": g64, "g64_s": time.perf_counter() - t0}
+
+
+def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     """The training slice at full width: OffsetExperiment on cached tokens,
     B=256 rows of L=20 frames (T=1300), through the fused BPTT kernels;
     the main path's first step held against the plain autograd step from
-    the same params at the same shape (and again at B=8); then the
-    kernels' own times."""
-    from ntm_tracker_tpu_torch.config import TrackerConfig, TrainConfig
+    the same params at the same shape (and again at B=8), and both against
+    `ref`'s float64 gradients (train_reference); then the kernels' own
+    times."""
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
     from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
     from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused, route_for, run_route
@@ -1092,14 +1143,11 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     from ntm_tracker_tpu_torch.train.optim import tree_leaves, tree_map
     from ntm_tracker_tpu_torch.train.serialize import serialize_tokens
 
-    base = TrackerConfig(train=TrainConfig(batch_size=TRAIN_B, sequence_length=TRAIN_L))
+    base, exp, expp, batch = ref["base"], ref["exp"], ref["expp"], ref["batch"]
+    params, opt_state = ref["params"], ref["opt_state"]
     ncfg, L = base.ntm, base.ntm.controller_num_layers
-    exp = OffsetExperiment(base, None, device=dev)  # fused_bptt="auto": the kernels on cuda at f32
-    params, opt_state = exp.init(torch.Generator().manual_seed(1))
-    t0 = time.perf_counter()
-    batch = exp.device_batch(synthetic_cached_batch(base, np.random.RandomState(0)))
     log("train", f"synthetic cached batch B={TRAIN_B} L={TRAIN_L} (float16 tokens {tuple(batch['features'].shape)}) "
-                 f"made and uploaded in {time.perf_counter() - t0:.1f}s")
+                 f"made and uploaded in {ref['batch_s']:.1f}s (while the kernels built)")
     train_step, eval_step = exp.make_train_step(), exp.make_eval_step()
     kernels = (ntm_scan_fused, scan_bptt.bptt_forward, scan_bptt.token_projection, scan_bptt.bptt_backward,
                scan_bptt.grad_reduce)
@@ -1150,8 +1198,6 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     # ---- the main path's first step against the plain autograd step at B=256 ------
     opt = exp.optimizer()
     floss, flogits, fgrads, _, _ = offsets_grads(exp, params, batch)
-    expp = OffsetExperiment(dataclasses.replace(base, train=dataclasses.replace(base.train, fused_bptt=False)),
-                            None, device=dev)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1177,12 +1223,11 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
         raise AssertionError("the fused forward disagrees with the plain one at the main path's shape")
     # both float32 routes against the plain loop in float64: which of them
     # carries the gap between them
-    t0 = time.perf_counter()
-    g64 = offsets_grads(expp, params, batch, torch.float64)[2]
+    g64 = ref.pop("g64")
     names = list(named_leaves(params))
     vs64 = {tag: grad_errors(dict(zip(names, g)), dict(zip(names, g64))) for tag, g in (("fused", fgrads), ("plain", pgrads))}
-    log("train", f"B={TRAIN_B} gradients vs the plain loop in float64 ({time.perf_counter() - t0:.1f}s), max rel per "
-                 f"parameter, fused / plain float32: "
+    log("train", f"B={TRAIN_B} gradients vs the plain loop in float64 ({ref['g64_s']:.1f}s, while the kernels built), "
+                 f"max rel per parameter, fused / plain float32: "
                  + ", ".join(f"{k} {vs64['fused'][k]:.2e} / {vs64['plain'][k]:.2e}" for k in names))
     worst64 = max(vs64["fused"].values())
     if worst64 > GRAD_TOL:
@@ -1192,9 +1237,9 @@ def phase_train(dev: torch.device, smi: str, IN: int) -> dict:
     check_budget("train")
 
     # ---- one fused step against one plain autograd step at B=8 --------------------
-    # at L=B8_L frames (T=650), half the main path's depth: the plain step's
-    # eager loop costs ~14 s a pass at T=1300, and the B=256 step above is
-    # held at the full depth
+    # at L=B8_L frames (T=260), a fifth of the main path's depth: the plain
+    # step's eager loop costs ~14 s a pass at T=1300, and the B=256 step
+    # above is held at the full depth
     cfg8 = dataclasses.replace(base, train=dataclasses.replace(base.train, batch_size=8, sequence_length=B8_L,
                                                                fused_bptt=True))
     cfg8p = dataclasses.replace(cfg8, train=dataclasses.replace(cfg8.train, fused_bptt=False))
@@ -1911,6 +1956,7 @@ def phase_accuracy(dev: torch.device, smi: str) -> dict:
     # differ by rounding, that order a near-tie apart differ by ~1e-3 of a
     # gradient's largest entry however right both are.
     dcfg = demo_config(core="dnc")
+    dcfg = dataclasses.replace(dcfg, train=dataclasses.replace(dcfg.train, sequence_length=ACC_DNC_L))
     cpu = torch.device("cpu")
     dexp = OffsetExperiment(dcfg, vgg, image_mode="cropped", device=dev)
     dparams, dopt = dexp.init(torch.Generator().manual_seed(2))
@@ -2016,6 +2062,259 @@ def phase_accuracy(dev: torch.device, smi: str) -> dict:
     return out
 
 
+def run_periods_ms(run: dict) -> tuple:
+    """(median ms between consecutive train-step starts after the first,
+    seconds waited on the prefetcher before step 0, the share of the run
+    from step 0's start to the last step's that the loop waited on the
+    prefetcher): a period holds the step, the loss read that logs it and
+    the wait for the next batch; the first also holds the validation."""
+    starts, waits = run["step_starts"], run["waits"]
+    periods = np.diff(starts[1:]) * 1e3 if len(starts) > 2 else np.diff(starts) * 1e3
+    window = starts[-1] - starts[0]
+    return float(np.median(periods)), float(waits[0]), float(sum(waits[1:len(starts)]) / window)
+
+
+def phase_data(dev: torch.device, smi: str) -> dict:
+    """The real-data training path through the port's CLI, at
+    TrackerConfig()'s width, on a synthetic VID tree built here: (a)
+    preprocess, also --augment; (b) cache-features: float16, base and flip,
+    of every record; float32, base and flip, of the records that (d) and
+    the token check read; 4 frames' tokens against the CPU's on the same
+    crops; (c) train-offsets --feature_cache: step 0's loss against the
+    CPU's from the same params and batch, B2 once a step, B1 once in the
+    validation; (d) train-offsets on decoded frames, host and device
+    resize: the step-0 batch's tokens against the float32 cache's, the two
+    runs' step-0 losses against each other; (e) a resume from (c)'s
+    checkpoint, its first validation against the CPU's from the restored
+    params."""
+    import os
+    import shutil
+    import tempfile
+
+    from ntm_tracker_tpu_torch import cli
+    from ntm_tracker_tpu_torch.data import loader
+    from ntm_tracker_tpu_torch.data.feature_cache import load_token_batch, token_batch_iterator
+    from ntm_tracker_tpu_torch.data.image_ops import preprocess_frame
+    from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
+    from ntm_tracker_tpu_torch.data.synthetic_vid import write_vid_tree
+    from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, frame_tokens
+    from ntm_tracker_tpu_torch.train.harness import CheckpointManager
+
+    d = str(dev)
+    cpu = torch.device("cpu")
+    L, B = TRAIN_L, DATA_B
+    parser = cli.build_parser()
+    out = {}
+    root = tempfile.mkdtemp(prefix="ntm_data_")
+    cwd = os.getcwd()
+    # relative paths inside the tree: the train/val split reads the path
+    os.chdir(root)
+    try:
+        # ---- (a) the tree and preprocess ---------------------------------------
+        t0 = time.perf_counter()
+        write_vid_tree(".", seed=0, sequences=DATA_SEQS)
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli.main(["--device", d, "preprocess", "--annotation_dir", "Annotations", "--image_dir", "Data",
+                  "--output_dir", "cropped", "--num_workers", "1"])
+        cli.main(["--device", d, "preprocess", "--annotation_dir", "Annotations", "--image_dir", "Data",
+                  "--output_dir", "augmented", "--num_workers", "1", "--augment", "--max_sequence_length", str(L)])
+        pre_s = time.perf_counter() - t0
+        records = sum(n * objects for _, _, _, n, objects in DATA_SEQS)
+        written = sum(len(files) for _, _, files in os.walk("cropped")) // 2
+        _, train, val = get_valid_sequences("cropped", L)
+        _, aug_train, _ = get_valid_sequences("augmented", L)
+        log("data", f"synthetic VID tree {[(s[0], s[2], s[3], s[4]) for s in DATA_SEQS]} in "
+                    f"{tree_s:.2f}s; preprocess (and --augment) {pre_s:.2f}s: {written} records of {records}, "
+                    f"{len(train)} train / {len(val)} val sequences of {L} frames, {len(aug_train)} augmented")
+        if written != records or len(train) < B or len(val) < B or not aug_train:
+            raise AssertionError(f"preprocess kept {written} of {records} records, {len(train)} train and "
+                                 f"{len(val)} val sequences (B={B}), {len(aug_train)} augmented")
+        check_budget("data_preprocess")
+
+        # ---- (b) cache-features ------------------------------------------------
+        args = parser.parse_args(["train-offsets", "--sequences_dir", "cropped", "--sequence_length", str(L)])
+        cfg, seed = cli._tracker_config(args, "ntm"), args.seed
+        # 4 records' tokens (2 train, 2 val: the resize) and the raw route's
+        # step-0 batch: the float32 cache holds only their sequences
+        frames = [os.path.join(train[0][0], train[0][1][0]), os.path.join(train[-1][0], train[-1][1][-1]),
+                  os.path.join(val[0][0], val[0][1][0]), os.path.join(val[-1][0], val[-1][1][-1])][:DATA_TOKEN_FRAMES]
+        names = next(loader.epoch_batches(train[:DATA_RAW_LIMIT], DATA_RAW_B, True, seed, 1))
+        os.mkdir("cropped_f32")
+        for seq in sorted({os.path.dirname(f) for f in frames + list(names)}):
+            os.symlink(os.path.abspath(seq), os.path.join("cropped_f32", os.path.basename(seq)))
+        loader.reset_route_counts()
+        builds = {}
+        for store, seqs_dir in (("float16", "cropped"), ("float32", "cropped_f32")):
+            args = parser.parse_args(["--device", d, "cache-features", "--sequences_dir", seqs_dir, "--cache_dir",
+                                      f"cache_{store}", "--store_dtype", store, "--reverse_image",
+                                      "--frames_per_batch", str(records)])
+            t0 = time.perf_counter()
+            mans = cli.cache_features(args)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            n = sum(m["num_frames"] for m in mans)
+            builds[store] = {"s": secs, "frames": n, "frames_per_s": n / secs}
+        decode = {r: dict(c) for r, c in loader.DECODE_ROUTES.items()}
+        from ntm_tracker_tpu_torch.data import native_jpeg
+
+        try:
+            native_jpeg._get_fn()
+            native_note = "built"
+        except RuntimeError as e:
+            native_note = str(e).splitlines()[0][:160]
+
+        fb = loader.load_frame_batch(frames, decode_resize_hw=tuple(cfg.data.resize_hw))
+        vgg = init_vgg_params(torch.Generator().manual_seed(0), dev)
+        vgg_cpu = init_vgg_params(torch.Generator().manual_seed(0), cpu)
+        with torch.no_grad():
+            crops = preprocess_frame(torch.as_tensor(fb.images, device=dev), torch.as_tensor(fb.cropboxes, device=dev),
+                                     resize_hw=cfg.data.resize_hw, crop_size=cfg.data.crop_size, do_resize=False)
+            card = frame_tokens(cfg, vgg, crops).cpu().numpy()
+            plain = frame_tokens(cfg, vgg_cpu, crops.cpu()).numpy()
+        cached32 = load_token_batch(frames, 8, "cache_float32").features
+        cached16 = load_token_batch(frames, 8, "cache_float16").features.astype(np.float32)
+        scale = float(np.abs(plain).max())
+        tok_err = float(np.abs(cached32 - plain).max()) / scale
+        card_err = float(np.abs(card - cached32).max()) / scale
+        f16_err = float(np.abs(cached16 - cached32).max()) / scale
+        ms_frame = {r: c["seconds"] / max(c["frames"], 1) * 1e3 for r, c in decode.items()}
+        log("data", f"{smi}: cache-features (VGG on the card, TF32 off, frames_per_batch {records}, base + flip): "
+                    f"float16, every record: {builds['float16']['frames']} frames in {builds['float16']['s']:.2f}s = "
+                    f"{builds['float16']['frames_per_s']:.1f} frames/s; float32, the checked records' sequences: "
+                    f"{builds['float32']['frames']} in {builds['float32']['s']:.2f}s = "
+                    f"{builds['float32']['frames_per_s']:.1f} frames/s; decode + resize by route (unique frames a "
+                    f"batch) {decode}, ms a frame { {r: round(v, 3) for r, v in ms_frame.items()} }; native jpeg "
+                    f"pipeline: {native_note}; record reader {dict(loader.RECORD_ROUTES)}")
+        log("data", f"cached float32 tokens of {len(frames)} records against the CPU's VGG on the same crops: rel "
+                    f"max_abs {tok_err:.2e} (tol {DATA_TOL:g}); the card's on these {len(frames)} crops alone "
+                    f"{card_err:.2e} (cuDNN's algorithm differs with the batch); float16 cache vs float32 {f16_err:.2e}")
+        if tok_err > DATA_TOL or card_err > DATA_TOL or f16_err > 1e-3 or not np.isfinite(plain).all():
+            raise AssertionError(f"cached tokens disagree: vs CPU {tok_err:.2e}, vs the card's {card_err:.2e}, "
+                                 f"float16 {f16_err:.2e}")
+        out.update(builds=builds, decode=decode, decode_ms_frame=ms_frame, native_jpeg=native_note,
+                   token_rel_err=tok_err, f16_rel_err=f16_err, record_routes=dict(loader.RECORD_ROUTES))
+        check_budget("data_cache")
+
+        # ---- (c) train-offsets --feature_cache -----------------------------------
+        common = ["--sequences_dir", "cropped", "--sequence_length", str(L), "--log_interval", "1",
+                  "--validation_interval", "1000"]
+        args = parser.parse_args(["--device", d, "train-offsets", *common, "--feature_cache", "cache_float16",
+                                  "--batch_size", str(B), "--num_epochs", str(DATA_EPOCHS), "--log_dir", "log_cached"])
+        reset_all_counts()
+        run = cli.train_offsets(args)
+        counts = kernel_counts()
+        step_ms, wait0_s, wait_share = run_periods_ms(run)
+        recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
+        losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        val_losses = [r["val_loss"] for r in recs if "val_loss" in r]
+        # step 0 on the CPU: the params of the step-0 checkpoint, the first batch
+        ckpt_dir = os.path.join(run["log_dir"], "ckpt")
+        ckpt = CheckpointManager(ckpt_dir)
+        params0 = ckpt.restore(0, map_location=cpu)["params"]
+        tb = next(token_batch_iterator(train, B, "cache_float16", 8, shuffle=True, seed=seed, epochs=1))
+        batch = {k: getattr(tb, k) for k in ("features", "gts", "y_offsets", "x_offsets")}
+        cpu_exp = OffsetExperiment(cfg, None, device=cpu)
+        t0 = time.perf_counter()
+        cpu_loss = float(cpu_exp.loss_fn(params0, batch)[0])
+        cpu_s = time.perf_counter() - t0
+        loss_rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+        evals = len(val_losses)
+        log("data", f"{smi}: train-offsets --feature_cache B={B} L={L}: {run['steps']} steps, step {step_ms:.2f} ms "
+                    f"(median, the loss read every step); waiting on the prefetcher {wait0_s * 1e3:.2f} ms before step "
+                    f"0, then {wait_share:.2%} of the run from step 0's start to the last step's; loss "
+                    f"{losses[0]:.4f} -> {losses[-1]:.4f}, val {val_losses}; step 0 against the CPU from the same "
+                    f"params and batch: {losses[0]:.6f} / {cpu_loss:.6f}, rel {loss_rel:.2e} (tol {DATA_TOL:g}; the "
+                    f"CPU's plain loop {cpu_s:.1f}s); launches {counts}")
+        steps = run["steps"]
+        if loss_rel > DATA_TOL or not np.isfinite(losses + val_losses).all() or steps != DATA_EPOCHS * (len(train) // B):
+            raise AssertionError(f"the cached run: step-0 loss rel {loss_rel:.2e}, {steps} steps")
+        if dev.type == "cuda" and not (
+                counts["bptt_forward"] == counts["bptt_backward"] == steps and counts["grad_reduce"] == 2 * steps
+                and counts["token_projection"] == steps + evals and counts["ntm_scan_fused"] == evals == 1):
+            raise AssertionError(f"the cached run did not launch B2 once a step and B1 once a validation: {counts}")
+        out["cached"] = {"steps": steps, "step_ms": step_ms, "wait0_ms": wait0_s * 1e3, "wait_share": wait_share,
+                         "losses": losses, "loss_rel_cpu": loss_rel, "counts": counts}
+        check_budget("data_cached")
+
+        # ---- (d) train-offsets on decoded frames, host and device resize ---------
+        fb = loader.load_frame_batch(names, decode_resize_hw=tuple(cfg.data.resize_hw))
+        exp = OffsetExperiment(cfg, vgg, image_mode="resized", device=dev)
+        with torch.no_grad():
+            toks = exp.batch_features(exp.device_batch({"images": fb.images, "cropboxes": fb.cropboxes}))
+        cached = load_token_batch(names, 8, "cache_float32").features
+        raw_err = float(np.abs(toks.reshape(cached.shape).cpu().numpy() - cached).max()) / float(np.abs(cached).max())
+        raw = {}
+        epochs = DATA_RAW_STEPS // (DATA_RAW_LIMIT // DATA_RAW_B)
+        for name, extra in (("host_resize", []), ("device_resize", ["--device_resize"])):
+            args = parser.parse_args(["--device", d, "train-offsets", *common, "--batch_size", str(DATA_RAW_B),
+                                      "--limit", str(DATA_RAW_LIMIT), "--num_epochs", str(epochs),
+                                      "--log_dir", f"log_{name}", *extra])
+            loader.reset_route_counts()
+            reset_all_counts()
+            run = cli.train_offsets(args)
+            counts = kernel_counts()
+            step_ms, wait0_s, wait_share = run_periods_ms(run)
+            recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
+            rl = [r["train_loss"] for r in recs if "train_loss" in r]
+            raw[name] = {"steps": run["steps"], "step_ms": step_ms, "wait0_ms": wait0_s * 1e3, "wait_share": wait_share,
+                         "losses": rl, "counts": counts,
+                         "decode": {r: dict(c) for r, c in loader.DECODE_ROUTES.items()}}
+            log("data", f"{smi}: train-offsets on decoded frames ({name}) B={DATA_RAW_B} L={L}: {run['steps']} steps, "
+                        f"step {step_ms:.2f} ms (median; VGG on the card every step); waiting on the prefetcher "
+                        f"{wait0_s * 1e3:.2f} ms before step 0, then {wait_share:.2%} of the run from step 0's start "
+                        f"to the last step's; losses {[round(v, 4) for v in rl]}; decode {raw[name]['decode']}; "
+                        f"launches {counts}")
+            if (run["steps"] != DATA_RAW_STEPS or not np.isfinite(rl).all()
+                    or (dev.type == "cuda" and counts["bptt_forward"] != DATA_RAW_STEPS)):
+                raise AssertionError(f"the raw-frame run ({name}) took {run['steps']} steps: {counts}")
+        resize_rel = abs(raw["device_resize"]["losses"][0] - raw["host_resize"]["losses"][0]) / abs(
+            raw["host_resize"]["losses"][0])
+        log("data", f"the raw route's step-0 batch: VGG tokens on the card against the float32 cache's for the "
+                    f"same {len(names)} records: rel max_abs {raw_err:.2e} (tol {DATA_TOL:g}); step 0's loss with "
+                    f"the device resize against the host resize's: rel {resize_rel:.2e} (tol {DATA_TOL:g})")
+        if raw_err > DATA_TOL or resize_rel > DATA_TOL:
+            raise AssertionError(f"the raw route disagrees: tokens against the cache's {raw_err:.2e}, step 0's loss "
+                                 f"device against host resize {resize_rel:.2e}")
+        out["raw"] = raw
+        out["raw_token_rel_err"] = raw_err
+        out["raw_resize_loss_rel"] = resize_rel
+        check_budget("data_raw")
+
+        # ---- (e) resume from (c)'s checkpoint ------------------------------------
+        args = parser.parse_args(["--device", d, "train-offsets", *common, "--validation_interval", "1",
+                                  "--feature_cache", "cache_float16", "--batch_size", str(B), "--num_epochs", "1",
+                                  "--ckpt_path", ckpt_dir, "--log_dir", "log_resumed"])
+        last = ckpt.restore(ckpt.latest_step(), map_location=cpu)["params"]
+        reset_all_counts()
+        resumed = cli.train_offsets(args)
+        counts = kernel_counts()
+        recs = [json.loads(line) for line in open(os.path.join(resumed["log_dir"], "metrics.jsonl"))]
+        val0 = next(r["val_loss"] for r in recs if "val_loss" in r)
+        vb = next(token_batch_iterator(val, B, "cache_float16", 8, shuffle=True, seed=seed, epochs=1))
+        vbatch = {k: getattr(vb, k) for k in ("features", "gts", "y_offsets", "x_offsets")}
+        ref_val = float(cpu_exp.loss_fn(last, vbatch)[0])
+        val_rel = abs(val0 - ref_val) / abs(ref_val)
+        with torch.no_grad():
+            card_val = float(exp.make_eval_step()(ckpt.restore(ckpt.latest_step())["params"], vbatch)["loss"])
+        log("data", f"{smi}: resumed from step {ckpt.latest_step()}'s checkpoint: {resumed['steps']} more step(s); "
+                    f"its first validation {val0:.6f}, the CPU's from the restored params on the same batch "
+                    f"{ref_val:.6f}, rel {val_rel:.2e} (tol {DATA_TOL:g}), the card's eval step's {card_val:.6f}; "
+                    f"launches {counts}")
+        if (resumed["steps"] != len(train) // B or val_rel > DATA_TOL
+                or abs(val0 - card_val) > 1e-6 * abs(card_val)):
+            raise AssertionError(f"the resumed run: {resumed['steps']} steps, validation {val0} vs the CPU's "
+                                 f"{ref_val} and the card's eval step's {card_val}")
+        out["resumed"] = {"steps": resumed["steps"], "val_rel_cpu": val_rel, "counts": counts}
+        check_budget("data")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
@@ -2051,19 +2350,25 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------------
     # one nvcc per library, all started together (scan_packed.cu builds
     # three: its forward, its backward, their probe variants); every build
-    # ends before the first timed phase
+    # ends before the first timed phase; meanwhile the train phase's inputs
+    # and float64 referee, plain PyTorch on the idle card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    paths = _build.build_all(["scan_cell", "scan_bptt", "addressing", "scan_packed", "scan_packed_bwd",
-                              "scan_packed_probe"])
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(_build.build_all, ["scan_cell", "scan_bptt", "addressing", "scan_packed",
+                                               "scan_packed_bwd", "scan_packed_probe"])
+        ref = train_reference(dev)
+        ref_s = time.perf_counter() - t0
+        paths = built.result()
     for name in paths:
         _build.load_library(name)
     log("build", f"all libraries ready in {time.perf_counter() - t0:.2f}s (parallel nvcc; "
-                 f"{', '.join(p.name for p in paths.values())})")
+                 f"{', '.join(p.name for p in paths.values())}); the train phase's batch and float64 referee "
+                 f"meanwhile in {ref_s:.2f}s")
     check_budget("build")
 
     # ---- 3. kernel vs plain version on the card ----------------------------
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     IN = TrackerConfig().input_depth
     cluster = phase_cluster_info(dev, IN)
     # (cfg, B, compute dtype, route): None = the route the rule picks
@@ -2245,13 +2550,19 @@ def main() -> int:
     fleet = phase_fleet(dev, smi, cfg, vgg, params)
 
     # ---- 7. the training slice at full width, and the B2 kernels' times -------
-    train = phase_train(dev, smi, IN)
+    train = phase_train(dev, smi, IN, ref)
 
     # ---- 7b. the lane-packed kernels (B4) at the frame and train shapes -------
     packed = phase_packed(dev, smi, IN, train)
 
     # ---- 7c. the accuracy path: training learns, the trackers track ---------
     accuracy = phase_accuracy(dev, smi)
+
+    # ---- 7d. the real-data path: preprocess, cache-features, train-offsets ----
+    data = phase_data(dev, smi)
+    data_counts = {"data_cached_train": data["cached"]["counts"], "data_raw_host_resize":
+                   data["raw"]["host_resize"]["counts"], "data_raw_device_resize": data["raw"]["device_resize"]["counts"],
+                   "data_resume": data["resumed"]["counts"]}
 
     # ---- 8. result -----------------------------------------------------------
     # B1 runs on every main path: `launches` is the frame path's count; the
@@ -2268,9 +2579,11 @@ def main() -> int:
                              "accuracy_clip": accuracy["ntm"]["host_counts"]["ntm_scan_fused"],
                              "accuracy_device_loop": accuracy["ntm"]["loop_counts"]["ntm_scan_fused"],
                              "accuracy_demo_train": accuracy["ntm"]["train_counts"]["ntm_scan_fused"],
-                             "accuracy_flagship_train": accuracy["flagship"]["counts"]["ntm_scan_fused"]},
+                             "accuracy_flagship_train": accuracy["flagship"]["counts"]["ntm_scan_fused"],
+                             **{k: c["ntm_scan_fused"] for k, c in data_counts.items()}},
         "route_by_path": {"frame_step": frame_routes, "fleet": fleet["fleet_routes"],
-                          "device_loop": {"cluster": 0, "tile": 0}, "train": train["eval_routes"]},
+                          "device_loop": {"cluster": 0, "tile": 0}, "train": train["eval_routes"],
+                          **{k: c["ntm_scan_fused_by_route"] for k, c in data_counts.items()}},
         "ms_by_route": {"T65": {str(B): v for B, v in by_route.items()},
                         f"B{train['b1']['B']}_T{train['b1']['T']}": train["b1"]["ms_by_route"]},
         "routes_in_kernel_cases": case_routes, "cluster": cluster, "tile_route_source": BPTT_SOURCE,
@@ -2290,6 +2603,7 @@ def main() -> int:
             "launches_on_accuracy_path": {"demo_train": accuracy["ntm"]["train_counts"][launches],
                                           "flagship_train": accuracy["flagship"]["counts"][launches],
                                           "clip": accuracy["ntm"]["host_counts"][launches]},
+            "launches_on_data_path": {k: c[launches] for k, c in data_counts.items()},
         }
         kernels.append(bptt[name])
     bptt["forward"].update({

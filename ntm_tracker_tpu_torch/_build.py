@@ -1,11 +1,13 @@
-"""Build the CUDA sources under csrc/ with nvcc and load them with ctypes.
+"""Build the CUDA sources under csrc/ with nvcc, and the host sources
+under native/ with g++, and load them with ctypes.
 
 Each source is compiled on its own into a shared library with a plain C
 interface (no PyTorch headers, so nvcc takes seconds). The library lands
 in `_build/<hash>/`, keyed by a hash of the source, the shared headers
-(csrc/*.cuh) and the flags, and is built at first use in a process.
-`build_all` starts one nvcc per library at once. A library in VARIANTS is
-built from another library's source with flags of its own.
+(csrc/*.cuh for a CUDA source) and the flags, and is built at first use in
+a process. `build_all` starts one compiler per library at once. A library
+in VARIANTS is built from another library's source with flags of its own;
+a library in HOST_LIBRARIES is native/<name>.cpp, built with g++.
 """
 
 from __future__ import annotations
@@ -21,12 +23,19 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
+NATIVE = _PKG / "native"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NVCC_TIMEOUT_S = 300
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+# host library name -> its link flags (native/<name>.cpp, built with g++)
+HOST_LIBRARIES = {
+    "record_loader": (),
+    "jpeg_pipeline": ("-ljpeg",),
+}
 # library name -> (the csrc/<source>.cu it is built from, its extra nvcc flags)
 VARIANTS = {
     "scan_packed_bwd": ("scan_packed", ("-DNTM_PACKED_BACKWARD",)),
@@ -41,26 +50,41 @@ def _nvcc() -> str:
     return path
 
 
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found on PATH")
+    return path
+
+
 def _source_and_flags(name: str) -> tuple:
+    """(compiler, source, flags before the output) of the library `name`;
+    a host library's link flags go after its source."""
+    if name in HOST_LIBRARIES:
+        return _gxx, NATIVE / f"{name}.cpp", GXX_FLAGS
     source, extra = VARIANTS.get(name, (name, ()))
-    return CSRC / f"{source}.cu", (*NVCC_FLAGS, *extra)
+    return _nvcc, CSRC / f"{source}.cu", (*NVCC_FLAGS, *extra)
 
 
 def library_path(name: str) -> Path:
-    """Where the library `name` (csrc/<name>.cu, or its VARIANTS entry) lives."""
-    source, flags = _source_and_flags(name)
+    """Where the library `name` (csrc/<name>.cu, its VARIANTS entry, or
+    native/<name>.cpp) lives."""
+    _, source, flags = _source_and_flags(name)
     parts = [source.read_bytes()]
-    parts += [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
+    if name in HOST_LIBRARIES:
+        parts.append(" ".join(HOST_LIBRARIES[name]).encode())
+    else:
+        parts += [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
     parts.append(" ".join(flags).encode())
     key = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     return BUILD_ROOT / key / f"lib{name}.so"
 
 
 def build_all(names) -> dict:
-    """Compile the library of every name not built yet (csrc/<name>.cu, or
-    its VARIANTS entry), one nvcc each, all started together; prints each nvcc time and
-    ptxas's register, shared-memory and spill report. Returns
-    {name: library path}."""
+    """Compile the library of every name not built yet (csrc/<name>.cu, its
+    VARIANTS entry, or native/<name>.cpp), one compiler each, all started
+    together; prints each compile time and ptxas's register, shared-memory
+    and spill report. Returns {name: library path}."""
     outs = {name: library_path(name) for name in names}
     running = []
     for name, out in outs.items():
@@ -68,8 +92,8 @@ def build_all(names) -> dict:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        source, flags = _source_and_flags(name)
-        cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
+        compiler, source, flags = _source_and_flags(name)
+        cmd = [compiler(), *flags, "-o", str(tmp), str(source), *HOST_LIBRARIES.get(name, ())]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         running.append((name, out, tmp, proc, time.perf_counter()))
     failed = []
@@ -79,13 +103,13 @@ def build_all(names) -> dict:
         except subprocess.TimeoutExpired:
             proc.kill()
             stdout, stderr = proc.communicate()
-            failed.append(f"nvcc timed out after {NVCC_TIMEOUT_S} s building {name}")
+            failed.append(f"the compiler timed out after {NVCC_TIMEOUT_S} s building {name}")
             continue
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc exited {proc.returncode} building {name}:\n{stdout}{stderr}")
+            failed.append(f"{cmd[0]} exited {proc.returncode} building {name}:\n{stdout}{stderr}")
             continue
-        print(f"[build] {name}: nvcc {secs:.2f} s\n{stderr.strip()}", flush=True)
+        print(f"[build] {name}: {os.path.basename(cmd[0])} {secs:.2f} s\n{stderr.strip()}", flush=True)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -63,11 +63,11 @@ def ntm_tracker_unroll(
     apply.
     """
     if layout == "dn":
-        raise NotImplementedError("layout='dn' is not ported (ROADMAP.md, item A3)")
+        raise NotImplementedError("layout='dn' is not ported (ROADMAP.md, item A9)")
     if layout != "nd":
         raise ValueError(f"unknown scan layout {layout!r}")
     if remat == "dots":
-        raise NotImplementedError("remat='dots' is not ported (ROADMAP.md, item A3)")
+        raise NotImplementedError("remat='dots' is not ported (ROADMAP.md, item A9)")
     if remat not in (True, False, "full", "none"):
         raise ValueError(f"unknown remat policy {remat!r}")
     if state is None:

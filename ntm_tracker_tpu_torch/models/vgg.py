@@ -79,6 +79,31 @@ def load_params_npz(path: str, device=None) -> Params:
     return params
 
 
+# torchvision vgg16's `features` index of each VGG16_PREFIX conv
+_TORCHVISION_FEATURES = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+
+
+def load_params_torch(state_dict, device=None) -> Params:
+    """VGG params from a torchvision vgg16 state dict (`features.<i>.weight`
+    [out,in,3,3] OIHW, `features.<i>.bias`), the layout the port keeps. conv5
+    may be missing (it serves only the pool5 endpoint)."""
+    params: Params = {}
+    for (name, out_ch, _), i in zip(VGG16_PREFIX, _TORCHVISION_FEATURES):
+        key = f"features.{i}.weight"
+        if key not in state_dict:
+            if name.startswith("conv5"):
+                continue
+            raise KeyError(key)
+        w = torch.as_tensor(state_dict[key], dtype=torch.float32)
+        if w.ndim != 4 or w.shape[0] != out_ch:
+            raise ValueError(f"{key} has shape {tuple(w.shape)}, expected [{out_ch}, in, 3, 3]")
+        params[name] = {
+            "weights": w.contiguous().to(device),
+            "biases": torch.as_tensor(state_dict[f"features.{i}.bias"], dtype=torch.float32).to(device),
+        }
+    return params
+
+
 def _conv_relu(x, w, b, compute_dtype=None, padding: int = 1):
     """3x3 conv + bias + ReLU on NCHW. With a compute_dtype the operands
     are cast to it and the bias is added in float32."""

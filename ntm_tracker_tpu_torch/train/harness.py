@@ -3,7 +3,9 @@ checkpoints (counterpart of ntm_tracker_tpu/train/harness.py).
 
 Checkpoints are `torch.save` files of {"params", "opt_state"} (any tree of
 tensors) at <directory>/<step>.pt, with the reference's save_path.txt
-breadcrumb naming the latest one (direct_offset_output.py:329-333).
+breadcrumb naming the latest one (direct_offset_output.py:329-333). A
+NamedTuple (the DNC's states) is saved as a dict of its fields, as orbax
+saves it for the JAX package; a restore with a template rebuilds it.
 """
 
 from __future__ import annotations
@@ -57,25 +59,72 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any):
         tmp = self._path(step) + ".tmp"
-        torch.save(state, tmp)
+        torch.save(_saveable(state), tmp)
         os.replace(tmp, self._path(step))
         for old in self.steps()[:-self._max_to_keep]:
             os.remove(self._path(old))
         with open(os.path.join(self._dir, "save_path.txt"), "w") as f:
             f.write(os.path.join(self._dir, str(step)))
 
-    def restore(self, step: Optional[int] = None, map_location=None) -> Any:
+    def restore(self, step: Optional[int] = None, template: Any = None, partial: bool = False,
+                map_location=None) -> Any:
         """The saved tree of `step` (default: the latest), its tensors on
-        map_location (default: where they were saved)."""
+        map_location (default: where they were saved). With a template the
+        tree comes back in the template's structure, NamedTuples included,
+        each tensor on its template tensor's device; the saved tree must
+        have the template's keys, or with partial=True hold them (a
+        subtree, such as the params without the optimizer state: the
+        weights-only restore of inference)."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self._dir}")
-        return torch.load(self._path(step), map_location=map_location, weights_only=True)
+        raw = torch.load(self._path(step), map_location=map_location, weights_only=True)
+        if template is None:
+            return raw
+        return _extract(template, raw, partial, "")
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
         return steps[-1] if steps else None
+
+
+def _saveable(tree: Any) -> Any:
+    """The tree with every NamedTuple as a dict of its fields."""
+    if isinstance(tree, dict):
+        return {k: _saveable(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {f: _saveable(v) for f, v in zip(tree._fields, tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_saveable(v) for v in tree)
+    return tree
+
+
+def _extract(tmpl: Any, value: Any, partial: bool, where: str) -> Any:
+    """`value` in the structure of `tmpl` (see CheckpointManager.restore)."""
+    if isinstance(tmpl, dict) or (isinstance(tmpl, tuple) and hasattr(tmpl, "_fields")):
+        keys = tmpl._fields if isinstance(tmpl, tuple) else list(tmpl)
+        if not isinstance(value, dict):
+            raise ValueError(f"restore: {where or 'the root'} is a {type(value).__name__}, the template's a mapping")
+        missing = [k for k in keys if k not in value]
+        extra = [k for k in value if k not in keys]
+        if missing or (extra and not partial):
+            raise ValueError(f"restore: at {where or 'the root'} the checkpoint lacks {missing} "
+                             f"and has {extra} beyond the template (partial=True takes a subtree)")
+        items = [_extract(t, value[k], partial, f"{where}/{k}")
+                 for k, t in zip(keys, tmpl if isinstance(tmpl, tuple) else tmpl.values())]
+        return type(tmpl)(*items) if isinstance(tmpl, tuple) else dict(zip(keys, items))
+    if isinstance(tmpl, (list, tuple)):
+        if not isinstance(value, (list, tuple)) or len(value) != len(tmpl):
+            raise ValueError(f"restore: at {where} the template holds a sequence of {len(tmpl)}, "
+                             f"the checkpoint {value!r:.80}")
+        return type(tmpl)(_extract(t, v, partial, f"{where}[{i}]") for i, (t, v) in enumerate(zip(tmpl, value)))
+    if isinstance(tmpl, torch.Tensor):
+        if not isinstance(value, torch.Tensor) or value.shape != tmpl.shape:
+            raise ValueError(f"restore: at {where} the template's tensor has shape {tuple(tmpl.shape)}, "
+                             f"the checkpoint holds {getattr(value, 'shape', value)!r}")
+        return value.to(tmpl.device)
+    return value
 
 
 def train_loop(
@@ -100,7 +149,7 @@ def train_loop(
     (params, opt_state, steps run). profile_steps needs utils/profiling,
     which is not ported: it raises."""
     if profile_steps is not None:
-        raise NotImplementedError("profile_steps: utils/profiling is not ported (ROADMAP.md, item A16)")
+        raise NotImplementedError("profile_steps: utils/profiling is not ported (ROADMAP.md, item A8)")
     logger = logger or MetricLogger(log_dir)
     step = 0
     for batch in train_batches:

@@ -123,3 +123,105 @@ def test_checkpoint_restores_onto_another_device_map(tmp_path):
     mgr.save(1, {"params": {"w": torch.ones(2)}})
     got = mgr.restore(map_location="cpu")
     assert got["params"]["w"].device.type == "cpu"
+
+
+def _dnc_tree(seed: int):
+    """A full checkpoint of the DNC: params, the optimizer state and a
+    DNCState (NamedTuples nested two deep)."""
+    from ntm_tracker_tpu_torch.config import DNCConfig
+    from ntm_tracker_tpu_torch.models.dnc.dnc import init_dnc_params, init_dnc_state
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    dcfg = DNCConfig(memory_size=6, word_size=3, num_reads=2, hidden_size=5)
+    g = torch.Generator().manual_seed(seed)
+    params = init_dnc_params(dcfg, 7, g)
+    state = tree_map(lambda t: t + torch.rand(t.shape, generator=g), init_dnc_state(dcfg, 2))
+    opt = {"ms": tree_map(torch.ones_like, params), "mom": tree_map(torch.zeros_like, params)}
+    return {"params": params, "opt_state": opt, "state": state}
+
+
+def test_partial_restore_of_params_and_namedtuple_states(tmp_path):
+    from ntm_tracker_tpu_torch.models.dnc.dnc import DNCState
+
+    full = _dnc_tree(0)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(3, full)
+    template = _dnc_tree(1)
+    # params only, from a checkpoint that also holds opt_state and state
+    got = mgr.restore(template={"params": template["params"]}, partial=True)
+    assert list(got) == ["params"] and _same_tree(got["params"], full["params"])
+    # the DNC's state comes back as its NamedTuples
+    got = mgr.restore(template={"state": template["state"]}, partial=True)
+    assert isinstance(got["state"], DNCState)
+    assert type(got["state"].access_state) is type(full["state"].access_state)
+    assert type(got["state"].access_state.linkage) is type(full["state"].access_state.linkage)
+    assert _same_tree(got["state"], full["state"])
+    # the whole tree with its template; without one, NamedTuples are field dicts (as orbax keeps them)
+    assert _same_tree(mgr.restore(template=template), full)
+    raw = mgr.restore()
+    assert isinstance(raw["state"], dict) and list(raw["state"]) == list(DNCState._fields)
+    # a template that is not the checkpoint's tree, without partial=True, raises
+    with pytest.raises(ValueError, match="partial=True"):
+        mgr.restore(template={"params": template["params"]})
+    with pytest.raises(ValueError, match="shape"):
+        bad = _dnc_tree(2)
+        bad["params"]["out_b"] = torch.zeros(9)
+        mgr.restore(template={"params": bad["params"]}, partial=True)
+    with pytest.raises(ValueError, match="lacks"):
+        mgr.restore(template={"extra": torch.zeros(1)}, partial=True)
+
+
+def sorted_leaves(tree) -> list:
+    """The leaves in jax.tree_util's order: dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in sorted_leaves(v)]
+    return [tree]
+
+
+def test_partial_restore_matches_the_jax_package(tmp_path):
+    """The same tree saved by the JAX package's CheckpointManager (orbax)
+    and by the port's, restored params-only and state-only from each in
+    its own package: the same arrays and the same NamedTuple structure."""
+    import jax
+
+    from ntm_tracker_tpu.models.dnc import dnc as jdnc
+    from ntm_tracker_tpu.train.harness import CheckpointManager as JCheckpointManager
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    full = _dnc_tree(0)
+    as_np = lambda tree: tree_map(lambda t: t.numpy(), tree)  # noqa: E731
+
+    from ntm_tracker_tpu.models.dnc import access as jaccess
+    from ntm_tracker_tpu.models.dnc import addressing as jaddressing
+
+    jax_types = {"DNCState": jdnc.DNCState, "AccessState": jaccess.AccessState,
+                 "TemporalLinkageState": jaddressing.TemporalLinkageState}
+
+    def to_jax_state(s):
+        """The port's state as the JAX package's NamedTuples of numpy arrays."""
+        if isinstance(s, torch.Tensor):
+            return s.numpy()
+        if hasattr(s, "_fields"):
+            return jax_types[type(s).__name__](*map(to_jax_state, s))
+        return type(s)(map(to_jax_state, s))
+
+    jtree = {"params": as_np(full["params"]), "opt_state": as_np(full["opt_state"]),
+             "state": to_jax_state(full["state"])}
+    jmgr = JCheckpointManager(str(tmp_path / "jax"))
+    jmgr.save(3, jtree)
+    mgr = CheckpointManager(str(tmp_path / "port"))
+    mgr.save(3, full)
+    tmpl = _dnc_tree(1)
+    jtmpl = {"params": as_np(tmpl["params"]), "state": to_jax_state(tmpl["state"])}
+    for key in ("params", "state"):
+        got = mgr.restore(template={key: tmpl[key]}, partial=True)[key]
+        ref = jmgr.restore(template={key: jtmpl[key]}, partial=True)[key]
+        got_leaves = [t.numpy() for t in sorted_leaves(got)]
+        ref_leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(ref)]
+        assert len(got_leaves) == len(ref_leaves)
+        for a, b in zip(got_leaves, ref_leaves):
+            np.testing.assert_array_equal(a, b)
+        if key == "state":
+            assert got._fields == ref._fields and got.access_state._fields == ref.access_state._fields
