@@ -14,11 +14,17 @@ train step; splits B3's phases with its probe variant (clock64() stamps);
 then the accuracy path: the demo config's NTM trains through B2 until its
 loss falls and tracks a held-out clip through B1 within the accuracy
 artifact's tripwires, the DNC's train step on the card is held against the
-CPU's, and the flagship width trains on build_dataset's tokens; last the
+CPU's, and the flagship width trains on build_dataset's tokens; then the
 real-data path through the CLI on a synthetic VID tree: preprocess,
 cache-features (tokens against the CPU's), train-offsets on cached tokens
 (step 0's loss against the CPU's, B2's and B1's launches counted) and on
-decoded frames (host and device resize), and a resume from a checkpoint.
+decoded frames (host and device resize), and a resume from a checkpoint;
+then, in the same tree, the experiment lab through the CLI: train-heatmap
+(both serializations, B2 with the tokens' gradient under the compressor),
+train-wholeframe and train-active-resize (B2 once a frame) on a pickle
+mine-sequences makes, train-offsets --save_imgs (the dashboards through B1
+a chunk), dnc-repeat-copy and the legacy NTM, each training path's first
+step against the plain route on the card.
 
     python3 chip_smoke.py
 
@@ -139,6 +145,29 @@ DATA_B, DATA_EPOCHS = 8, 10
 DATA_RAW_B, DATA_RAW_STEPS, DATA_RAW_LIMIT = 2, 6, 6
 DATA_TOKEN_FRAMES = 4
 DATA_TOL = 1e-4
+# the lab phase, at TrackerConfig()'s width: train-heatmap (both
+# serializations; sequential T = 64 + 19 x 129 = 2,515, frame T = 1,300) and
+# train-offsets --save_imgs (the dashboards' chunked unroll_states) at B =
+# LAB_B, L = LAB_L on the data phase's float16 cache, LAB_STEPS steps each;
+# train-wholeframe (pool5, IN 49 x 128 + 49 = 6,321, +1 two-step) and
+# train-active-resize (LAB_AR_L frames, T = 65 a frame) at B = LAB_PICKLE_B
+# for LAB_PICKLE_EPOCHS epochs on a pickle mine-sequences makes from a VID
+# tree of the phase's own (LAB_SEQS, its boxes on pool5's prior cells);
+# dnc-repeat-copy at its defaults, LAB_DNC_ITERS iterations; one
+# legacy_ntm_unroll_batched. Each training path's first step is held
+# against the plain route on the card at depth LAB_CHECK_L (the loss within
+# F32_TOL, each gradient within GRAD_TOL of its largest); the DNC's step-0
+# loss and the legacy NTM against the CPU's (DNC_LOSS_RTOL, LEGACY_TOL).
+LAB_B, LAB_L, LAB_STEPS, LAB_CHECK_L = 8, 20, 3, 2
+LAB_SEQS, LAB_FRAMES, LAB_SIDE = 2, 24, 448
+LAB_PICKLE_B, LAB_PICKLE_EPOCHS, LAB_AR_L = 2, 2, 4
+LAB_DNC_ITERS = 3
+LAB_LEGACY_B, LAB_LEGACY_T = 4, 20
+# a gradient that vanishes in exact arithmetic (the sequential stream's
+# output bias: the softmax over one channel's F steps ignores a shift) is
+# rounding on both routes, held under this share of the largest gradient
+LAB_ZERO_TOL = 1e-5
+LEGACY_TOL = 1e-5
 
 
 def log(phase: str, msg: str) -> None:
@@ -2074,7 +2103,7 @@ def run_periods_ms(run: dict) -> tuple:
     return float(np.median(periods)), float(waits[0]), float(sum(waits[1:len(starts)]) / window)
 
 
-def phase_data(dev: torch.device, smi: str) -> dict:
+def phase_data(dev: torch.device, smi: str, root: str = None) -> dict:
     """The real-data training path through the port's CLI, at
     TrackerConfig()'s width, on a synthetic VID tree built here: (a)
     preprocess, also --augment; (b) cache-features: float16, base and flip,
@@ -2086,7 +2115,8 @@ def phase_data(dev: torch.device, smi: str) -> dict:
     resize: the step-0 batch's tokens against the float32 cache's, the two
     runs' step-0 losses against each other; (e) a resume from (c)'s
     checkpoint, its first validation against the CPU's from the restored
-    params."""
+    params. The tree is built under `root` and left there for the lab
+    phase; root=None builds it in a temporary directory, removed after."""
     import os
     import shutil
     import tempfile
@@ -2106,7 +2136,8 @@ def phase_data(dev: torch.device, smi: str) -> dict:
     L, B = TRAIN_L, DATA_B
     parser = cli.build_parser()
     out = {}
-    root = tempfile.mkdtemp(prefix="ntm_data_")
+    own = root is None
+    root = tempfile.mkdtemp(prefix="ntm_data_") if own else root
     cwd = os.getcwd()
     # relative paths inside the tree: the train/val split reads the path
     os.chdir(root)
@@ -2311,7 +2342,297 @@ def phase_data(dev: torch.device, smi: str) -> dict:
         check_budget("data")
     finally:
         os.chdir(cwd)
-        shutil.rmtree(root, ignore_errors=True)
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def lab_vid_tree(root: str) -> None:
+    """LAB_SEQS train sequences of LAB_FRAMES frames, LAB_SIDE square, one
+    object each: pool5's prior cell at row and column 3 of 7, drifting half
+    a pixel a frame (its IoU with that cell stays above mine-sequences'
+    0.5, so every frame is kept)."""
+    from ntm_tracker_tpu_torch.data.synthetic_vid import write_vid_sequence
+
+    rng = np.random.RandomState(5)
+    cell = LAB_SIDE // 7
+    for k in range(LAB_SEQS):
+        tracks = np.array([[[3 * cell, 3 * cell + t // 2, 4 * cell, 4 * cell + t // 2]] for t in range(LAB_FRAMES)])
+        write_vid_sequence(root, f"ILSVRC2015_train_{k:08d}", "train", (LAB_SIDE, LAB_SIDE), tracks, rng)
+
+
+def lab_grads(exp, params, batch) -> tuple:
+    """(loss, {path: grad}, ms) of exp.loss_fn's gradient wrt every param
+    (interop.py's paths; zeros where the loss does not reach), host clock
+    around it, ending in a sync."""
+    from ntm_tracker_tpu_torch.interop import flatten_params
+    from ntm_tracker_tpu_torch.train.optim import tree_leaves, tree_map
+
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = exp.loss_fn(live, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    fill = iter([torch.zeros_like(p) if g is None else g for p, g in zip(tree_leaves(live), grads)])
+    return float(loss.detach()), flatten_params(tree_map(lambda _: next(fill), live)), ms
+
+
+def lab_first_step(tag: str, exp, plain_exp, params, batch, zero=()) -> dict:
+    """The first step's loss and gradients through exp (fused_bptt "auto":
+    B2 on the card) against plain_exp (fused_bptt False: the plain loop on
+    the card), from the same params and batch; `zero` names gradients that
+    vanish in exact arithmetic (LAB_ZERO_TOL)."""
+    reset_all_counts()
+    loss, g, ms = lab_grads(exp, params, batch)
+    counts = kernel_counts()
+    ploss, pg, pms = lab_grads(plain_exp, params, batch)
+    largest = max(float(np.abs(v).max()) for v in pg.values())
+    rel = {k: float(np.abs(g[k] - v).max()) / max(float(np.abs(v).max()), 1e-30) for k, v in pg.items() if k not in zero}
+    worst = max(rel, key=rel.get)
+    zero_err = max([float(max(np.abs(g[k]).max(), np.abs(pg[k]).max())) / largest for k in zero] or [0.0])
+    loss_rel = abs(loss - ploss) / abs(ploss)
+    log("lab", f"{tag} first step at L={LAB_CHECK_L}, B2 against the plain loop on the card from the same params and "
+               f"batch: loss {loss:.6f} / {ploss:.6f} rel {loss_rel:.2e} (tol {F32_TOL:g}); gradients max rel "
+               f"{rel[worst]:.2e} at {worst} (tol {GRAD_TOL:g} of each one's largest)"
+               + (f", {list(zero)} (zero in exact arithmetic) {zero_err:.2e} of the largest (tol {LAB_ZERO_TOL:g})"
+                  if zero else "") + f"; loss + gradients {ms:.1f} ms fused, {pms:.1f} ms plain; launches {counts}")
+    if loss_rel > F32_TOL or rel[worst] > GRAD_TOL or zero_err > LAB_ZERO_TOL or (
+            exp.device.type == "cuda" and counts["bptt_forward"] < 1):
+        raise AssertionError(f"{tag}: the first step through B2 disagrees with the plain route or ran no B2")
+    return {"loss_rel": loss_rel, "grad_rel": rel[worst], "grad_worst": worst, "zero_rel": zero_err,
+            "ms": ms, "plain_ms": pms, "counts": counts}
+
+
+def phase_lab(dev: torch.device, smi: str, root: str) -> dict:
+    """The experiment lab through the port's CLI on the card, in the data
+    phase's tree (`root`, its float16 token cache): (a) train-heatmap
+    --serialization sequential, (b) --serialization frame --compress_dim 128
+    (B2 computes the tokens' gradient), (c) train-wholeframe at pool5, plain
+    and --two_step, on a pickle mine-sequences makes from the phase's VID
+    tree, (d) train-active-resize there (B2 once a frame, the state and its
+    cotangents chained), (e) train-offsets --save_imgs (one validation's
+    views through B1 in chunks; its loss against the eval step's), (f)
+    dnc-repeat-copy (step 0's loss against the CPU's), (g)
+    legacy_ntm_unroll_batched against the CPU's. (a)-(d): the first step
+    against the plain route on the card at LAB_CHECK_L, then the path at full
+    depth for its step ms and launches."""
+    import os
+
+    from ntm_tracker_tpu_torch import cli
+    from ntm_tracker_tpu_torch.data.feature_cache import token_batch_iterator
+    from ntm_tracker_tpu_torch.data.pickle_dataset import (
+        active_resize_get_batch, default_get_batch, load_generated_sequences, load_wholeframe_batch,
+    )
+    from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
+    from ntm_tracker_tpu_torch.models import legacy_ntm
+    from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
+    from ntm_tracker_tpu_torch.train.active_resize import ActiveResizeExperiment
+    from ntm_tracker_tpu_torch.train.dnc_trainer import RepeatCopyTrainConfig, repeat_copy_loss, repeat_copy_setup
+    from ntm_tracker_tpu_torch.train.experiments import HeatmapExperiment, WholeFrameExperiment
+    from ntm_tracker_tpu_torch.train.harness import CheckpointManager
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    d, cpu = str(dev), torch.device("cpu")
+    parser = cli.build_parser()
+    out, counts = {}, {}
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        vgg = init_vgg_params(torch.Generator().manual_seed(0), dev)
+
+        def plain(exp):
+            cfg = exp.cfg
+            return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, fused_bptt=False))
+
+        def at_depth(cfg, L, B):
+            return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, sequence_length=L, batch_size=B))
+
+        # ---- (a), (b) train-heatmap ------------------------------------------------
+        common = ["--sequences_dir", "cropped", "--feature_cache", "cache_float16", "--batch_size", str(LAB_B),
+                  "--log_interval", "1", "--validation_interval", "1000"]
+        _, train, _ = get_valid_sequences("cropped", LAB_L)
+        for tag, extra, zero in (("heatmap_sequential", ["--serialization", "sequential"], ["core.out_b"]),
+                                 ("heatmap_frame_compressor", ["--serialization", "frame", "--compress_dim", "128"],
+                                  [])):
+            # the first step against the plain route, at L = LAB_CHECK_L
+            args = parser.parse_args(["--device", d, "train-heatmap", *common, *extra, "--sequence_length",
+                                      str(LAB_CHECK_L)])
+            cfg = cli._tracker_config(args, "ntm")
+            exp = cli._make_experiment(args, cfg, None, dev)
+            params, _ = exp.init(torch.Generator().manual_seed(2))
+            _, short, _ = get_valid_sequences("cropped", LAB_CHECK_L)
+            tb = next(token_batch_iterator(short, LAB_B, "cache_float16", 8, shuffle=True, seed=0))
+            batch = exp.device_batch({k: getattr(tb, k) for k in ("features", "gts", "y_offsets", "x_offsets")})
+            pexp = HeatmapExperiment(plain(exp), None, device=dev, serialization=exp.serialization,
+                                     compress_dim=exp.compress_dim)
+            check = lab_first_step(tag, exp, pexp, params, batch, zero=zero)
+            # the path at full depth through the CLI
+            args = parser.parse_args(["--device", d, "train-heatmap", *common, *extra, "--sequence_length",
+                                      str(LAB_L), "--num_epochs", str(LAB_STEPS), "--log_dir", f"log_{tag}"])
+            reset_all_counts()
+            run = cli.train_offsets(args)
+            counts[tag] = kernel_counts()
+            recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
+            losses = [r["train_loss"] for r in recs if "train_loss" in r]
+            vals = [r["val_loss"] for r in recs if "val_loss" in r]
+            step_ms = run_periods_ms(run)[0]
+            c, steps = counts[tag], run["steps"]
+            T = (64 + (LAB_L - 1) * 129) if "sequential" in tag else LAB_L * 65
+            IN = (exp.compress_dim or 512) + (3 if exp.serialization == "sequential" else 2)
+            log("lab", f"{smi}: train-heatmap {' '.join(extra)} B={LAB_B} L={LAB_L} (T={T}, IN {IN}, output_dim "
+                       f"{exp.cfg.ntm.output_dim}): {steps} steps, step {step_ms:.2f} ms (median, the "
+                       f"loss read every step); losses {[round(v, 4) for v in losses]}, validation {vals}; "
+                       f"launches {c}")
+            if steps != LAB_STEPS * (len(train) // LAB_B) or not np.isfinite(losses + vals).all() or (
+                    dev.type == "cuda" and not (c["bptt_forward"] == c["bptt_backward"] == steps
+                                                and c["grad_reduce"] == 2 * steps and c["ntm_scan_fused"] == len(vals)
+                                                and c["token_projection"] == steps + len(vals))):
+                raise AssertionError(f"train-heatmap {extra}: {steps} steps, launches {c}")
+            out[tag] = {"check": check, "steps": steps, "step_ms": step_ms, "losses": losses, "val": vals, "T": T,
+                        "IN": IN}
+            check_budget(f"lab_{tag}")
+
+        # ---- (c), (d) the pickle trainers on mine-sequences' pickle ---------------
+        lab_vid_tree("lab_vid")
+        cli.main(["--device", d, "mine-sequences", "--image_dirs", "lab_vid/Data", "--annotation_dirs",
+                  "lab_vid/Annotations", "--output_pickle", "lab.pkl", "--layers", "pool5", "--num_workers", "1"])
+        mined = load_generated_sequences("lab.pkl", LAB_L)
+        if len(mined) != LAB_SEQS:
+            raise AssertionError(f"mine-sequences kept {len(mined)} sequences of >= {LAB_L} frames, not {LAB_SEQS}")
+        pickle_common = ["--pickle_path", "lab.pkl", "--batch_size", str(LAB_PICKLE_B), "--log_interval", "1",
+                         "--num_epochs", str(LAB_PICKLE_EPOCHS)]
+        for tag, command, extra in (("wholeframe", "train-wholeframe", ["--feature_layer", "pool5"]),
+                                    ("wholeframe_two_step", "train-wholeframe",
+                                     ["--feature_layer", "pool5", "--two_step"]),
+                                    ("active_resize", "train-active-resize", [])):
+            L = LAB_L if command == "train-wholeframe" else LAB_AR_L
+            args = parser.parse_args(["--device", d, command, *pickle_common, *extra, "--sequence_length",
+                                      str(LAB_CHECK_L)])
+            cfg = cli._tracker_config(args, "ntm")
+            seqs = load_generated_sequences("lab.pkl", LAB_CHECK_L)
+            if command == "train-wholeframe":
+                exp = WholeFrameExperiment(cfg, vgg, endpoint="pool5", two_step="--two_step" in extra, device=dev)
+                pexp = WholeFrameExperiment(plain(exp), vgg, endpoint="pool5", two_step=exp.two_step, device=dev)
+                names, gts, _ = default_get_batch(0, LAB_PICKLE_B, LAB_CHECK_L, seqs)
+                batch = {"images": torch.as_tensor(load_wholeframe_batch(names, 224), device=dev),
+                         "gts": torch.as_tensor(gts, device=dev)}
+            else:
+                exp = ActiveResizeExperiment(cfg, vgg, compress_dim=128, device=dev)
+                pexp = ActiveResizeExperiment(plain(exp), vgg, compress_dim=128, device=dev)
+                names, boxes, _ = active_resize_get_batch(0, LAB_PICKLE_B, LAB_CHECK_L, seqs)
+                frames = load_wholeframe_batch(names, 224).reshape(LAB_PICKLE_B, LAB_CHECK_L, 224, 224, 3)
+                batch = {"frames": torch.as_tensor(frames, device=dev), "bboxes": torch.as_tensor(boxes, device=dev)}
+            params, _ = exp.init(torch.Generator().manual_seed(3))
+            check = lab_first_step(tag, exp, pexp, params, batch)
+            args = parser.parse_args(["--device", d, command, *pickle_common, *extra, "--sequence_length", str(L),
+                                      "--log_dir", f"log_{tag}"])
+            reset_all_counts()
+            run = (cli.train_wholeframe if command == "train-wholeframe" else cli.train_active_resize)(args)
+            counts[tag] = c = kernel_counts()
+            steps, losses = run["steps"], run["losses"]
+            step_ms = float(np.median(np.diff(run["step_starts"]))) * 1e3
+            per = 1 if command == "train-wholeframe" else L
+            IN = 49 * 128 + 49 + (1 if "two_step" in tag else 0) if command == "train-wholeframe" else 130
+            T = (2 * L - 1 if "two_step" in tag else L) if command == "train-wholeframe" else 65
+            log("lab", f"{smi}: {command} {' '.join(extra)} B={LAB_PICKLE_B} L={L} (IN {IN}, T {T}"
+                       f"{' a frame' if per > 1 else ''}, output_dim {exp.cfg.ntm.output_dim}): {steps} steps, step "
+                       f"{step_ms:.2f} ms (median; the batch decoded and VGG run each step); losses "
+                       f"{[round(v, 4) for v in losses]}; launches {c}")
+            if steps != LAB_PICKLE_EPOCHS * (LAB_SEQS // LAB_PICKLE_B) or not np.isfinite(losses).all() or (
+                    dev.type == "cuda" and not (c["bptt_forward"] == c["bptt_backward"] == c["token_projection"]
+                                                == per * steps and c["grad_reduce"] == 2 * per * steps
+                                                and c["ntm_scan_fused"] == 0)):
+                raise AssertionError(f"{command} {extra}: {steps} steps, launches {c}")
+            out[tag] = {"check": check, "steps": steps, "step_ms": step_ms, "losses": losses, "IN": IN, "T": T}
+            check_budget(f"lab_{tag}")
+
+        # ---- (e) train-offsets --save_imgs: the dashboards through B1 in chunks ---
+        args = parser.parse_args(["--device", d, "train-offsets", *common, "--sequence_length", str(LAB_L),
+                                  "--num_epochs", "1", "--save_imgs", "--log_dir", "log_save_imgs"])
+        reset_all_counts()
+        t0 = time.perf_counter()
+        run = cli.train_offsets(args)
+        run_s = time.perf_counter() - t0
+        counts["save_imgs"] = c = kernel_counts()
+        recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
+        val0 = next(r["val_loss"] for r in recs if "val_loss" in r)
+        pngs = sorted(f for f in os.listdir(run["log_dir"]) if f.endswith(".png"))
+        sizes = [os.path.getsize(os.path.join(run["log_dir"], f)) for f in pngs]
+        T = LAB_L * 65
+        stride = -(-T // 256)
+        chunks = T // stride + (1 if T % stride else 0)
+        ckpt = CheckpointManager(os.path.join(run["log_dir"], "ckpt"))
+        exp = cli._make_experiment(args, cli._tracker_config(args, "ntm"), None, dev)
+        _, _, val = get_valid_sequences("cropped", LAB_L)
+        vb = next(token_batch_iterator(val, LAB_B, "cache_float16", 8, shuffle=True, seed=args.seed, epochs=1))
+        vbatch = {k: getattr(vb, k) for k in ("features", "gts", "y_offsets", "x_offsets")}
+        params0 = ckpt.restore(0)["params"]
+        reset_all_counts()
+        eval_loss = float(exp.make_eval_step()(params0, vbatch)["loss"])
+        eval_counts = kernel_counts()
+        rel = abs(val0 - eval_loss) / abs(eval_loss)
+        log("lab", f"{smi}: train-offsets --save_imgs B={LAB_B} L={LAB_L} (T={T}): {run['steps']} step and one "
+                   f"validation through eval_with_views (unroll_states at stride {stride}: {chunks} B1 calls) in "
+                   f"{run_s:.2f}s; PNGs {dict(zip(pngs, sizes))}; launches {c}; the views' validation loss "
+                   f"{val0:.6f} against the eval step's (one B1 call, {eval_counts['ntm_scan_fused_by_route']}) "
+                   f"{eval_loss:.6f}, rel {rel:.2e} (tol {F32_TOL:g})")
+        if pngs != ["step_0_memory.png"] or min(sizes) <= 0 or rel > F32_TOL or (
+                dev.type == "cuda" and not (c["ntm_scan_fused"] == chunks and c["bptt_forward"] == run["steps"]
+                                            and c["token_projection"] == chunks + run["steps"])):
+            raise AssertionError(f"--save_imgs: PNGs {pngs}, launches {c}, validation rel {rel:.2e}")
+        out["save_imgs"] = {"chunks": chunks, "stride": stride, "s": run_s, "val_rel_eval": rel, "pngs": sizes}
+        check_budget("lab_save_imgs")
+
+        # ---- (f) dnc-repeat-copy ---------------------------------------------------
+        rcfg = RepeatCopyTrainConfig(seed=0)
+        task, dcfg, params, _ = repeat_copy_setup(rcfg, dev)
+        batch = task.sample()
+        card = float(repeat_copy_loss(params, dcfg, batch, dev))
+        host = float(repeat_copy_loss(tree_map(lambda t: t.to(cpu), params), dcfg, batch, cpu))
+        loss_rel = abs(card - host) / abs(host)
+        t0 = time.perf_counter()
+        cli.main(["--device", d, "dnc-repeat-copy", "--num_training_iterations", str(LAB_DNC_ITERS),
+                  "--report_interval", str(LAB_DNC_ITERS)])
+        dnc_s = time.perf_counter() - t0
+        log("lab", f"{smi}: dnc-repeat-copy at its defaults (memory 16x16, LSTM-64, batch 16, T "
+                   f"{task.max_total_length}): {LAB_DNC_ITERS} iterations in {dnc_s:.2f}s ("
+                   f"{dnc_s / LAB_DNC_ITERS * 1e3:.1f} ms each, plain PyTorch); step 0's loss on the card {card:.6f}, "
+                   f"on the CPU from the same params and batch {host:.6f}, rel {loss_rel:.2e} (tol {DNC_LOSS_RTOL:g})")
+        if loss_rel > DNC_LOSS_RTOL:
+            raise AssertionError(f"dnc-repeat-copy: step 0's loss on the card {card} against the CPU's {host}")
+        out["dnc_repeat_copy"] = {"loss_rel": loss_rel, "s": dnc_s}
+
+        # ---- (g) the legacy NTM ----------------------------------------------------
+        lcfg = legacy_ntm.LegacyNTMConfig()
+        lparams = legacy_ntm.init_legacy_params(lcfg, 514, torch.Generator().manual_seed(4))
+        rs = np.random.RandomState(6)
+        inputs = rs.randn(LAB_LEGACY_B, LAB_LEGACY_T, 514).astype(np.float32)
+        targets = rs.rand(LAB_LEGACY_B, lcfg.num_features).astype(np.float32)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            on_card = legacy_ntm.legacy_ntm_unroll_batched(tree_map(lambda t: t.to(dev), lparams), lcfg,
+                                                           torch.as_tensor(inputs, device=dev),
+                                                           torch.as_tensor(targets, device=dev))
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            on_card = tree_map(lambda t: t.to(cpu), on_card)
+            on_cpu = legacy_ntm.legacy_ntm_unroll_batched(lparams, lcfg, torch.as_tensor(inputs),
+                                                          torch.as_tensor(targets))
+        errs = {"outputs": max_abs(on_card[0], on_cpu[0]), "logits": max_abs(on_card[1], on_cpu[1]),
+                **{k: max_abs(on_card[2][k], v) for k, v in on_cpu[2].items()}}
+        worst = max(errs, key=errs.get)
+        log("lab", f"{smi}: legacy_ntm_unroll_batched at LegacyNTMConfig() (memory 128x20, 10 layers of 100) B="
+                   f"{LAB_LEGACY_B} T={LAB_LEGACY_T} IN=514 on the card in {card_s:.2f}s; against the CPU's max abs "
+                   f"{errs[worst]:.2e} at {worst} (tol {LEGACY_TOL:g})")
+        if errs[worst] > LEGACY_TOL or not torch.isfinite(on_card[1]).all():
+            raise AssertionError(f"the legacy NTM on the card disagrees with the CPU's: {errs}")
+        out["legacy"] = {"max_abs": errs[worst], "s": card_s}
+        check_budget("lab")
+    finally:
+        os.chdir(cwd)
+    out["counts"] = counts
     return out
 
 
@@ -2559,10 +2880,20 @@ def main() -> int:
     accuracy = phase_accuracy(dev, smi)
 
     # ---- 7d. the real-data path: preprocess, cache-features, train-offsets ----
-    data = phase_data(dev, smi)
+    # ---- 7e. the experiment lab, on the data path's tree and token cache -----
+    import shutil
+    import tempfile
+
+    tree = tempfile.mkdtemp(prefix="ntm_data_")
+    try:
+        data = phase_data(dev, smi, tree)
+        lab = phase_lab(dev, smi, tree)
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
     data_counts = {"data_cached_train": data["cached"]["counts"], "data_raw_host_resize":
                    data["raw"]["host_resize"]["counts"], "data_raw_device_resize": data["raw"]["device_resize"]["counts"],
                    "data_resume": data["resumed"]["counts"]}
+    lab_counts = {f"lab_{k}": c for k, c in lab["counts"].items()}
 
     # ---- 8. result -----------------------------------------------------------
     # B1 runs on every main path: `launches` is the frame path's count; the
@@ -2580,10 +2911,13 @@ def main() -> int:
                              "accuracy_device_loop": accuracy["ntm"]["loop_counts"]["ntm_scan_fused"],
                              "accuracy_demo_train": accuracy["ntm"]["train_counts"]["ntm_scan_fused"],
                              "accuracy_flagship_train": accuracy["flagship"]["counts"]["ntm_scan_fused"],
-                             **{k: c["ntm_scan_fused"] for k, c in data_counts.items()}},
+                             **{k: c["ntm_scan_fused"] for k, c in data_counts.items()},
+                             **{k: c["ntm_scan_fused"] for k, c in lab_counts.items()}},
         "route_by_path": {"frame_step": frame_routes, "fleet": fleet["fleet_routes"],
                           "device_loop": {"cluster": 0, "tile": 0}, "train": train["eval_routes"],
-                          **{k: c["ntm_scan_fused_by_route"] for k, c in data_counts.items()}},
+                          **{k: c["ntm_scan_fused_by_route"] for k, c in data_counts.items()},
+                          **{k: c["ntm_scan_fused_by_route"] for k, c in lab_counts.items()}},
+        "lab_dashboard_chunks": lab["save_imgs"]["chunks"],
         "ms_by_route": {"T65": {str(B): v for B, v in by_route.items()},
                         f"B{train['b1']['B']}_T{train['b1']['T']}": train["b1"]["ms_by_route"]},
         "routes_in_kernel_cases": case_routes, "cluster": cluster, "tile_route_source": BPTT_SOURCE,
@@ -2604,6 +2938,7 @@ def main() -> int:
                                           "flagship_train": accuracy["flagship"]["counts"][launches],
                                           "clip": accuracy["ntm"]["host_counts"][launches]},
             "launches_on_data_path": {k: c[launches] for k, c in data_counts.items()},
+            "launches_on_lab_path": {k: c[launches] for k, c in lab_counts.items()},
         }
         kernels.append(bptt[name])
     bptt["forward"].update({
@@ -2683,6 +3018,10 @@ def main() -> int:
             entry["peak_gb"] = {"rows_1": at[(1, 1)]["peak_gb"], f"rows_{rows}": at[default]["peak_gb"]}
             entry["smem_bytes"] = packed["smem"]
         kernels.append(entry)
+    # B2 on the lab's paths: its first steps against the plain route, and
+    # the shapes it ran
+    bptt["backward"]["lab_first_steps"] = {k: {f: v["check"][f] for f in ("loss_rel", "grad_rel", "ms", "plain_ms")}
+                                           for k, v in lab.items() if isinstance(v, dict) and "check" in v}
     log("train", f"{smi}: the train step at B={train['b1']['B']} T={train['b1']['T']}: {train['step_ms']:.3f} ms = "
                  f"{TRAIN_B * TRAIN_L / train['step_ms'] * 1e3:.1f} trained frames/s, peak {train['peak_gb']:.2f} GB")
     print(smi, flush=True)

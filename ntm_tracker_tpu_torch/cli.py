@@ -2,12 +2,23 @@
 <command>` (counterpart of ntm_tracker_tpu/cli.py, with its flag names and
 defaults).
 
-  preprocess       <- preprocess.py (--augment: the repaired augmentation)
-  mine-sequences   <- sequence_generator.py (generated_sequences.pkl)
-  cache-features   the frozen VGG tokens of every frame record, once
-  train-offsets    <- direct_offset_output.py (--core dnc gives
-                      direct_offset_output_with_dnc.py); --feature_cache
-                      trains on cached tokens
+  preprocess            <- preprocess.py (--augment: the repaired augmentation)
+  mine-sequences        <- sequence_generator.py (generated_sequences.pkl)
+  cache-features        the frozen VGG tokens of every frame record, once
+  train-offsets         <- direct_offset_output.py (--core dnc gives
+                           direct_offset_output_with_dnc.py); --feature_cache
+                           trains on cached tokens; --save_imgs writes the
+                           memory dashboards (and the crops' grid) at each
+                           validation
+  train-heatmap         <- main.py's ntm_sevenbyseven / ntm_8by8 / ntm_sequential
+  train-wholeframe      <- main.py's ntm() / ntm_two_step()
+  train-active-resize   the completed ntm_active_resize (main.py:1294-1422)
+  lstm-only             <- main.py's lstm_only()
+  sanity-check          <- main.py's sanity_check_compressor (+ PCA, + trained)
+  copy-paste            <- main.py's copy_paste()
+  dnc-repeat-copy       <- dnc/train.py
+  find-validation-batch <- main.py:2299-2320
+  inspect-batch         <- the reference's --test_input / --test_read_imgs
 
 The JAX package's --platform is --device here: cuda unless the caller asks
 for another (the CPU runs the plain PyTorch routes). A kernel that fails
@@ -28,7 +39,7 @@ from datetime import datetime
 _NOT_PORTED = {
     # flag -> the ROADMAP item that ports its module
     "dist_coordinator": "A7", "dist_num_processes": "A7", "dist_process_id": "A7",
-    "save_imgs": "A6/A8", "profile_steps": "A8", "shard": "A7",
+    "profile_steps": "A8", "shard": "A7",
 }
 
 
@@ -146,23 +157,78 @@ def _sequence_dirs(sequences_dir: str):
             if os.path.isdir(os.path.join(sequences_dir, x))]
 
 
+def _log_dir(args) -> str:
+    """The run's log directory: --log_dir/<now><--tag>."""
+    return os.path.abspath(os.path.join(args.log_dir, str(datetime.now()) + args.tag))
+
+
+def _make_experiment(args, cfg, vgg_params, device, device_resize: bool = False):
+    """The experiment of a training command: the offsets tracker, or the
+    heatmap variants (train-heatmap: output_dim 1 for the sequential stream,
+    num_features for the frame stream)."""
+    from ntm_tracker_tpu_torch.train.experiments import HeatmapExperiment, OffsetExperiment
+
+    # the host path resizes with the TF1 grid; --device_resize ships raw
+    # frames and runs the same grid on the device
+    mode = "raw" if device_resize else "resized"
+    if getattr(args, "experiment", "offsets") == "offsets":
+        return OffsetExperiment(cfg, vgg_params, image_mode=mode, device=device)
+    serialization = args.serialization
+    out_dim = 1 if serialization == "sequential" else cfg.num_features
+    cfg = dataclasses.replace(cfg, ntm=dataclasses.replace(cfg.ntm, output_dim=out_dim),
+                              dnc=dataclasses.replace(cfg.dnc, output_dim=out_dim))
+    return HeatmapExperiment(cfg, vgg_params, image_mode=mode, device=device, serialization=serialization,
+                             compress_dim=args.compress_dim)
+
+
+def _dashboard_eval(exp, cfg, args, real_log_dir: str):
+    """The --save_imgs eval step: one forward (eval_with_views) serves the
+    validation loss and the memory dashboards, written at each validation
+    batch; batches with frames also get the crops / gt offsets /
+    predictions grid (the reference wrote one every step,
+    direct_offset_output.py:348)."""
+    import numpy as np
+
+    from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN
+    from ntm_tracker_tpu_torch.utils.viz import save_imgs, save_memory_panels
+
+    read_heads = cfg.ntm.read_head_size if args.core == "ntm" else cfg.dnc.num_reads
+    counter = {"n": 0}
+
+    def eval_step(params, batch):
+        aux, views = exp.eval_with_views(params, batch)
+        save_memory_panels(views, read_heads, f"step_{counter['n']}_memory", real_log_dir)
+        if "pred_offsets" in aux and "images" in batch:
+            L = cfg.train.sequence_length
+            crops = exp.images_to_crops(batch["images"], batch["cropboxes"]).cpu().numpy() + VGG_MEAN
+            B, sz = crops.shape[0] // L, crops.shape[1]
+            offsets = np.stack([batch["y_offsets"].cpu().numpy(), batch["x_offsets"].cpu().numpy()],
+                               -1).reshape(B, L, 2)
+            preds = np.concatenate([np.zeros((B, 1, 2)), aux["pred_offsets"].cpu().numpy()], axis=1)
+            save_imgs([np.clip(crops, 0, 255).astype(np.uint8).reshape(B, L, sz, sz, 3), offsets, preds],
+                      f"step_{counter['n']}_validation", real_log_dir)
+        counter["n"] += 1
+        return aux
+
+    return eval_step
+
+
 def train_offsets(args) -> dict:
-    """The train-offsets command's body. Returns what the run did: steps,
-    the log dir, the train loop's seconds, the seconds the loop waited on
-    the prefetcher for each batch, and the host clock at each train step's
-    start."""
+    """The train-offsets and train-heatmap commands' body. Returns what the
+    run did: steps, the log dir, the train loop's seconds, the seconds the
+    loop waited on the prefetcher for each batch, and the host clock at
+    each train step's start."""
     import torch
 
     from ntm_tracker_tpu_torch.config import resolve_device
     from ntm_tracker_tpu_torch.data.loader import PrefetchIterator, batch_iterator
     from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
-    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment
     from ntm_tracker_tpu_torch.train.harness import CheckpointManager, train_loop
 
     _refuse_unported(args)
     dev = resolve_device(args.device)
     cfg = _tracker_config(args, args.core)
-    real_log_dir = os.path.abspath(os.path.join(args.log_dir, str(datetime.now()) + args.tag))
+    real_log_dir = _log_dir(args)
     print("real log dir:", real_log_dir)
 
     feature_cache = args.feature_cache
@@ -173,15 +239,17 @@ def train_offsets(args) -> dict:
             print("NOTE: feature-cache training without --vgg_weights; cache fingerprint trusted from the manifest")
     else:
         vgg_params = _load_vgg(args, dev)
-    dev_resize = args.device_resize
+    dev_resize = getattr(args, "device_resize", False)
     if dev_resize and args.reverse_image:
         print("NOTE: --reverse_image flips before the resize on the raw "
               "path (TF1 grid is not flip-equivariant); using host resize")
         dev_resize = False
-    exp = OffsetExperiment(cfg, vgg_params, image_mode="raw" if dev_resize else "resized", device=dev)
+    exp = _make_experiment(args, cfg, vgg_params, dev, dev_resize)
     if feature_cache:
         from ntm_tracker_tpu_torch.data.feature_cache import verify_cache
 
+        # the experiment's config: train-heatmap's gt_width grid needs a
+        # cache built with cache-features --grid_width to match
         verify_cache(exp.cfg, feature_cache, flip=args.reverse_image, vgg_params=vgg_params)
     params, opt_state = exp.init(torch.Generator().manual_seed(cfg.train.seed))
 
@@ -193,9 +261,10 @@ def train_offsets(args) -> dict:
         print("restored from", args.ckpt_path)
 
     _, train_seqs, val_seqs = get_valid_sequences(args.sequences_dir, cfg.train.sequence_length)
-    if args.limit > 0:
-        train_seqs, val_seqs = train_seqs[:args.limit], val_seqs[:args.limit]
-        print(f"--limit {args.limit}: {len(train_seqs)} train / {len(val_seqs)} val sequences kept")
+    limit = getattr(args, "limit", 0)
+    if limit > 0:
+        train_seqs, val_seqs = train_seqs[:limit], val_seqs[:limit]
+        print(f"--limit {limit}: {len(train_seqs)} train / {len(val_seqs)} val sequences kept")
     print(f"{len(train_seqs)} train seqs, {len(val_seqs)} val seqs")
     bs = cfg.train.batch_size
     grids = dict(cropbox_grid=cfg.data.cropbox_grid, bbox_grid=cfg.data.bbox_grid)
@@ -225,6 +294,8 @@ def train_offsets(args) -> dict:
 
     train_it = PrefetchIterator(host_batches(train_seqs, cfg.train.num_epochs), prefetch=2, device_put=put)
     step = exp.make_train_step()
+    eval_step = (_dashboard_eval(exp, exp.cfg, args, real_log_dir) if getattr(args, "save_imgs", False)
+                 else exp.make_eval_step())
     step_starts = []
 
     def timed_step(p, s, b):
@@ -233,7 +304,7 @@ def train_offsets(args) -> dict:
 
     t0 = time.perf_counter()
     params, opt_state, steps = train_loop(
-        timed_step, exp.make_eval_step(), params, opt_state, train_it,
+        timed_step, eval_step, params, opt_state, train_it,
         lambda: (put(b) for b in host_batches(val_seqs, 1)),
         log_dir=real_log_dir,
         validation_interval=cfg.train.validation_interval,
@@ -327,6 +398,349 @@ def cmd_cache_features(args) -> int:
     return 0
 
 
+def _restore_params(ckpt_path: str, params):
+    """The params of a checkpoint at its latest step (the optimizer state
+    left out: the weights-only restore)."""
+    from ntm_tracker_tpu_torch.train.harness import CheckpointManager
+
+    return CheckpointManager(ckpt_path).restore(template={"params": params}, partial=True)["params"]
+
+
+def _pickle_epoch_loop(args, cfg, seqs, make_batch, step, params, opt_state, ckpt, real_log_dir) -> dict:
+    """The shuffle / step / log / checkpoint epoch loop of the pickle-dataset
+    trainers (the reference's train_and_val shape, main.py:603-693).
+    make_batch(index, seqs) -> (device batch, new index). Returns the steps,
+    the losses, the host clock at each step's start and the log dir."""
+    import random as _random
+
+    rng = _random.Random(cfg.train.seed)
+    stepno, losses, starts = 0, [], []
+    B = cfg.train.batch_size
+    for _epoch in range(cfg.train.num_epochs):
+        rng.shuffle(seqs)
+        index = 0
+        usable = len(seqs) // B * B
+        while index < usable:
+            batch, index = make_batch(index, seqs)
+            starts.append(time.perf_counter())
+            params, opt_state, m = step(params, opt_state, batch)
+            losses.append(float(m["loss"]))
+            if stepno % args.log_interval == 0:
+                print(f"{stepno}: loss {losses[-1]:.5f}")
+            if stepno and stepno % args.validation_interval == 0:
+                ckpt.save(stepno, {"params": params, "opt_state": opt_state})
+            stepno += 1
+    ckpt.save(stepno, {"params": params, "opt_state": opt_state})
+    print(f"trained {stepno} steps; checkpoint in {real_log_dir}/ckpt")
+    return {"steps": stepno, "losses": losses, "step_starts": starts, "log_dir": real_log_dir}
+
+
+def train_wholeframe(args) -> dict:
+    """train-wholeframe: ntm()/ntm_two_step() on the pickled mined dataset
+    (main.py:780-977, default_get_batch)."""
+    import torch
+
+    from ntm_tracker_tpu_torch.config import resolve_device
+    from ntm_tracker_tpu_torch.data.pickle_dataset import (
+        default_get_batch,
+        load_generated_sequences,
+        load_wholeframe_batch,
+    )
+    from ntm_tracker_tpu_torch.train.experiments import WholeFrameExperiment
+    from ntm_tracker_tpu_torch.train.harness import CheckpointManager
+
+    _refuse_unported(args)
+    dev = resolve_device(args.device)
+    cfg = _tracker_config(args, "ntm")
+    exp = WholeFrameExperiment(cfg, _load_vgg(args, dev), endpoint=args.feature_layer, two_step=args.two_step,
+                               compress_dim=args.compress_dim, device=dev)
+    params, opt_state = exp.init(torch.Generator().manual_seed(cfg.train.seed))
+    real_log_dir = _log_dir(args)
+    ckpt = CheckpointManager(os.path.join(real_log_dir, "ckpt"))
+    if args.ckpt_path:
+        params = _restore_params(args.ckpt_path, params)
+    seqs = load_generated_sequences(args.pickle_path, cfg.train.sequence_length)
+    print(f"{len(seqs)} sequences after length filtering")
+
+    def make_batch(index, seqs):
+        frame_names, gts, index = default_get_batch(index, cfg.train.batch_size, cfg.train.sequence_length, seqs)
+        images = load_wholeframe_batch(frame_names, cfg.data.crop_size)
+        return {"images": torch.as_tensor(images, device=dev), "gts": torch.as_tensor(gts, device=dev)}, index
+
+    return _pickle_epoch_loop(args, cfg, seqs, make_batch, exp.make_train_step(), params, opt_state, ckpt,
+                              real_log_dir)
+
+
+def cmd_train_wholeframe(args) -> int:
+    train_wholeframe(args)
+    return 0
+
+
+def train_active_resize(args) -> dict:
+    """train-active-resize: closed-loop recrop training, the completed form
+    of the reference's unfinished ntm_active_resize (main.py:1294-1422)."""
+    import torch
+
+    from ntm_tracker_tpu_torch.config import resolve_device
+    from ntm_tracker_tpu_torch.data.pickle_dataset import (
+        active_resize_get_batch,
+        load_generated_sequences,
+        load_wholeframe_batch,
+    )
+    from ntm_tracker_tpu_torch.train.active_resize import ActiveResizeExperiment
+    from ntm_tracker_tpu_torch.train.harness import CheckpointManager
+
+    _refuse_unported(args)
+    dev = resolve_device(args.device)
+    cfg = _tracker_config(args, "ntm")
+    exp = ActiveResizeExperiment(cfg, _load_vgg(args, dev), compress_dim=args.compress_dim, device=dev)
+    params, opt_state = exp.init(torch.Generator().manual_seed(cfg.train.seed))
+    real_log_dir = _log_dir(args)
+    ckpt = CheckpointManager(os.path.join(real_log_dir, "ckpt"))
+    if args.ckpt_path:
+        params = _restore_params(args.ckpt_path, params)
+    seqs = load_generated_sequences(args.pickle_path, cfg.train.sequence_length)
+    print(f"{len(seqs)} sequences after length filtering")
+    B, L, S = cfg.train.batch_size, cfg.train.sequence_length, cfg.data.crop_size
+
+    def make_batch(index, seqs):
+        frame_names, boxes, index = active_resize_get_batch(index, B, L, seqs)
+        frames = load_wholeframe_batch(frame_names, S)
+        return {"frames": torch.as_tensor(frames.reshape(B, L, S, S, 3), device=dev),
+                "bboxes": torch.as_tensor(boxes, device=dev)}, index
+
+    return _pickle_epoch_loop(args, cfg, seqs, make_batch, exp.make_train_step(), params, opt_state, ckpt,
+                              real_log_dir)
+
+
+def cmd_train_active_resize(args) -> int:
+    train_active_resize(args)
+    return 0
+
+
+def _frame_batch_tokens(cfg, vgg_params, fb, device):
+    """A FrameBatch (host-resized frames) -> [B, L, F, C] frozen VGG tokens
+    on `device`: preprocess_frame's crops, then frame_tokens."""
+    import torch
+
+    from ntm_tracker_tpu_torch.data.image_ops import preprocess_frame
+    from ntm_tracker_tpu_torch.train.experiments import frame_tokens
+
+    with torch.no_grad():
+        crops = preprocess_frame(torch.as_tensor(fb.images, device=device).float(),
+                                 torch.as_tensor(fb.cropboxes, device=device),
+                                 resize_hw=cfg.data.resize_hw, crop_size=cfg.data.crop_size)
+        feats = frame_tokens(cfg, vgg_params, crops)
+    L = cfg.train.sequence_length
+    return feats.reshape(feats.shape[0] // L, L, cfg.num_features, cfg.feature_depth)
+
+
+def cmd_lstm_only(args) -> int:
+    """lstm-only: the LSTM baseline on the heatmap task (main.py:695-778)."""
+    import torch
+
+    from ntm_tracker_tpu_torch.config import resolve_device
+    from ntm_tracker_tpu_torch.data.loader import batch_iterator
+    from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
+    from ntm_tracker_tpu_torch.train.experiments import gradient_step
+    from ntm_tracker_tpu_torch.train.optim import reference_optimizer
+    from ntm_tracker_tpu_torch.train.zoo import (
+        compress_features,
+        init_compressor,
+        init_lstm_baseline,
+        lstm_baseline_loss,
+    )
+
+    _refuse_unported(args)
+    dev = resolve_device(args.device)
+    cfg = _tracker_config(args, "ntm")
+    vgg_params = _load_vgg(args, dev)
+    F = cfg.num_features
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    params = {
+        "compressor": init_compressor(cfg.feature_depth, args.compress_dim, gen, dev),
+        "lstm": init_lstm_baseline(F, args.compress_dim, args.hidden_size, args.num_layers, generator=gen, device=dev),
+    }
+    opt = reference_optimizer(args.learning_rate, args.decay, args.momentum, 1e-10, args.max_gradient_norm)
+
+    def loss_fn(p, fb):
+        feats = compress_features(_frame_batch_tokens(cfg, vgg_params, fb, dev), p["compressor"])
+        gts = torch.as_tensor(fb.gts, device=dev).float().reshape(feats.shape[0], feats.shape[1], F)
+        loss = lstm_baseline_loss(p["lstm"], feats, gts[:, 0, :], gts)
+        return loss, {"loss": loss}
+
+    step = gradient_step(loss_fn, opt)
+    opt_state = opt.init(params)
+    _, train_seqs, _ = get_valid_sequences(args.sequences_dir, cfg.train.sequence_length)
+    for i, fb in enumerate(batch_iterator(train_seqs, cfg.train.batch_size, args.gt_width, seed=cfg.train.seed,
+                                          epochs=cfg.train.num_epochs)):
+        params, opt_state, m = step(params, opt_state, fb)
+        if i % args.log_interval == 0:
+            print(f"{i}: loss {float(m['loss']):.5f}")
+    return 0
+
+
+def _trained_compressor(ckpt_path: str, depth: int, compress_dim: int):
+    """The compressor of a train-heatmap --compress_dim checkpoint (the
+    sanity_check_trained dispatch, main.py:2608-2632), or SystemExit: when
+    the checkpoint has none, or one of another width."""
+    import numpy as np
+
+    from ntm_tracker_tpu_torch.train.harness import CheckpointManager
+
+    try:
+        w = CheckpointManager(ckpt_path).restore(map_location="cpu")["params"]["compressor"]
+    except (KeyError, TypeError, ValueError, FileNotFoundError) as e:
+        raise SystemExit(f"--compressor_ckpt {ckpt_path} has no [{depth},{compress_dim}] compressor — was it "
+                         f"trained with train-heatmap --compress_dim {compress_dim}? ({e})")
+    want = (depth, compress_dim)
+    if tuple(np.shape(w)) != want:
+        raise SystemExit(f"--compressor_ckpt compressor shape {tuple(np.shape(w))} != {want} — it was trained "
+                         f"with train-heatmap --compress_dim {np.shape(w)[-1]}, not {compress_dim}")
+    return w
+
+
+def cmd_sanity_check(args) -> int:
+    """sanity-check: can the VGG features (raw, compressed by a trained
+    compressor, or PCA'd) reproduce the gt heatmap by cosine similarity
+    alone, with no training (main.py:1425-1538)? Writes the similarity-vs-gt
+    PNG grid."""
+    import numpy as np
+    import torch
+
+    from ntm_tracker_tpu_torch.config import resolve_device
+    from ntm_tracker_tpu_torch.data.loader import load_frame_batch
+    from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences, sevenbyseven_get_batch
+    from ntm_tracker_tpu_torch.train.zoo import sanity_check_pca, sanity_check_similarity
+    from ntm_tracker_tpu_torch.utils.viz import save_imgs
+
+    _refuse_unported(args)
+    dev = resolve_device(args.device)
+    cfg = _tracker_config(args, "ntm")
+    if args.pca and args.compressor_ckpt:
+        raise SystemExit("--pca and --compressor_ckpt are mutually exclusive")
+    vgg_params = _load_vgg(args, dev)
+    _, train_seqs, _ = get_valid_sequences(args.sequences_dir, cfg.train.sequence_length)
+    frame_names, _ = sevenbyseven_get_batch(0, cfg.train.batch_size, train_seqs)
+    fb = load_frame_batch(frame_names, args.gt_width)
+    feats = _frame_batch_tokens(cfg, vgg_params, fb, dev)
+    B, L, F = feats.shape[0], feats.shape[1], cfg.num_features
+    gts = torch.as_tensor(fb.gts, device=dev).float().reshape(B, L, F)
+    name = "sanity_check"
+    if args.pca:
+        sim = sanity_check_pca(feats.cpu().numpy(), gts, args.compress_dim)
+    elif args.compressor_ckpt:
+        w = _trained_compressor(args.compressor_ckpt, cfg.feature_depth, args.compress_dim)
+        sim = sanity_check_similarity(feats, gts, compressor_w=w.to(dev))
+        name = "sanity_check_trained"
+    else:
+        sim = sanity_check_similarity(feats, gts)
+    side = int(round(F ** 0.5))
+
+    def grid(x):
+        return x.detach().cpu().numpy().reshape(B, L, side, side, 1) * 255.0
+
+    print("similarity-vs-gt grid written to", save_imgs([grid(sim), grid(gts * F)], name, args.log_dir))
+    return 0
+
+
+def cmd_copy_paste(args) -> int:
+    """copy-paste: the NTM copy-paste sanity training (main.py:1540-1644)."""
+    import numpy as np
+    import torch
+
+    from ntm_tracker_tpu_torch.config import NTMConfig, resolve_device
+    from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_params
+    from ntm_tracker_tpu_torch.train.experiments import copy_paste_loss, gradient_step, make_copy_paste_batch
+    from ntm_tracker_tpu_torch.train.optim import reference_optimizer
+
+    _refuse_unported(args)
+    dev = resolve_device(args.device)
+    ncfg = NTMConfig(output_dim=args.width + 1, mem_size=args.mem_size, mem_dim=args.mem_dim,
+                     controller_hidden_size=args.hidden_size, controller_num_layers=args.num_layers,
+                     read_head_size=args.read_head_size, write_head_size=args.write_head_size,
+                     write_first=args.write_first, init_scale=args.init_scale)
+    params = init_ntm_params(ncfg, args.width + 1, torch.Generator().manual_seed(args.seed), dev)
+    opt = reference_optimizer(args.learning_rate, args.decay, args.momentum, 1e-10, args.max_gradient_norm)
+
+    def loss_fn(p, batch):
+        loss = copy_paste_loss(p, ncfg, *batch)
+        return loss, {"loss": loss}
+
+    step, opt_state = gradient_step(loss_fn, opt), opt.init(params)
+    rng = np.random.RandomState(args.seed)
+    for epoch in range(args.num_epochs):
+        x, y = make_copy_paste_batch(rng, args.batch_size, args.width, args.sequence_length)
+        params, opt_state, m = step(params, opt_state, (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)))
+        print(f"{epoch}: loss {float(m['loss'])}")
+    return 0
+
+
+def cmd_dnc_repeat_copy(args) -> int:
+    from ntm_tracker_tpu_torch.train.dnc_trainer import RepeatCopyTrainConfig, train_repeat_copy
+
+    cfg = RepeatCopyTrainConfig(
+        hidden_size=args.hidden_size, memory_size=args.memory_size, word_size=args.word_size,
+        num_write_heads=args.num_write_heads, num_read_heads=args.num_read_heads, clip_value=args.clip_value,
+        max_grad_norm=args.max_grad_norm, learning_rate=args.learning_rate,
+        optimizer_epsilon=args.optimizer_epsilon, batch_size=args.batch_size, num_bits=args.num_bits,
+        min_length=args.min_length, max_length=args.max_length, min_repeats=args.min_repeats,
+        max_repeats=args.max_repeats, num_training_iterations=args.num_training_iterations,
+        report_interval=args.report_interval, checkpoint_interval=args.checkpoint_interval,
+        checkpoint_dir=args.checkpoint_dir, seed=args.seed,
+    )
+    train_repeat_copy(cfg, device=args.device)
+    return 0
+
+
+def cmd_find_validation_batch(args) -> int:
+    from ntm_tracker_tpu_torch.train.zoo import find_validation_batch
+
+    _refuse_unported(args)
+    dump = f"validation_seqs_{args.target_step}.pkl"
+    seqs = find_validation_batch(args.sequences_dir, target_step=args.target_step, batch_size=args.batch_size,
+                                 min_length=args.sequence_length, validation_interval=args.validation_interval,
+                                 seed=args.seed, dump_path=dump)
+    print(f"dumped {len(seqs)} sequences to {dump}")
+    return 0
+
+
+def cmd_inspect_batch(args) -> int:
+    """inspect-batch: the input pipeline's eyeball harness (the reference's
+    --test_input / --test_read_imgs, direct_offset_output.py:227-241,
+    main.py:321-341): one batch through the real loader, its record fields
+    printed, a PNG grid of the crops, gt heatmaps and offsets written."""
+    import numpy as np
+    import torch
+
+    from ntm_tracker_tpu_torch.config import DataConfig, resolve_device
+    from ntm_tracker_tpu_torch.data.image_ops import preprocess_frame
+    from ntm_tracker_tpu_torch.data.loader import batch_iterator
+    from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
+    from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN
+    from ntm_tracker_tpu_torch.utils.viz import save_imgs
+
+    dev = resolve_device(args.device)
+    d = DataConfig()
+    seqs, train_seqs, _ = get_valid_sequences(args.sequences_dir, args.sequence_length)
+    fb = next(batch_iterator(train_seqs or seqs, args.batch_size, args.gt_width, shuffle=False,
+                             reverse_image=args.reverse_image, decode_resize_hw=tuple(d.resize_hw)))
+    B, L = args.batch_size, args.sequence_length
+    for i in range(min(B * L, args.max_print)):
+        print(f"frame {i}: cropbox={np.round(fb.cropboxes[i], 4).tolist()} y_off={fb.y_offsets[i]:+.4f} "
+              f"x_off={fb.x_offsets[i]:+.4f} gt_sum={fb.gts[i].sum():.4f}")
+    with torch.no_grad():
+        crops = preprocess_frame(torch.as_tensor(fb.images, device=dev), torch.as_tensor(fb.cropboxes, device=dev),
+                                 resize_hw=d.resize_hw, crop_size=d.crop_size, do_resize=False)
+    sz = d.crop_size
+    crop_imgs = np.clip(crops.cpu().numpy() + VGG_MEAN, 0, 255).astype(np.uint8).reshape(B, L, sz, sz, 3)
+    g = fb.gts.reshape(B, L, args.gt_width, args.gt_width, 1)
+    gt_imgs = (g / max(float(g.max()), 1e-9) * 255).astype(np.uint8)
+    offsets = np.stack([fb.y_offsets, fb.x_offsets], -1).reshape(B, L, 2)
+    print("wrote", save_imgs([crop_imgs, gt_imgs, offsets], "inspect_batch", args.out_dir))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from ntm_tracker_tpu_torch.config import DataConfig
 
@@ -341,7 +755,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--core", choices=["ntm", "dnc"], default="ntm")
     t.add_argument("--sequences_dir", required=True)
     t.add_argument("--vgg_weights", default="", help=".npz (slim names) or a torchvision vgg16 state dict")
-    t.add_argument("--save_imgs", action="store_true", help="not ported (ROADMAP.md, items A6/A8)")
+    t.add_argument("--save_imgs", action="store_true",
+                   help="write the memory dashboards (and, on frames, the crop/gt/prediction grid) as PNGs at "
+                   "each validation batch, from one forward (eval_with_views)")
     t.add_argument("--device_resize", action="store_true",
                    help="ship native-size uint8 frames and do the 720x1280 "
                    "TF1 resize on the device (same sampling, less "
@@ -352,7 +768,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "--vgg_weights then only verifies the cache fingerprint")
     t.add_argument("--limit", type=int, default=0,
                    help="dress rehearsal: keep only the first N train and val sequences (0 = all)")
-    t.set_defaults(fn=cmd_train_offsets)
+    t.set_defaults(fn=cmd_train_offsets, experiment="offsets")
 
     cf = sub.add_parser(
         "cache-features",
@@ -405,6 +821,118 @@ def build_parser() -> argparse.ArgumentParser:
     ms.add_argument("--layers", default="conv4_3", help="comma-separated prior grids to match (conv4_3, pool5, ...)")
     ms.add_argument("--num_workers", type=int, default=7)
     ms.set_defaults(fn=cmd_mine_sequences)
+
+    ib = sub.add_parser("inspect-batch",
+                        help="input-pipeline eyeball harness (the reference's --test_input/--test_read_imgs): print "
+                        "one batch's record fields, write a PNG grid of crops + gt heatmaps + offsets")
+    ib.add_argument("--sequences_dir", required=True)
+    ib.add_argument("--out_dir", default=".")
+    ib.add_argument("--batch_size", type=int, default=1)
+    ib.add_argument("--sequence_length", type=int, default=20)
+    ib.add_argument("--gt_width", type=int, default=8)
+    ib.add_argument("--reverse_image", action="store_true")
+    ib.add_argument("--max_print", type=int, default=20)
+    ib.set_defaults(fn=cmd_inspect_batch)
+
+    th = sub.add_parser("train-heatmap",
+                        help="heatmap-output experiments (ntm_sevenbyseven / ntm_8by8 / ntm_sequential of the "
+                        "reference's main.py)")
+    _add_model_flags(th)
+    _add_train_flags(th)
+    th.add_argument("--core", choices=["ntm", "dnc"], default="ntm")
+    th.add_argument("--sequences_dir", required=True)
+    th.add_argument("--vgg_weights", default="")
+    th.add_argument("--serialization", choices=["sequential", "frame"], default="sequential",
+                    help="'sequential' is the reference's structure (the per-feature 2F+1 stream, "
+                    "main.py:2040-2135); 'frame' is F tokens and a delimiter a frame, the heatmap read at the "
+                    "frame delimiters (a variant the reference lacks)")
+    th.add_argument("--compress_dim", type=int, default=0,
+                    help="1x1-conv input compressor output channels (0=off)")
+    th.add_argument("--feature_cache", default="",
+                    help="train from precomputed VGG tokens (build with cache-features --grid_width matching "
+                    "--gt_width)")
+    th.set_defaults(fn=cmd_train_offsets, experiment="heatmap")
+
+    d = sub.add_parser("dnc-repeat-copy", help="DNC repeat-copy training")
+    d.add_argument("--hidden_size", type=int, default=64)
+    d.add_argument("--memory_size", type=int, default=16)
+    d.add_argument("--word_size", type=int, default=16)
+    d.add_argument("--num_write_heads", type=int, default=1)
+    d.add_argument("--num_read_heads", type=int, default=1)
+    d.add_argument("--clip_value", type=float, default=20)
+    d.add_argument("--max_grad_norm", type=float, default=50)
+    d.add_argument("--learning_rate", type=float, default=1e-4)
+    d.add_argument("--optimizer_epsilon", type=float, default=1e-10)
+    d.add_argument("--batch_size", type=int, default=16)
+    d.add_argument("--num_bits", type=int, default=4)
+    d.add_argument("--min_length", type=int, default=1)
+    d.add_argument("--max_length", type=int, default=2)
+    d.add_argument("--min_repeats", type=int, default=1)
+    d.add_argument("--max_repeats", type=int, default=2)
+    d.add_argument("--num_training_iterations", type=int, default=100000)
+    d.add_argument("--report_interval", type=int, default=100)
+    d.add_argument("--checkpoint_interval", type=int, default=-1)
+    d.add_argument("--checkpoint_dir", default="/tmp/ntm_tracker_tpu/dnc")
+    d.add_argument("--seed", type=int, default=0)
+    d.set_defaults(fn=cmd_dnc_repeat_copy)
+
+    c = sub.add_parser("copy-paste",
+                       help="NTM copy-paste sanity training (through ntm_tracker_unroll's default route, the "
+                       "plain per-step loop, on every device, as the JAX package's)")
+    _add_model_flags(c)
+    _add_train_flags(c)
+    c.add_argument("--width", type=int, default=3)
+    c.set_defaults(fn=cmd_copy_paste)
+
+    wf = sub.add_parser("train-wholeframe",
+                        help="whole-feature-map experiments ntm()/ntm_two_step() on the pickle-based mined dataset "
+                        "(mine-sequences)")
+    _add_model_flags(wf)
+    _add_train_flags(wf)
+    wf.add_argument("--pickle_path", default="generated_sequences.pkl")
+    wf.add_argument("--vgg_weights", default="")
+    wf.add_argument("--feature_layer", default="conv4/conv4_3",
+                    help="feature endpoint; must match the grid the gt masks were mined on (mine-sequences "
+                    "--layers): 'conv4/conv4_3' (28x28, the mining default) or 'pool5' (7x7)")
+    wf.add_argument("--two_step", action="store_true", help="present/ask protocol (ntm_two_step)")
+    wf.add_argument("--compress_dim", type=int, default=128)
+    wf.set_defaults(fn=cmd_train_wholeframe)
+
+    ar = sub.add_parser("train-active-resize",
+                        help="closed-loop recrop training (the completed form of the reference's unfinished "
+                        "ntm_active_resize)")
+    _add_model_flags(ar)
+    _add_train_flags(ar)
+    ar.add_argument("--pickle_path", default="generated_sequences.pkl")
+    ar.add_argument("--vgg_weights", default="")
+    ar.add_argument("--compress_dim", type=int, default=128)
+    ar.set_defaults(fn=cmd_train_active_resize)
+
+    lo = sub.add_parser("lstm-only", help="LSTM baseline on the heatmap task")
+    _add_model_flags(lo)
+    _add_train_flags(lo)
+    lo.add_argument("--sequences_dir", required=True)
+    lo.add_argument("--vgg_weights", default="")
+    lo.add_argument("--compress_dim", type=int, default=128)
+    lo.set_defaults(fn=cmd_lstm_only)
+
+    sc = sub.add_parser("sanity-check", help="cosine-similarity heatmap reproduction check")
+    _add_model_flags(sc)
+    _add_train_flags(sc)
+    sc.add_argument("--sequences_dir", required=True)
+    sc.add_argument("--vgg_weights", default="")
+    sc.add_argument("--pca", action="store_true")
+    sc.add_argument("--compress_dim", type=int, default=128)
+    sc.add_argument("--compressor_ckpt", default="",
+                    help="checkpoint dir of a train-heatmap --compress_dim run: the check through the TRAINED "
+                    "compressor (the reference's sanity_check_trained dispatch, main.py:2608-2632)")
+    sc.set_defaults(fn=cmd_sanity_check)
+
+    f = sub.add_parser("find-validation-batch")
+    _add_train_flags(f)
+    f.add_argument("--sequences_dir", required=True)
+    f.add_argument("--target_step", type=int, default=1700)
+    f.set_defaults(fn=cmd_find_validation_batch)
     return p
 
 

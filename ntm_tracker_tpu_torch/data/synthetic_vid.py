@@ -72,24 +72,30 @@ def render_frame(rng: np.random.RandomState, w: int, h: int, boxes) -> np.ndarra
     return img.astype(np.uint8)
 
 
+def write_vid_sequence(root: str, seqname: str, split: str, size: Tuple[int, int], tracks: np.ndarray,
+                       rng: np.random.RandomState, quality: int = 90) -> None:
+    """One sequence of the tree under `root`: tracks [frames, objects, 4]
+    integer pixel boxes (ymin, xmin, ymax, xmax), an XML and a JPEG a frame."""
+    from PIL import Image
+
+    w, h = size
+    adir = os.path.join(root, "Annotations", "VID", split, seqname)
+    idir = os.path.join(root, "Data", "VID", split, seqname)
+    os.makedirs(adir, exist_ok=True)
+    os.makedirs(idir, exist_ok=True)
+    for t, boxes in enumerate(np.asarray(tracks).tolist()):
+        xml = "".join(_OBJECT.format(trackid=k, ymin=b[0], xmin=b[1], ymax=b[2], xmax=b[3])
+                      for k, b in enumerate(boxes))
+        with open(os.path.join(adir, f"{t:06d}.xml"), "w") as f:
+            f.write(_XML.format(split=split, seqname=seqname, frame=t, w=w, h=h, objects=xml))
+        Image.fromarray(render_frame(rng, w, h, boxes)).save(os.path.join(idir, f"{t:06d}.JPEG"), quality=quality)
+
+
 def write_vid_tree(root: str, seed: int = 0, sequences: Sequence = DEFAULT_SEQUENCES,
                    quality: int = 90) -> Tuple[str, str]:
     """Write the tree under `root`; returns (annotation_dir, image_dir)."""
-    from PIL import Image
-
     rng = np.random.RandomState(seed)
-    anno_dir, image_dir = os.path.join(root, "Annotations"), os.path.join(root, "Data")
     for seqname, split, (w, h), n, *objects in sequences:
-        adir = os.path.join(anno_dir, "VID", split, seqname)
-        idir = os.path.join(image_dir, "VID", split, seqname)
-        os.makedirs(adir, exist_ok=True)
-        os.makedirs(idir, exist_ok=True)
         tracks = np.stack([object_boxes(rng, n, w, h) for _ in range(objects[0] if objects else 1)], axis=1)
-        for t, boxes in enumerate(tracks.tolist()):
-            xml = "".join(_OBJECT.format(trackid=k, ymin=b[0], xmin=b[1], ymax=b[2], xmax=b[3])
-                          for k, b in enumerate(boxes))
-            with open(os.path.join(adir, f"{t:06d}.xml"), "w") as f:
-                f.write(_XML.format(split=split, seqname=seqname, frame=t, w=w, h=h, objects=xml))
-            Image.fromarray(render_frame(rng, w, h, boxes)).save(os.path.join(idir, f"{t:06d}.JPEG"),
-                                                                  quality=quality)
-    return anno_dir, image_dir
+        write_vid_sequence(root, seqname, split, (w, h), tracks, rng, quality)
+    return os.path.join(root, "Annotations"), os.path.join(root, "Data")

@@ -1,12 +1,17 @@
 """Carry weights between the JAX package and the port.
 
 A flat dict of numpy arrays is the interchange format (it is also what
-`np.savez` writes). NTM keys keep the JAX pytree names:
+`np.savez` writes). Parameter keys are the JAX pytree's paths, a dict's
+entries joined by `.` and a list's indexed `[i]`: the NTM's
 `controller[l].kernel` [in+Hc, 4Hc] (gate order i, j, f, o),
 `controller[l].bias`, `heads_w`, `heads_b`, `out_w`, `out_b`,
-`init_M` [N, D], `init_w` [H, N], `init_read` [R, D]. DNC keys are
-`controller[0].kernel` / `.bias`, `access.interface_w`, `access.interface_b`,
-`out_w` and `out_b`. VGG keys are
+`init_M` [N, D], `init_w` [H, N], `init_read` [R, D]; the DNC's
+`controller[0].kernel` / `.bias`, `access.interface_w`,
+`access.interface_b`, `out_w` and `out_b` (the repeat-copy DNC's too);
+the legacy NTM's `controller[l].<gate>.w` / `.b`, `read_heads[r].k_w`, ...,
+`write_heads[w].erase_w`, ..., `init.M`, ...; the lab's trees nest a core's
+under `core.` beside `compressor` [C, D], or the LSTM baseline's
+`lstm.lstm[l].kernel` / `.bias` and `lstm.softmax_w` / `_b` beside it. VGG keys are
 `<layer>/weights` in the JAX package's HWIO layout and `<layer>/biases`
 (`conv1/conv1_1/weights`, ...); the port holds VGG weights as OIHW.
 Optimizer state (TF RMSProp's `ms` and `mom`, trees shaped like the
@@ -21,48 +26,61 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_CTRL = re.compile(r"controller\[(\d+)\]\.(kernel|bias)$")
+_PATH = re.compile(r"([^.\[\]]+)|\[(\d+)\]")
 
 
 def flatten_params(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """NTM or DNC params (the JAX pytree, or the port's dict) -> flat
-    float32 numpy dict: `controller[l].kernel`, a nested dict's leaves as
-    `<name>.<leaf>` (the DNC's `access.interface_w`), the rest by name."""
-    flat = {}
-    for key, value in tree.items():
-        if key == "controller":
-            for layer, p in enumerate(value):
-                flat[f"controller[{layer}].kernel"] = _np(p["kernel"])
-                flat[f"controller[{layer}].bias"] = _np(p["bias"])
-        elif isinstance(value, Mapping):
-            flat.update({f"{key}.{k}": _np(v) for k, v in value.items()})
+    """A parameter tree (the JAX pytree, or the port's: nested dicts and
+    lists of arrays) -> flat float32 numpy dict keyed by path: a dict's
+    entries as `<outer>.<inner>`, a list's as `<name>[i]`
+    (`controller[0].kernel`, `access.interface_w`, `core.heads_w`,
+    `read_heads[1].k_w`, `controller[0].input.w`)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, value: Any) -> None:
+        if isinstance(value, Mapping):
+            for k, v in value.items():
+                walk(f"{prefix}.{k}" if prefix else str(k), v)
+        elif isinstance(value, (list, tuple)):
+            for i, v in enumerate(value):
+                walk(f"{prefix}[{i}]", v)
         else:
-            flat[key] = _np(value)
+            flat[prefix] = _np(value)
+
+    walk("", tree)
     return flat
 
 
 def params_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[str, Any]:
-    """Flat numpy dict -> the port's NTM or DNC params (float32 tensors on
-    `device`)."""
-    params: Dict[str, Any] = {}
-    layers: Dict[int, Dict[str, torch.Tensor]] = {}
+    """Flat numpy dict -> the port's parameter tree (float32 tensors on
+    `device`): the inverse of flatten_params. A list's entries must be
+    numbered 0..n-1."""
+    root: Dict[str, Any] = {}
     for key, value in flat.items():
-        m = _CTRL.match(key)
-        t = torch.tensor(np.asarray(value, np.float32), device=device)
-        if m:
-            layers.setdefault(int(m.group(1)), {})[m.group(2)] = t
-        elif "." in key:
-            outer, inner = key.split(".", 1)
-            params.setdefault(outer, {})[inner] = t
-        else:
-            params[key] = t
-    if sorted(layers) != list(range(len(layers))):
-        raise ValueError(f"controller layers are not numbered 0..n-1: {sorted(layers)}")
-    params["controller"] = [layers[i] for i in range(len(layers))]
-    return params
+        parts = [name if name else int(index) for name, index in _PATH.findall(key)]
+        node = root
+        for part, nxt in zip(parts[:-1], parts[1:]):
+            node = node.setdefault(part, {} if isinstance(nxt, str) else _Indexed())
+        node[parts[-1]] = torch.tensor(np.asarray(value, np.float32), device=device)
+    return _lists(root, "")
 
 
-# the two cores' trees flatten the same way
+class _Indexed(dict):
+    """A list's entries by index, while params_from_flat fills them in."""
+
+
+def _lists(node: Any, where: str) -> Any:
+    """The tree with each _Indexed node as a list."""
+    if not isinstance(node, dict):
+        return node
+    if isinstance(node, _Indexed):
+        if sorted(node) != list(range(len(node))):
+            raise ValueError(f"{where or 'the root'}: list entries are not numbered 0..n-1: {sorted(node)}")
+        return [_lists(node[i], f"{where}[{i}]") for i in range(len(node))]
+    return {k: _lists(v, f"{where}.{k}" if where else k) for k, v in node.items()}
+
+
+# the cores' trees flatten the same way
 flatten_ntm_params = flatten_dnc_params = flatten_params
 ntm_params_from_flat = dnc_params_from_flat = params_from_flat
 
@@ -91,7 +109,8 @@ def flatten_opt_state(opt_state: Any) -> Dict[str, np.ndarray]:
 
 
 def opt_state_from_flat(flat: Mapping[str, np.ndarray], device=None) -> Dict[str, Any]:
-    """Flat numpy dict -> the port's optimizer state {"ms", "mom"}."""
+    """Flat numpy dict -> the port's optimizer state {"ms", "mom"}, each
+    shaped like the params."""
     out = {}
     for name in ("ms", "mom"):
         prefix = f"{name}/"

@@ -31,10 +31,48 @@ class MemoryCore:
     unroll: Callable[..., Tuple[torch.Tensor, Any]]
     # step(params, x [B,D], state) -> (logit [B,out], state)
     step: Callable[..., Tuple[torch.Tensor, Any]]
-    # JAX's state_view(state) -> {"M", "w", "read"}, the memory observables
-    # its dashboards read: None until the dashboards are ported (ROADMAP.md,
-    # item A6)
+    # state_view(state) -> {"M" [B,N,D], "w" [B,H,N], "read" [B,R,D]}: the
+    # memory observables both cores expose for the dashboards (the
+    # reference's Ms/ws/reads image summaries, main.py:1186-1214)
     state_view: Callable[[Any], dict] = None  # type: ignore[assignment]
+
+
+def unroll_states(core: MemoryCore, params: Any, inputs: torch.Tensor, state: Any = None, stride: int = 1,
+                  full_logits: bool = False) -> Tuple[torch.Tensor, dict, Any]:
+    """Unroll while recording the memory observables every `stride` steps
+    (the reference stacks them for every step, main.py:1186-1214; here
+    only each chunk's last state is kept, T // stride snapshots).
+
+    JAX's nested scan over core.step becomes a loop over chunks of
+    `stride` steps, each a core.unroll from the carried state: the same
+    function, and on cuda under torch.no_grad() the NTM core takes B1 once
+    a chunk (fused_bptt "auto"), not one eager cell step a token. Both
+    cores' unroll takes a state, so no chunk falls back to core.step.
+
+    inputs [B,T,D]. When stride does not divide T, the last T % stride
+    steps advance the state and record nothing. Returns (logits: [B,
+    T//stride, out], each snapshot step's, or [B,T,out] with
+    full_logits=True, so one unroll serves the loss and the dashboards;
+    views {"M": [B,T//stride,N,D], "w": ..., "read": ...}; the state after
+    all T steps)."""
+    B, T, _ = inputs.shape
+    if not 1 <= stride <= T:
+        raise ValueError(f"stride={stride} out of range for T={T}")
+    if state is None:
+        state = core.init_state(params, B)
+    n_chunks = T // stride
+    logits, views = [], []
+    for c in range(n_chunks):
+        # a chunk of [B, T, D] is strided: the kernels take contiguous tokens
+        chunk_logits, state = core.unroll(params, inputs[:, c * stride:(c + 1) * stride].contiguous(), state)
+        logits.append(chunk_logits if full_logits else chunk_logits[:, -1:])
+        views.append(core.state_view(state))
+    if T % stride:
+        tail_logits, state = core.unroll(params, inputs[:, n_chunks * stride:].contiguous(), state)
+        if full_logits:
+            logits.append(tail_logits)
+    stacked = {k: torch.stack([v[k] for v in views], dim=1) for k in views[0]}
+    return torch.cat(logits, dim=1), stacked, state
 
 
 def make_core(cfg: TrackerConfig) -> MemoryCore:
@@ -70,7 +108,11 @@ def make_core(cfg: TrackerConfig) -> MemoryCore:
         )
         return logits, final
 
-    return MemoryCore(init_params=init_params, init_state=init_state, unroll=unroll, step=step)
+    def state_view(state):
+        return {"M": state["M"], "w": state["w"], "read": state["read"]}
+
+    return MemoryCore(init_params=init_params, init_state=init_state, unroll=unroll, step=step,
+                      state_view=state_view)
 
 
 def _dnc_core(cfg: TrackerConfig) -> MemoryCore:
@@ -91,4 +133,10 @@ def _dnc_core(cfg: TrackerConfig) -> MemoryCore:
     def step(params, x, state):
         return dnc_mod.dnc_step(params, dcfg, x, state)
 
-    return MemoryCore(init_params=init_params, init_state=init_state, unroll=unroll, step=step)
+    def state_view(state):
+        acc = state.access_state
+        return {"M": acc.memory, "w": torch.cat([acc.read_weights, acc.write_weights], dim=1),
+                "read": state.access_output}
+
+    return MemoryCore(init_params=init_params, init_state=init_state, unroll=unroll, step=step,
+                      state_view=state_view)

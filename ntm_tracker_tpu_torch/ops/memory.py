@@ -10,6 +10,9 @@ The contracts are those of the reference `ops.py`:
   * circular-convolution offsets follow the Python-2 floor division:
     {-2,-1,0} for S=3, not {-1,0,1}
   * sharpen divides by sum + 1e-3
+  * the legacy model's forms (ops.py:161-178, :216-242, :277-304):
+    smooth_cosine_similarity with the +1e-3 norm smoothing,
+    circular_shift and outer_product
 """
 
 from __future__ import annotations
@@ -38,6 +41,19 @@ def batched_slotwise_cosine_similarity(memory: torch.Tensor, keys: torch.Tensor)
     mem_n = _l2_normalize(memory, dim=2)
     key_n = _l2_normalize(keys, dim=2)
     return torch.einsum("bhd,bnd->bhn", key_n, mem_n)
+
+
+def smooth_cosine_similarity(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The legacy form (ops.py:161-178): dot / (|m| |v| + 1e-3).
+    m [..., N, D], v [..., D] -> [..., N] (the reference's is unbatched)."""
+    m_norm = torch.sqrt(torch.sum(m * m, dim=-1))
+    v_norm = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    return (m @ v[..., None])[..., 0] / (m_norm * v_norm + 1e-3)
+
+
+def circular_shift(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """result[..., i] = x[..., (i + shift) % N]  (ops.py:216-242)."""
+    return torch.roll(x, -shift, dims=-1)
 
 
 def circular_convolution_shifts(shift_space: int) -> list[int]:
@@ -69,3 +85,9 @@ def weighted_softmax(activations: torch.Tensor, strengths: torch.Tensor, strengt
     last axis (the DNC's content weighting, dnc/addressing.py:39-55).
     activations [B,H,N], strengths [B,H]."""
     return torch.softmax(activations * strength_op(strengths)[..., None], dim=-1)
+
+
+def outer_product(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched outer product: [..., n] x [..., m] -> [..., n, m]
+    (ops.py:277-304)."""
+    return u[..., :, None] * v[..., None, :]

@@ -1,5 +1,5 @@
-"""Token-stream serialization and the offsets loss for the offset tracker
-(counterpart of ntm_tracker_tpu/train/serialize.py:25-106).
+"""Token-stream serialization, the offsets loss and the heatmap loss
+(counterpart of ntm_tracker_tpu/train/serialize.py).
 
 Channel layout [C features | delimiter bit | target bit]; one delimiter
 token per frame; the target channel carries frame 0's gt heatmap on its
@@ -74,3 +74,12 @@ def offsets_loss(logits: torch.Tensor, offsets: torch.Tensor, num_features: int)
     pred = torch.tanh(gather_delimiter_outputs(logits, num_features))
     diff = pred - offsets[:, 1:, :]
     return 0.5 * torch.sum(diff * diff)
+
+
+def heatmap_loss(logits: torch.Tensor, gts: torch.Tensor, num_features: int) -> torch.Tensor:
+    """Softmax cross-entropy against the gt heatmaps at the delimiter
+    steps, over (L-1) (main.py:1919-1923): logits [B, L*(F+1), F], gts
+    [B, L, F] (frames 1..L-1 are the targets)."""
+    out = gather_delimiter_outputs(logits, num_features)
+    ce = -torch.sum(gts[:, 1:, :] * torch.log_softmax(out, dim=-1), dim=-1)
+    return torch.sum(ce) / out.shape[1]

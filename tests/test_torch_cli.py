@@ -3,7 +3,13 @@
 VID tree, from a checkpoint of the JAX package's initialized weights
 (carried by interop.py). Step 0's train loss in metrics.jsonl equals the
 JAX package's OffsetExperiment.loss_fn on its own first
-token_batch_iterator batch; the DNC core and the raw-frame route run."""
+token_batch_iterator batch; the DNC core and the raw-frame route run.
+The lab's commands (tests/test_cli_smoke.py's lab classes) run on the same
+tree: train-heatmap (its step 0 against JAX's HeatmapExperiment too),
+train-offsets --save_imgs, lstm-only, sanity-check (raw, PCA, a trained
+compressor, and its two refusals), find-validation-batch, inspect-batch,
+copy-paste, dnc-repeat-copy, and train-wholeframe and train-active-resize
+on a small generated_sequences.pkl."""
 
 import json
 import os
@@ -138,7 +144,7 @@ def test_raw_frame_route_host_and_device_resize_agree(workdir, jax_init, monkeyp
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--save_imgs"], "A6/A8"), (["--profile_steps", "1:2"], "A8"),
+    (["--profile_steps", "1:2"], "A8"),
     (["--dist_coordinator", "localhost:1"], "A7"), (["--dist_num_processes", "2"], "A7"),
 ])
 def test_unported_train_flags_raise(flag, item):
@@ -168,6 +174,161 @@ def test_parser_keeps_the_jax_flags_and_defaults():
         sub = next(a for a in parser._actions if a.dest == "command").choices[command]
         return {a.dest: a.default for a in sub._actions if a.dest != "help"}
 
-    for command in ("preprocess", "mine-sequences", "cache-features", "train-offsets"):
+    for command in ("preprocess", "mine-sequences", "cache-features", "train-offsets", "train-heatmap",
+                    "dnc-repeat-copy", "copy-paste", "train-wholeframe", "train-active-resize", "lstm-only",
+                    "sanity-check", "find-validation-batch", "inspect-batch"):
         mine, ref = defaults(ours, command), defaults(theirs, command)
         assert mine == ref, command
+
+
+# ---- the lab's commands -----------------------------------------------------------
+
+
+def lab(*argv):
+    """A lab command in-process on the CPU."""
+    return cli.main(["--device", "cpu", *argv])
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the lab's runs: the plain loop is thousands
+    of small ops, which stall on thread hand-offs when the run's workers
+    share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_train_heatmap_step0_equals_jax(workdir, monkeypatch, one_thread):
+    monkeypatch.chdir(workdir)
+    args = ["train-heatmap", *TRAIN, "--feature_cache", "cache", "--serialization", "frame", "--compress_dim", "8",
+            "--validation_interval", "1000", "--log_dir", "log_heatmap"]
+    run = cli.train_offsets(cli.build_parser().parse_args(["--device", "cpu", *args]))
+    assert run["steps"] == 2
+    loss0 = next(r["train_loss"] for r in metrics(run) if "train_loss" in r)
+    # JAX's experiment from the run's step-0 checkpoint, on the same batch
+    jargs = jcli.build_parser().parse_args(args)
+    jexp = jcli._make_experiment(jargs, jcli._tracker_config(jargs, "ntm"), None)
+    _, train_seqs, _ = get_valid_sequences("cropped", SEQ_LEN)
+    tb = next(jfc.token_batch_iterator(train_seqs, 1, "cache", 8, shuffle=True, seed=42))
+    saved = CheckpointManager(os.path.join(run["log_dir"], "ckpt")).restore(0)["params"]
+    jparams = {"core": {k: v for k, v in _jax_tree(saved["core"]).items()}, "compressor": saved["compressor"].numpy()}
+    batch = {"features": tb.features, "gts": tb.gts, "y_offsets": tb.y_offsets, "x_offsets": tb.x_offsets}
+    ref = float(jexp.loss_fn(jparams, batch)[0])
+    assert abs(loss0 - ref) <= 1e-5 * abs(ref), (loss0, ref)
+
+
+def _jax_tree(params):
+    """The port's NTM params as the JAX pytree (numpy leaves)."""
+    return {k: ([{kk: vv.numpy() for kk, vv in layer.items()} for layer in v] if k == "controller" else v.numpy())
+            for k, v in params.items()}
+
+
+def test_train_heatmap_sequential_on_frames_and_save_imgs(workdir, monkeypatch, one_thread):
+    monkeypatch.chdir(workdir)
+    assert lab("train-heatmap", *TRAIN, "--feature_cache", "cache", "--validation_interval", "1000",
+               "--log_dir", "log_hm_seq") == 0
+    # train-offsets --save_imgs: the dashboards at each validation, and on
+    # frames the crops / offsets / predictions grid
+    run = train(*TRAIN, "--limit", "1", "--validation_interval", "1", "--log_dir", "log_imgs", "--save_imgs")
+    pngs = sorted(f for f in os.listdir(run["log_dir"]) if f.endswith(".png"))
+    assert pngs == ["step_0_memory.png", "step_0_validation.png"]
+    assert all(os.path.getsize(os.path.join(run["log_dir"], f)) > 0 for f in pngs)
+    cached = train(*TRAIN, "--feature_cache", "cache", "--limit", "1", "--validation_interval", "1",
+                   "--log_dir", "log_imgs_cached", "--save_imgs", "--core", "dnc")
+    assert [f for f in os.listdir(cached["log_dir"]) if f.endswith(".png")] == ["step_0_memory.png"]
+    # the views' forward gives the eval step's loss
+    assert np.isfinite([r.get("val_loss", 0.0) for r in metrics(cached)]).all()
+
+
+def test_lstm_only_sanity_check_and_find_validation_batch(workdir, monkeypatch, capsys, one_thread):
+    monkeypatch.chdir(workdir)
+    assert lab("lstm-only", *TRAIN, "--num_layers", "1", "--compress_dim", "4", "--log_dir", "log_lstm") == 0
+    assert "loss" in capsys.readouterr().out
+    for extra, name in (([], "sanity_check"), (["--pca"], "sanity_check")):
+        assert lab("sanity-check", *TRAIN, "--compress_dim", "8", "--log_dir", "log_sanity", *extra) == 0
+        assert "similarity" in capsys.readouterr().out.lower()
+        assert os.path.getsize(os.path.join("log_sanity", name + ".png")) > 0
+    assert lab("find-validation-batch", "--sequences_dir", "cropped", "--sequence_length", str(SEQ_LEN),
+               "--batch_size", "1", "--target_step", "2") == 0
+    assert os.path.exists("validation_seqs_2.pkl")
+    assert lab("inspect-batch", "--sequences_dir", "cropped", "--out_dir", "inspect",
+               "--sequence_length", str(SEQ_LEN)) == 0
+    assert os.path.getsize(os.path.join("inspect", "inspect_batch.png")) > 0
+
+
+def test_sanity_check_trained_compressor_and_refusals(workdir, monkeypatch, capsys, one_thread):
+    monkeypatch.chdir(workdir)
+    run = cli.train_offsets(cli.build_parser().parse_args([
+        "--device", "cpu", "train-heatmap", *TRAIN, "--feature_cache", "cache", "--serialization", "frame",
+        "--compress_dim", "8", "--validation_interval", "1000", "--log_dir", "log_hm_c8"]))
+    ckpt = os.path.join(run["log_dir"], "ckpt")
+    assert lab("sanity-check", *TRAIN, "--compress_dim", "8", "--compressor_ckpt", ckpt,
+               "--log_dir", "log_sanity") == 0
+    assert "sanity_check_trained" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="compressor shape"):
+        lab("sanity-check", *TRAIN, "--compress_dim", "6", "--compressor_ckpt", ckpt, "--log_dir", "log_sanity")
+    with pytest.raises(SystemExit, match="has no .* compressor"):
+        lab("sanity-check", *TRAIN, "--compress_dim", "8", "--compressor_ckpt", os.path.join(workdir, "jax_none"),
+            "--log_dir", "log_sanity")
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        lab("sanity-check", *TRAIN, "--pca", "--compressor_ckpt", ckpt)
+
+
+def test_copy_paste_and_dnc_repeat_copy(tmp_path, capsys, one_thread):
+    assert lab("copy-paste", *TINY, "--batch_size", "4", "--sequence_length", "4", "--num_epochs", "3",
+               "--log_dir", str(tmp_path)) == 0
+    assert capsys.readouterr().out.count("loss") == 3
+    assert lab("dnc-repeat-copy", "--hidden_size", "16", "--memory_size", "8", "--word_size", "8", "--num_bits", "3",
+               "--batch_size", "4", "--num_training_iterations", "4", "--report_interval", "2",
+               "--checkpoint_interval", "2", "--checkpoint_dir", str(tmp_path / "ckpt")) == 0
+    assert "avg training loss" in capsys.readouterr().out
+    assert CheckpointManager(str(tmp_path / "ckpt")).steps() == [2, 4]
+
+
+def _tiny_pickle(tmp_path, rng, n_seqs=1, n_frames=4, gt_side=28):
+    """generated_sequences.pkl's shape (mining.gen_sequences) with real
+    JPEGs, as tests/test_cli_smoke.py builds it."""
+    import pickle
+
+    from PIL import Image
+
+    seqs = []
+    for s in range(n_seqs):
+        frames = []
+        for i in range(n_frames):
+            p = str(tmp_path / f"s{s}_f{i}.JPEG")
+            Image.fromarray((rng.rand(90, 160, 3) * 255).astype(np.uint8)).save(p)
+            frames.append((p, (160.0, 90.0), [(40.0 + i, 20.0), (110.0 + i, 70.0)], [rng.rand(gt_side, gt_side) > 0.9]))
+        seqs.append((f"seq{s}", "obj", 0, n_frames, frames))
+    pkl = tmp_path / "gen.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump(seqs, f)
+    return str(pkl)
+
+
+@pytest.mark.parametrize("command,extra", [
+    ("train-wholeframe", ["--feature_layer", "conv4/conv4_3"]),
+    ("train-wholeframe", ["--feature_layer", "pool5", "--two_step"]),
+    ("train-active-resize", []),
+], ids=["wholeframe", "wholeframe_pool5_two_step", "active_resize"])
+def test_pickle_trainers(tmp_path, command, extra, one_thread):
+    pkl = _tiny_pickle(tmp_path, np.random.RandomState(2), gt_side=7 if "pool5" in extra else 28)
+    args = cli.build_parser().parse_args([
+        "--device", "cpu", command, *TINY, "--pickle_path", pkl, "--sequence_length", "4", "--batch_size", "1",
+        "--num_epochs", "2" if command == "train-wholeframe" else "1", "--log_interval", "1", "--compress_dim", "8",
+        "--log_dir", str(tmp_path / "log"), *extra])
+    run = (cli.train_wholeframe if command == "train-wholeframe" else cli.train_active_resize)(args)
+    steps = 2 if command == "train-wholeframe" else 1
+    assert run["steps"] == steps and len(run["losses"]) == steps and np.isfinite(run["losses"]).all()
+    assert CheckpointManager(os.path.join(run["log_dir"], "ckpt")).steps() == [steps]
+
+
+def test_lab_commands_need_a_card_unless_told_cpu(tmp_path):
+    if not torch.cuda.is_available():
+        for argv in (["copy-paste", *TINY], ["dnc-repeat-copy"], ["train-heatmap", *TRAIN],
+                     ["lstm-only", *TRAIN], ["sanity-check", *TRAIN], ["inspect-batch", "--sequences_dir", "x"],
+                     ["train-wholeframe", "--pickle_path", "x"], ["train-active-resize", "--pickle_path", "x"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cli.main(argv)

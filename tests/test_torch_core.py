@@ -30,7 +30,8 @@ def test_make_core_fills_every_ported_field():
     logits, final = core.unroll(params, x[:, None], state, remat=False)
     assert torch.equal(logits[:, 0], logit) and torch.equal(final["M"], stepped["M"])
     assert tuple(state["w"].shape) == (3, cfg.ntm.num_heads, 8)
-    assert core.state_view is None  # the dashboards' field, not ported yet
+    view = core.state_view(final)  # the dashboards' observables
+    assert view["M"] is final["M"] and view["w"] is final["w"] and view["read"] is final["read"]
 
 
 def test_init_params_takes_jax_argument_order():

@@ -483,7 +483,10 @@ def test_make_core_runs_the_dnc():
     core = make_core(tcfg)
     params = core.init_params(torch.Generator().manual_seed(0), tcfg.input_depth)
     state = core.init_state(params, 3)
-    assert isinstance(state, tdnc.DNCState) and core.state_view is None
+    assert isinstance(state, tdnc.DNCState)
+    view = core.state_view(state)  # the dashboards' observables: read then write weights
+    assert tuple(view["M"].shape) == (3, 8, 4) and tuple(view["w"].shape) == (3, 3, 8)
+    assert tuple(view["read"].shape) == (3, 2, 4)
     x = _t(_rs(0).randn(3, 2, tcfg.input_depth))
     logit, stepped = core.step(params, x[:, 0], state)
     logits, final = core.unroll(params, x[:, :1], state, remat=False)
