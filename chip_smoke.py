@@ -40,9 +40,11 @@ Output ends with the card's name and power limit (nvidia-smi), one
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -102,7 +104,10 @@ ADDR_REPLACES = "ntm_tracker_tpu/ops/pallas/addressing.py:45"
 # (ntm_tracker_tpu/benchmarks.py:572); the main path at capacity 64
 FLEET_HW = (360, 640)
 FLEET_CAP, FLEET_STEPS = 64, 10
-FLEET_TIME_CAPS = (8, 64, 256)
+# capacities 8 and 256 (the device loop's B=256, the fleet profile's B1 and
+# plain routes) were cut from the timing sweeps to make room for the serving
+# phase; PERF.md keeps their last numbers
+FLEET_TIME_CAPS = (FLEET_CAP,)
 # fleet (matmul crop, B3 at B=64) vs StreamingTracker (gather crop, B1 at
 # B=1) on the first frame, in pixels: float32 rounding of two crop forms,
 # two cell routes and cuDNN at two batch sizes, through one frame step
@@ -168,6 +173,27 @@ LAB_LEGACY_B, LAB_LEGACY_T = 4, 20
 # rounding on both routes, held under this share of the largest gradient
 LAB_ZERO_TOL = 1e-5
 LEGACY_TOL = 1e-5
+# the serving phase, at TrackerConfig()'s width on the CLI's seeded weights:
+# export-serving for cuda at batch 1 and at SERVE_FLEET with the device loop
+# at FLEET_HW; a SERVE_CLIP-frame clip through the artifact and the live
+# routes (offsets within F32_TOL on the same crops); track-vot over TraX
+# pipes (regions within SERVE_REGION_TOL_PX of the in-process tracker's);
+# validate --fleet SERVE_FLEET on SERVE_FLEET of the data phase's val
+# tracks cut to SERVE_VAL_FRAMES frames, through the artifact (IoUs within
+# SERVE_IOU_TOL of the live plain route's replay) and live (B1 in the adds:
+# its ~1e-7 from the plain route grows through the recrops of a tracker on
+# random weights, so only each track's first IoU is held); int8 tokens, the card's against the CPU's, within
+# INT8_TOL of the largest (both sum exactly in int32: float32 rounding of
+# the dequantization is what differs) and their cosine to the exact path
+# above INT8_COS (the JAX package's bar); train-offsets --profile_steps.
+SERVE_CLIP, SERVE_FLEET, SERVE_VAL_FRAMES = 12, 8, 8
+SERVE_REGION_TOL_PX = 1e-2
+# validate's witness of the closed loop's growth: the first box moved this
+# share of the frame's width (validate's first regions are normalized)
+SERVE_NUDGE = 1e-4
+SERVE_IOU_TOL = 1e-3
+INT8_TOL, INT8_COS = 1e-6, 0.995
+INT8_TIME_B = (1, 64)
 
 
 def log(phase: str, msg: str) -> None:
@@ -676,7 +702,7 @@ def phase_cluster_info(dev: torch.device, IN: int) -> dict:
             "smem_bytes_2layer_2write_s5": fits["2layer_2write_s5"]}
 
 
-def route_times(dev: torch.device, smi: str, IN: int, batches=(1, 8, 16, 24, 32, 40, 48, 64), T: int = 65) -> dict:
+def route_times(dev: torch.device, smi: str, IN: int, batches=(1, 64), T: int = 65) -> dict:
     """B1 on both routes at the flagship config, T = 65, at each B (CUDA
     events, two turns of 10 calls each, the projection included), with the
     route the rule picks: {B: {"cluster", "tile", "rule"}}."""
@@ -1017,7 +1043,7 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
                      f"median of 3: " + ", ".join(f"{n} {fleet_ms[cap][n]:.2f} ms = {cap / fleet_ms[cap][n] * 1e3:.1f} "
                                                   f"tracked frames/s" for n in routes))
         if cap == FLEET_CAP:
-            for name, f in fleets.items():
+            for name, f in (("B3", fleets["B3"]),):  # the fleet main path's route
                 prof = device_profile(lambda f=f: f.step({s: video[1] for s in caps_slots}), reps=2)
                 idle = None if prof["busy_ms"] is None else 1 - prof["busy_ms"] / fleet_ms[cap][name]
                 log("profile", f"{smi}: fleet step capacity {cap} route {name}: kernels {prof['busy_ms']} ms and copies "
@@ -1050,7 +1076,7 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
         del crops
 
     loop_ms = {}
-    for cap in (64, 256):
+    for cap in (FLEET_CAP,):
         dframes = [torch.as_tensor(np.stack([video[t % len(video)]] * cap)).to(dev) for t in range(4)]
         init_fn, step_fn = make_device_track_step(cfg_p, core_p, vgg, params, device=dev)
         bb = torch.as_tensor(normalized_bboxes(fleet_regions(cap)), device=dev)
@@ -1139,16 +1165,23 @@ def train_reference(dev: torch.device) -> dict:
     """The training slice's inputs and its float64 referee, in plain
     PyTorch (no kernel of the port), so that main runs them while nvcc
     builds: the config, params, optimizer state, the device batch (cached
-    tokens, B=256 rows of L=20 frames) and the plain loop's gradients in
-    float64 from those params on that batch."""
+    tokens, B=256 rows of L=20 frames, drawn on the card: the host draws
+    only the labels) and the plain loop's gradients in float64 from those
+    params on that batch."""
     from ntm_tracker_tpu_torch.config import TrackerConfig, TrainConfig
-    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, synthetic_cached_batch
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, _synthetic_labels
 
     base = TrackerConfig(train=TrainConfig(batch_size=TRAIN_B, sequence_length=TRAIN_L))
     exp = OffsetExperiment(base, None, device=dev)  # fused_bptt="auto": the kernels on cuda at f32
     params, opt_state = exp.init(torch.Generator().manual_seed(1))
     t0 = time.perf_counter()
-    batch = exp.device_batch(synthetic_cached_batch(base, np.random.RandomState(0)))
+    # synthetic_cached_batch's layout and range (float16 tokens in [0, 40)),
+    # without its host draws (it first draws and drops an image batch's
+    # worth of numbers, 770M at this shape, to keep the JAX package's order)
+    batch = exp.device_batch(_synthetic_labels(base, np.random.RandomState(0)))
+    n = TRAIN_B * TRAIN_L
+    batch["features"] = (torch.rand(n, base.num_features, base.feature_depth, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(0)) * 40).half()
     batch_s = time.perf_counter() - t0
     expp = OffsetExperiment(dataclasses.replace(base, train=dataclasses.replace(base.train, fused_bptt=False)),
                             None, device=dev)
@@ -1176,7 +1209,7 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     params, opt_state = ref["params"], ref["opt_state"]
     ncfg, L = base.ntm, base.ntm.controller_num_layers
     log("train", f"synthetic cached batch B={TRAIN_B} L={TRAIN_L} (float16 tokens {tuple(batch['features'].shape)}) "
-                 f"made and uploaded in {ref['batch_s']:.1f}s (while the kernels built)")
+                 f"made on the card in {ref['batch_s']:.1f}s (while the kernels built)")
     train_step, eval_step = exp.make_train_step(), exp.make_eval_step()
     kernels = (ntm_scan_fused, scan_bptt.bptt_forward, scan_bptt.token_projection, scan_bptt.bptt_backward,
                scan_bptt.grad_reduce)
@@ -2636,6 +2669,541 @@ def phase_lab(dev: torch.device, smi: str, root: str) -> dict:
     return out
 
 
+def cli_subprocess(dev: torch.device, work: str, tag: str, argv: list, stdin: bool = False, nice: int = 0):
+    """`python -m ntm_tracker_tpu_torch --device <dev> <argv>` from this
+    checkout: (process, log file). Its stderr (and stdout, unless stdin is
+    asked for: a TraX server's stdout is its wire) goes to <work>/<tag>.log,
+    since a full pipe would block it. TF32 off through the libraries' own
+    switch (the CLI keeps PyTorch's defaults; the in-process references run
+    with it off). Killed at exit if still running."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               NVIDIA_TF32_OVERRIDE="0")
+    log_f = open(os.path.join(work, f"{tag}.log"), "w+")
+    proc = subprocess.Popen([sys.executable, "-m", "ntm_tracker_tpu_torch", "--device", str(dev), *argv], cwd=here,
+                            env=env, stdin=subprocess.PIPE if stdin else subprocess.DEVNULL,
+                            stdout=subprocess.PIPE if stdin else log_f, stderr=log_f, text=True,
+                            preexec_fn=(lambda: os.nice(nice)) if nice else None)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, log_f
+
+
+def finish_subprocess(tag: str, proc, log_f, timeout: float = 300) -> str:
+    """Wait for a cli_subprocess; its log, or raise with the log's tail."""
+    code = proc.wait(timeout=timeout)
+    log_f.seek(0)
+    text = log_f.read()
+    if code != 0:
+        raise AssertionError(f"{tag} exited {code}: {text[-3000:]}")
+    return text
+
+
+def start_serving_exports(dev: torch.device, work: str) -> dict:
+    """`export-serving` for cuda at batch 1 and at batch SERVE_FLEET with the
+    device loop, each a CLI subprocess started before the build (the export
+    needs no kernel), niced so that nvcc and the timed phases come first:
+    {tag: (process, log file, artifact path)}."""
+    import os
+
+    out = {}
+    for tag, extra in (("b1", []), (f"b{SERVE_FLEET}", ["--batch", str(SERVE_FLEET), "--device_loop",
+                                                       f"{FLEET_HW[0]}x{FLEET_HW[1]}"])):
+        path = os.path.join(work, f"serving_{tag}.npz")
+        out[tag] = (*cli_subprocess(dev, work, f"export_{tag}", ["export-serving", *extra, "--out", path], nice=10),
+                    path)
+    return out
+
+
+def start_trax_servers(dev: torch.device, work: str, exports: dict) -> dict:
+    """`track-vot --vot_mode trax`, live and on the batch-1 artifact (its
+    export waited for), started a phase early: each takes ~10-20 s to reach
+    the card and then waits on its stdin. {tag: (process, log file)}."""
+    proc, log_f, b1_path = exports["b1"]
+    finish_subprocess("export_b1", proc, log_f)
+    return {tag: cli_subprocess(dev, work, f"track_vot_{tag}", ["track-vot", "--vot_mode", "trax", *extra], stdin=True)
+            for tag, extra in (("live", []), ("artifact", ["--serving_npz", b1_path]))}
+
+
+def trax_session(proc, paths, region) -> list:
+    """Drive a `track-vot --vot_mode trax` process over its pipes: hello,
+    initialize on paths[0], one frame per later path, quit. Returns the
+    reported regions; raises if any stdout line is not a TraX message."""
+    from ntm_tracker_tpu_torch.tracking.trax_protocol import format_message, parse_message
+
+    def read():
+        line = proc.stdout.readline()
+        msg = parse_message(line)
+        if msg is None:
+            raise AssertionError(f"track-vot wrote a non-protocol line on stdout: {line!r}")
+        return msg
+
+    if read()[0] != "hello":
+        raise AssertionError("track-vot sent no hello")
+    proc.stdin.write(format_message("initialize", ["file://" + paths[0], ",".join(map(str, region))]) + "\n")
+    proc.stdin.flush()
+    if read()[0] != "state":
+        raise AssertionError("no state after initialize")
+    regions = []
+    for p in paths[1:]:
+        proc.stdin.write(format_message("frame", [p]) + "\n")
+        proc.stdin.flush()
+        mtype, args, _ = read()
+        if mtype != "state":
+            raise AssertionError(f"expected state, got {mtype}")
+        regions.append([float(v) for v in args[0].split(",")])
+    proc.stdin.write(format_message("quit", []) + "\n")
+    proc.stdin.close()
+    rest = proc.stdout.read().splitlines()
+    if [parse_message(line) and parse_message(line)[0] for line in rest] != ["quit"]:
+        raise AssertionError(f"track-vot's stdout after the session: {rest!r}")
+    return regions
+
+
+def crop_edge_samples(cropbox, image_wh, n: int) -> int:
+    """Rows plus columns of an n x n crop_and_resize of `cropbox`
+    (normalized y1, x1, y2, x2) that sample outside the image, by its
+    float32 sample coordinates (data/image_ops._sample_coords)."""
+    W, H = image_wh
+    count = 0
+    for lo, hi, size in ((cropbox[0], cropbox[2], H), (cropbox[1], cropbox[3], W)):
+        lo, hi = np.float32(lo), np.float32(hi)
+        c = lo * np.float32(size - 1) + np.arange(n, dtype=np.float32) * ((hi - lo) * np.float32(size - 1) /
+                                                                        np.float32(n - 1))
+        count += int(((c < 0) | (c > size - 1)).sum())
+    return count
+
+
+def edge_witness(ious: dict, recorded: dict) -> dict:
+    """Where the live (B1) and plain replays' IoUs part: per track, the
+    first step whose IoU gap passes SERVE_IOU_TOL, and the crop's
+    out-of-frame sample count on both routes at every step up to it (the
+    replays admit all SERVE_FLEET tracks at once, track i in slot i).
+    'edge_step_first' counts the tracks whose counts differ at or before
+    that step: a row of samples that crossed the frame's edge on one route
+    and not on the other."""
+    live, plain = np.asarray(ious["live_edges"]), np.asarray(ious["plain"])
+    tracks = {}
+    for i in range(live.shape[0]):
+        over = np.nonzero(np.abs(live[i] - plain[i]) > SERVE_IOU_TOL)[0]
+        if not len(over):
+            continue
+        t = int(over[0])
+        tracks[i] = {"step": t, "gap": float(abs(live[i, t] - plain[i, t])),
+                     "edges_live": [recorded["live_edges"].edges[s][i] for s in range(t + 1)],
+                     "edges_plain": [recorded["plain"].edges[s][i] for s in range(t + 1)]}
+    return {"tracks_parted": len(tracks), "edge_step_first": sum(v["edges_live"] != v["edges_plain"]
+                                                                 for v in tracks.values()),
+            "live_replay_vs_validate": float(np.abs(live - np.asarray(ious["live"])).max()), "by_track": tracks}
+
+
+def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict = None, trax: dict = None) -> dict:
+    """The serving and evaluation path on the card, at TrackerConfig()'s
+    width on the CLI's seeded weights: (a) export-serving for cuda at batch 1
+    and at batch SERVE_FLEET with --device_loop 360x640 (CLI subprocesses
+    that main starts before the build, start_serving_exports, and the TraX
+    servers before the lab phase, start_trax_servers; started here when
+    `exports` / `trax` is None); a SERVE_CLIP-frame clip through the live B1
+    tracker, then its crops through the batch-1 artifact and the live plain
+    route (offsets within F32_TOL of both, no B1 launch in the artifact); the
+    batch-8 artifact's step, dinit and dstep against the live plain step and
+    device loop; the artifact's step ms against the live B1 frame step at
+    B=1; (b) track-vot --vot_mode trax in two subprocesses over pipes, live
+    and --serving_npz, started early, their regions against the in-process
+    trackers'; (c) validate --fleet 8 on the data phase's val tracks
+    (`root`, its "cropped" records), live and through the artifact: the
+    artifact's IoUs against the live plain route's replay, and each track's
+    first against the live run's, within SERVE_IOU_TOL, and the live-vs-plain gap frame by frame;
+    (d) int8 tokens on the card against the CPU's, the cosine to the float32 path,
+    and int8 vs float32 token ms at B = 1 and 64; (e) train-offsets
+    --profile_steps 1:2 on the float16 cache. root=None builds a tree of its
+    own (preprocess + cache-features)."""
+    import os
+    import pickle
+    import re
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from ntm_tracker_tpu_torch import cli
+    from ntm_tracker_tpu_torch.data.image_ops import crop_and_resize
+    from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
+    from ntm_tracker_tpu_torch.models.core import make_core
+    from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN, vgg16_conv43_tokens
+    from ntm_tracker_tpu_torch.models.vgg_int8 import vgg16_conv43_tokens_int8
+    from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+    from ntm_tracker_tpu_torch.tools.export_serving import ServingModel
+    from ntm_tracker_tpu_torch.tracking import validate as tval
+    from ntm_tracker_tpu_torch.tracking.fleet import FleetTracker
+    from ntm_tracker_tpu_torch.tracking.tracker import (
+        StreamingTracker, build_frame_step, first_frame_gt, make_device_track_step, region_geometry,
+    )
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    class EdgeRecordingFleet(FleetTracker):
+        """A FleetTracker that records, before each step, crop_edge_samples
+        of every stepped slot's crop: self.edges[step][slot]. nudge moves
+        each added track's first (normalized) region that far right."""
+
+        nudge = 0.0
+
+        def add(self, image, region_xywh):
+            x, y, w, h = region_xywh
+            return super().add(image, (x + self.nudge, y, w, h))
+
+        def step(self, images):
+            n = self.cfg.data.crop_size
+            self.edges = getattr(self, "edges", []) + [{
+                i: crop_edge_samples(self._tracks[i].cropbox, self._tracks[i].image_size, n)
+                for i in self.active if i in images}]
+            return super().step(images)
+
+    d = str(dev)
+    parser = cli.build_parser()
+    out, counts = {}, {}
+    own = root is None
+    root = tempfile.mkdtemp(prefix="ntm_serve_") if own else root
+    work = tempfile.mkdtemp(prefix="ntm_serve_work_")
+    cwd = os.getcwd()
+    procs = {}
+
+    def reset():
+        reset_all_counts()
+        fused_ntm_addressing.launches = 0
+
+    def launches():
+        return {"ntm_scan_fused": ntm_scan_fused.launches, "fused_ntm_addressing": fused_ntm_addressing.launches}
+
+    try:
+        if own:
+            from ntm_tracker_tpu_torch.data.synthetic_vid import write_vid_tree
+
+            os.chdir(root)
+            write_vid_tree(".", seed=0, sequences=DATA_SEQS)
+            cli.main(["--device", d, "preprocess", "--annotation_dir", "Annotations", "--image_dir", "Data",
+                      "--output_dir", "cropped", "--num_workers", "1"])
+            cli.main(["--device", d, "cache-features", "--sequences_dir", "cropped", "--cache_dir", "cache_float16"])
+        os.chdir(root)
+        t_phase = time.perf_counter()
+
+        # ---- (a) the exports (started before the build), then track-vot ----------
+        video, region0 = synthetic_video(seed=3, frames=1 + SERVE_CLIP, hw=FLEET_HW)
+        paths = []
+        for t in range(1 + SERVE_CLIP):
+            paths.append(os.path.join(work, f"{t:08d}.png"))
+            Image.fromarray(video[t]).save(paths[-1])
+        exports = exports or start_serving_exports(dev, work)
+        trax_servers = trax or start_trax_servers(dev, work, exports)
+        procs.update({f"export_{tag}": e[:2] for tag, e in exports.items()})
+        procs.update({f"track_vot_{tag}": t for tag, t in trax_servers.items()})
+        t0 = time.perf_counter()
+        out["export"] = {}
+        for tag, (proc, log_f, path) in exports.items():
+            printed = finish_subprocess(f"export_{tag}", proc, log_f)
+            found = re.search(r"for platforms \['cuda'\] .*\) -> \S+ \(([0-9.]+) MB\) in ([0-9.]+) s", printed)
+            if found is None:
+                raise AssertionError(f"export-serving ({tag}) printed no cuda export: {printed[-2000:]}")
+            out["export"][tag] = {"seconds": float(found.group(2)), "mb": float(found.group(1)), "path": path}
+        wait_s = time.perf_counter() - t0
+        b1_path, b8_path = out["export"]["b1"]["path"], out["export"][f"b{SERVE_FLEET}"]["path"]
+        t0 = time.perf_counter()
+        m1 = ServingModel(b1_path, dev)
+        load_s = time.perf_counter() - t0
+        log("serving", f"export-serving for cuda (CLI subprocesses started before the build; waited {wait_s:.2f}s "
+                       f"here): batch 1 {out['export']['b1']['seconds']:.2f}s {out['export']['b1']['mb']:.1f} MB; "
+                       f"batch {SERVE_FLEET} + device loop {FLEET_HW[0]}x{FLEET_HW[1]} "
+                       f"{out['export'][f'b{SERVE_FLEET}']['seconds']:.2f}s "
+                       f"{out['export'][f'b{SERVE_FLEET}']['mb']:.1f} MB; batch 1 loaded in {load_s:.2f}s; route: "
+                       f"{m1.meta['route']}")
+        out["export"]["b1"]["load_s"] = load_s
+
+        # the CLI's seeded weights, in process, for the live routes
+        args = parser.parse_args(["--device", d, "track-vot"])
+        cfg = cli._tracker_config(args, "ntm")
+        core = make_core(cfg)
+        vgg = cli._load_vgg(args, dev)
+        params = cli._resolve_tracker_weights(args, cfg, core, dev)
+        plain_cfg = dataclasses.replace(cfg, fused_inference=False)
+        plain_core = make_core(plain_cfg)
+
+        reset()
+        live = StreamingTracker(cfg, vgg, params, core, device=dev)
+        live.init(video[0], region0)
+        boxes = [list(live.cropbox)]
+        for t in range(1, 1 + SERVE_CLIP):
+            boxes.append(list(live.cropbox))
+            live.track(video[t])
+        counts["serving_clip_live"] = launches()
+        mean = torch.as_tensor(VGG_MEAN, device=dev)
+
+        def crop(frame, box):
+            img = torch.as_tensor(frame, device=dev).float() - mean
+            return crop_and_resize(img[None], torch.tensor([box], dtype=torch.float32, device=dev),
+                                   (cfg.data.crop_size, cfg.data.crop_size))
+
+        crops = [crop(video[t], boxes[t]) for t in range(1 + SERVE_CLIP)]
+        nb, _, tr = region_geometry(cfg.data, (video.shape[2], video.shape[1]), region0)
+        gt = torch.as_tensor(first_frame_gt(cfg, nb, tr).reshape(1, -1), device=dev)
+        offs = {}
+        for tag, (first, rest) in {
+            "b1_route": build_frame_step(cfg, core, vgg, params, device=dev),
+            "plain": build_frame_step(plain_cfg, plain_core, vgg, params, device=dev),
+            "artifact": (m1.first, m1.step),
+        }.items():
+            reset()
+            if tag == "artifact":
+                state = m1.init_state()
+            else:
+                with torch.no_grad():
+                    state = core.init_state(params, 1)
+            _, state = first(crops[0], gt, state)
+            offs[tag] = []
+            for t in range(1, 1 + SERVE_CLIP):
+                o, state = rest(crops[t], state)
+                offs[tag].append(o[0].cpu().numpy())
+            offs[tag] = np.asarray(offs[tag], np.float64)
+            counts[f"serving_clip_{tag}"] = launches()
+        err_plain = float(np.abs(offs["artifact"] - offs["plain"]).max())
+        err_b1 = float(np.abs(offs["artifact"] - offs["b1_route"]).max())
+        log("serving", f"{SERVE_CLIP}-frame clip at {FLEET_HW[0]}x{FLEET_HW[1]}, the same crops: artifact vs live "
+                       f"plain route max_abs(offsets)={err_plain:.3e}, vs live B1 route {err_b1:.3e} (tol "
+                       f"{F32_TOL:g}); launches {counts}")
+        if not np.isfinite(offs["artifact"]).all() or max(err_plain, err_b1) > F32_TOL:
+            raise AssertionError(f"the artifact disagrees with the live frame step: {err_plain:.3e}, {err_b1:.3e}")
+        if counts["serving_clip_artifact"]["ntm_scan_fused"] != 0 or counts["serving_clip_b1_route"][
+                "ntm_scan_fused"] != 1 + SERVE_CLIP or counts["serving_clip_live"]["ntm_scan_fused"] != 1 + SERVE_CLIP:
+            raise AssertionError(f"B1 launches on the serving clip {counts}: expected one a frame live, none in the "
+                                 "artifact")
+        out["clip"] = {"artifact_vs_plain": err_plain, "artifact_vs_b1": err_b1}
+
+        # the artifact's step against the live B1 frame step at B=1
+        step_b1 = build_frame_step(cfg, core, vgg, params, device=dev)[1]
+        plain_step = build_frame_step(plain_cfg, plain_core, vgg, params, device=dev)[1]
+        with torch.no_grad():
+            st = core.init_state(params, 1)
+        leaves = m1.init_state()
+        art_ms = cuda_ms(lambda: m1.step(crops[1], leaves), iters=5, warmup=1)
+        live_ms = cuda_ms(lambda: step_b1(crops[1], st), iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: plain_step(crops[1], st), iters=5, warmup=1)
+        log("times", f"{smi}: frame step at B=1 (crop on the card, VGG + 65 cell steps): artifact {art_ms:.3f} ms "
+                     f"(plain cell loop as one scan), live B1 route {live_ms:.3f} ms, live plain loop {plain_ms:.3f} ms "
+                     f"(CUDA events, host dispatch included)")
+        out["step_ms"] = {"artifact": art_ms, "live_b1": live_ms, "live_plain": plain_ms}
+        check_budget("serving_clip")
+
+        # ---- (d) int8 tokens: the card against the CPU, and their times -------------
+        c2 = torch.cat(crops[:2])
+        cpu_vgg = tree_map(lambda t: t.cpu(), vgg)
+        with torch.no_grad():
+            t_card = vgg16_conv43_tokens_int8(vgg, c2)
+            t_cpu = vgg16_conv43_tokens_int8(cpu_vgg, c2.cpu())
+            t_f32 = vgg16_conv43_tokens(vgg, c2)
+        # why the scale divides by a tensor: a Python scalar divisor makes the
+        # CUDA kernel multiply by its reciprocal (not held, counted)
+        amax = torch.rand(1 << 20, device=dev) * 300
+        recip_ulps = int((amax / 127.0 != amax / amax.new_full((), 127.0)).sum())
+        int8_err = max_abs(t_card.cpu(), t_cpu) / float(t_cpu.abs().max())
+        cos = torch.nn.functional.cosine_similarity(t_card, t_f32, dim=-1, eps=1e-12)
+        int8_ms = {}
+        for B in INT8_TIME_B:
+            cb = torch.cat([crops[i % len(crops)] for i in range(B)])
+            with torch.no_grad():
+                int8_ms[B] = {
+                    "int8": cuda_ms(lambda: vgg16_conv43_tokens_int8(vgg, cb), iters=5, warmup=1),
+                    "f32": cuda_ms(lambda: vgg16_conv43_tokens(vgg, cb), iters=5, warmup=1),
+                }
+        log("serving", f"int8 tokens B=2 (im2col + torch._int_mm on both): card vs CPU rel max_abs={int8_err:.3e} "
+                       f"(tol {INT8_TOL:g}); cosine to float32 min {float(cos.min()):.5f} (bar {INT8_COS}); x / 127.0 "
+                       f"differs from x / tensor(127.0) on the card in {recip_ulps} of {amax.numel()} values")
+        log("times", f"{smi}: VGG conv4_3 tokens (204x204 slice, CUDA events, TF32 off): " + "; ".join(
+            f"B={B} int8 {v['int8']:.3f} ms, float32 {v['f32']:.3f} ms" for B, v in int8_ms.items()))
+        if int8_err > INT8_TOL or float(cos.min()) <= INT8_COS:
+            raise AssertionError(f"int8 tokens: card vs CPU {int8_err:.3e}, cosine {float(cos.min()):.5f}")
+        out["int8"] = {"card_vs_cpu": int8_err, "cos_min": float(cos.min()), "ms": int8_ms,
+                       "scalar_divisor_ulps": recip_ulps}
+
+        # ---- (e) train-offsets --profile_steps ---------------------------------------
+        reset()
+        run = cli.train_offsets(parser.parse_args(
+            ["--device", d, "train-offsets", "--sequences_dir", "cropped", "--feature_cache", "cache_float16",
+             "--batch_size", str(DATA_B), "--sequence_length", str(TRAIN_L), "--num_epochs", "3",
+             "--validation_interval", "1000", "--log_interval", "1", "--profile_steps", "1:2",
+             "--log_dir", os.path.join(work, "log_profile")]))
+        counts["serving_profile_train"] = dict(kernel_counts(), fused_ntm_addressing=fused_ntm_addressing.launches)
+        trace = os.path.join(run["profile_dir"], "steps_1_2.pt.trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        steps_seen = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("train_step_")})
+        n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        log("serving", f"train-offsets --profile_steps 1:2 ({run['steps']} steps at B={DATA_B}): "
+                       f"{os.path.basename(trace)} {os.path.getsize(trace) / 1e6:.2f} MB, ranges {steps_seen}, "
+                       f"{n_kernels} kernel events on the card; launches {counts['serving_profile_train']}")
+        if steps_seen != ["train_step_1", "train_step_2"] or run["steps"] < 3 or not n_kernels:
+            raise AssertionError(f"the profile window traced {steps_seen} over {run['steps']} steps, {n_kernels} "
+                                 "kernel events")
+        out["profile"] = {"trace_mb": os.path.getsize(trace) / 1e6, "kernel_events": n_kernels}
+        check_budget("serving_int8_profile")
+
+        # ---- (a) the batch-8 artifact: step, dinit and dstep against the live routes ------
+        t0 = time.perf_counter()
+        m8 = ServingModel(b8_path, dev)
+        B = SERVE_FLEET
+        out["export"][f"b{B}"]["load_s"] = time.perf_counter() - t0
+        crops8 = torch.cat([crops[1 + i % SERVE_CLIP] for i in range(B)])
+        step8 = build_frame_step(cfg, core, vgg, params, device=dev)[1]
+        with torch.no_grad():
+            st8 = core.init_state(params, B)
+        reset()
+        o_live, _ = step8(crops8, st8)
+        o_art, _ = m8.step(crops8, m8.init_state())
+        step8_err = max_abs(o_art, o_live)
+        # [T, B, H, W, 3]: the tracks share each frame, each from its own box
+        frames8 = torch.as_tensor(synthetic_video(seed=4, frames=4, hw=FLEET_HW)[0], device=dev)[:, None].expand(
+            -1, B, -1, -1, -1).contiguous()
+        init_fn, step_fn = make_device_track_step(cfg, core, vgg, params, device=dev)
+        bbox_l = bbox_a = torch.as_tensor(normalized_bboxes(fleet_regions(B)), device=dev)
+        with torch.no_grad():
+            st_l = init_fn(frames8[0], bbox_l, core.init_state(params, B))
+        lv_a = m8.device_init(frames8[0], bbox_a, m8.init_state())
+        loop_err = 0.0
+        for t in range(1, 4):
+            r_l, bbox_l, st_l = step_fn(frames8[t], bbox_l, st_l)
+            r_a, bbox_a, lv_a = m8.device_step(frames8[t], bbox_a, lv_a)
+            loop_err = max(loop_err, max_abs(r_a, r_l))
+        counts["serving_b8_live_and_artifact"] = launches()
+        log("serving", f"the batch-{B} artifact, loaded in {out['export'][f'b{B}']['load_s']:.2f}s: step vs the live "
+                       f"frame step at B={B} (the "
+                       f"plain loop by the rule) max_abs(offsets)={step8_err:.3e} (tol {F32_TOL:g}); dinit + 3 dstep vs "
+                       f"make_device_track_step regions {loop_err:.3e} px (tol {SERVE_REGION_TOL_PX:g})")
+        if step8_err > F32_TOL or loop_err > SERVE_REGION_TOL_PX:
+            raise AssertionError("the batch-8 artifact disagrees with the live routes")
+        out["b8"] = {"step_err": step8_err, "loop_err_px": loop_err}
+
+        # ---- (c) validate --fleet 8, live and through the artifact ------------------
+        _, _, val = get_valid_sequences("cropped", SERVE_VAL_FRAMES)
+        seqs = [(p, names[:SERVE_VAL_FRAMES]) for p, names in val[:SERVE_FLEET]]
+        pkl = os.path.join(work, "val.pkl")
+        with open(pkl, "wb") as f:
+            pickle.dump(seqs, f)
+        ious = {}
+        for tag, extra in (("live", []), ("artifact", ["--serving_npz", b8_path])):
+            reset()
+            t0 = time.perf_counter()
+            ious[tag] = tval.validate_tracker(parser.parse_args(
+                ["--device", d, "validate", "--pickle_path", pkl, "--fleet", str(SERVE_FLEET), *extra]))
+            counts[f"serving_validate_{tag}"] = dict(launches(), seconds=time.perf_counter() - t0)
+        # the artifact's route, live: the same fleet on the plain cell loop;
+        # it and a second live replay record, before each step, how many of
+        # every crop's sample rows and columns fall outside the frame
+        # (crop_and_resize gives those 0: a step in the box's coordinates)
+        # (one more plain replay starts each track SERVE_NUDGE to the right:
+        # the closed loop's own growth of a small difference, without B1)
+        recorded = {}
+        for tag, c, k, nudge in (("plain", plain_cfg, plain_core, 0.0), ("live_edges", cfg, core, 0.0),
+                                 ("plain_nudged", plain_cfg, plain_core, SERVE_NUDGE)):
+            recorded[tag] = EdgeRecordingFleet(c, vgg, params, capacity=SERVE_FLEET, core=k, device=dev)
+            recorded[tag].nudge = nudge
+            ious[tag] = tval.replay_sequences_fleet(seqs, None, None, None, log=lambda m: None, fleet=recorded[tag])
+        edge_gap = edge_witness(ious, recorded)
+        nudged = np.abs(np.asarray(ious.pop("plain_nudged")) - np.asarray(ious["plain"])).max(axis=0).tolist()
+        val_w = next(size[0] for _, split, size, _, _ in DATA_SEQS if split == "val")
+        del ious["live_edges"]
+        flat = {k: np.asarray([i for s in v for i in s]) for k, v in ious.items()}
+        iou_err = float(np.abs(flat["artifact"] - flat["plain"]).max())
+        first_err = max(abs(a[0] - b[0]) for a, b in zip(ious["live"], ious["artifact"]))
+        live_err = float(np.abs(flat["live"] - flat["artifact"]).max())
+        # frame by frame, the largest gap over the tracks: live (B1 in the
+        # adds) against the live plain route and against the artifact
+        by_frame = {k: np.abs(np.asarray(ious["live"]) - np.asarray(ious[k])).max(axis=0).tolist()
+                    for k in ("plain", "artifact")}
+        log("serving", f"validate --fleet {SERVE_FLEET}: {len(seqs)} val tracks x {SERVE_VAL_FRAMES} frames, mean IoU "
+                       f"live {flat['live'].mean():.4f} artifact {flat['artifact'].mean():.4f}; artifact vs the live "
+                       f"plain route's replay max |diff| {iou_err:.3e}, vs live (B1 adds) on each track's first frame "
+                       f"{first_err:.3e} (tol {SERVE_IOU_TOL:g} both), over all frames {live_err:.3e} (not held); "
+                       f"live vs plain IoU gap by frame " + " ".join(f"{v:.3e}" for v in by_frame["plain"]) +
+                       "; live vs artifact by frame " + " ".join(f"{v:.3e}" for v in by_frame["artifact"]) +
+                       f"; the plain route vs itself from a first box {SERVE_NUDGE:g} of the frame's width "
+                       f"({SERVE_NUDGE * (val_w - 1):.4f} px at {val_w}) to the right, by frame " +
+                       " ".join(f"{v:.3e}" for v in nudged) +
+                       f"; launches {counts['serving_validate_live']} live, {counts['serving_validate_artifact']} "
+                       f"artifact; the edge witness {edge_gap}")
+        if len(seqs) != SERVE_FLEET or len(flat["live"]) != len(seqs) * (SERVE_VAL_FRAMES - 1) or \
+                max(iou_err, first_err) > SERVE_IOU_TOL or counts["serving_validate_live"]["ntm_scan_fused"] != \
+                len(seqs) or counts["serving_validate_artifact"]["ntm_scan_fused"] != 0:
+            raise AssertionError(f"validate --fleet: {len(flat['live'])} IoUs, |diff| {iou_err:.3e} / {first_err:.3e}, "
+                                 f"launches {counts}")
+        out["validate"] = {"artifact_vs_plain": iou_err, "artifact_vs_live_first": first_err,
+                           "artifact_vs_live_all": live_err, "live_gap_by_frame": by_frame, "edge_witness": edge_gap,
+                           "plain_nudged_gap_by_frame": nudged,
+                           "mean_iou": {k: float(v.mean()) for k, v in flat.items()}}
+        # ---- (b) track-vot over TraX pipes, live and from the artifact (last: the ------
+        # ---- processes need ~20 s to reach the card) ---------------------------------
+        t0 = time.perf_counter()
+        # the two sessions at once, each from a thread of its own
+        with ThreadPoolExecutor(2) as pool:
+            served = {tag: pool.submit(trax_session, procs[f"track_vot_{tag}"][0], paths, region0)
+                      for tag in ("live", "artifact")}
+            served = {tag: np.asarray(s.result()) for tag, s in served.items()}
+        for tag in ("live", "artifact"):
+            proc, log_f = procs[f"track_vot_{tag}"]
+            # the session's own launch counts, from track-vot's closing line
+            # on its stderr
+            said = re.search(r"tracked (\d+) frames \(launches: ntm_scan_fused (\d+), fused_ntm_addressing (\d+)\)",
+                             finish_subprocess(f"track_vot_{tag}", proc, log_f, timeout=120))
+            if said is None or int(said.group(1)) != 1 + SERVE_CLIP:
+                raise AssertionError(f"track-vot ({tag}) reported no launch counts for its {1 + SERVE_CLIP} frames")
+            counts[f"serving_track_vot_{tag}"] = {"ntm_scan_fused": int(said.group(2)),
+                                                  "fused_ntm_addressing": int(said.group(3))}
+        trax_s = time.perf_counter() - t0
+        # the in-process trackers over the same decoded frames (the regions'
+        # reference; their launches are this process's, not track-vot's)
+        decoded = [np.array(Image.open(p).convert("RGB")) for p in paths]
+        ref = {}
+        for tag, trk in (("live", StreamingTracker(cfg, vgg, params, core, device=dev)),
+                         ("artifact", StreamingTracker.from_serving(m1))):
+            reset()
+            trk.init(decoded[0], region0)
+            ref[tag] = np.asarray([trk.track(f) for f in decoded[1:]])
+            counts[f"serving_streaming_tracker_inprocess_{tag}"] = launches()
+        trax_err = {k: float(np.abs(served[k] - ref[k]).max()) for k in served}
+        live_vs_art = float(np.abs(served["live"] - served["artifact"]).max())
+        log("serving", f"track-vot --vot_mode trax over pipes, two processes started before the lab phase (both sessions "
+                       f"at once, {trax_s:.2f}s): {SERVE_CLIP} states each, stdout only protocol lines; regions vs the "
+                       f"in-process tracker live {trax_err['live']:.3e} px, artifact {trax_err['artifact']:.3e} px (tol "
+                       f"{SERVE_REGION_TOL_PX:g}); live vs artifact {live_vs_art:.3e} px (not held); track-vot's own "
+                       f"launches {counts['serving_track_vot_live']} live, {counts['serving_track_vot_artifact']} "
+                       f"artifact; the in-process trackers' {counts['serving_streaming_tracker_inprocess_live']} live, "
+                       f"{counts['serving_streaming_tracker_inprocess_artifact']} artifact")
+        if max(trax_err.values()) > SERVE_REGION_TOL_PX or any(
+                counts[f"serving_{who}live"]["ntm_scan_fused"] != 1 + SERVE_CLIP or
+                counts[f"serving_{who}artifact"]["ntm_scan_fused"] != 0
+                for who in ("track_vot_", "streaming_tracker_inprocess_")):
+            raise AssertionError(f"track-vot: regions vs the in-process tracker {trax_err}, launches {counts}")
+        out["track_vot"] = {"session_s": trax_s, "err_px": trax_err, "live_vs_artifact_px": live_vs_art}
+        out["phase_s"] = time.perf_counter() - t_phase
+        check_budget("serving")
+    finally:
+        for proc, log_f in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
+    out["counts"] = counts
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
@@ -2667,6 +3235,11 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log("device", f"torch {torch.__version__} cuda {torch.version.cuda}; {kind}; nvidia-smi: {smi}")
     check_budget("device")
+    # the serving phase's exports need no kernel: CLI subprocesses from now on
+    import tempfile
+
+    serve_work = tempfile.mkdtemp(prefix="ntm_serve_exports_")
+    serve_exports = start_serving_exports(dev, serve_work)
 
     # ---- 2. build ----------------------------------------------------------
     # one nvcc per library, all started together (scan_packed.cu builds
@@ -2676,9 +3249,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    def build_niced(names):
+        # Linux keeps a nice value per thread, and the compilers inherit
+        # this thread's: the referee's host dispatch on the main thread
+        # goes first
+        os.setpriority(os.PRIO_PROCESS, 0, 5)
+        return _build.build_all(names)
+
     with ThreadPoolExecutor(1) as pool:
-        built = pool.submit(_build.build_all, ["scan_cell", "scan_bptt", "addressing", "scan_packed",
-                                               "scan_packed_bwd", "scan_packed_probe"])
+        built = pool.submit(build_niced, ["scan_cell", "scan_bptt", "addressing", "scan_packed", "scan_packed_bwd",
+                                          "scan_packed_probe"])
         ref = train_reference(dev)
         ref_s = time.perf_counter() - t0
         paths = built.result()
@@ -2884,16 +3464,21 @@ def main() -> int:
     import shutil
     import tempfile
 
+    # ---- 7f. serving and evaluation, on the same tree -----------------------
     tree = tempfile.mkdtemp(prefix="ntm_data_")
     try:
         data = phase_data(dev, smi, tree)
+        trax_servers = start_trax_servers(dev, serve_work, serve_exports)
         lab = phase_lab(dev, smi, tree)
+        serving = phase_serving(dev, smi, tree, serve_exports, trax_servers)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
+        shutil.rmtree(serve_work, ignore_errors=True)
     data_counts = {"data_cached_train": data["cached"]["counts"], "data_raw_host_resize":
                    data["raw"]["host_resize"]["counts"], "data_raw_device_resize": data["raw"]["device_resize"]["counts"],
                    "data_resume": data["resumed"]["counts"]}
     lab_counts = {f"lab_{k}": c for k, c in lab["counts"].items()}
+    serving_counts = serving["counts"]
 
     # ---- 8. result -----------------------------------------------------------
     # B1 runs on every main path: `launches` is the frame path's count; the
@@ -2912,7 +3497,8 @@ def main() -> int:
                              "accuracy_demo_train": accuracy["ntm"]["train_counts"]["ntm_scan_fused"],
                              "accuracy_flagship_train": accuracy["flagship"]["counts"]["ntm_scan_fused"],
                              **{k: c["ntm_scan_fused"] for k, c in data_counts.items()},
-                             **{k: c["ntm_scan_fused"] for k, c in lab_counts.items()}},
+                             **{k: c["ntm_scan_fused"] for k, c in lab_counts.items()},
+                             **{k: c["ntm_scan_fused"] for k, c in serving_counts.items()}},
         "route_by_path": {"frame_step": frame_routes, "fleet": fleet["fleet_routes"],
                           "device_loop": {"cluster": 0, "tile": 0}, "train": train["eval_routes"],
                           **{k: c["ntm_scan_fused_by_route"] for k, c in data_counts.items()},
@@ -2923,6 +3509,7 @@ def main() -> int:
         "routes_in_kernel_cases": case_routes, "cluster": cluster, "tile_route_source": BPTT_SOURCE,
         "cluster_step_us": step_us, "projection_ms_b1": proj_ms, "cluster_waves": CLUSTER_WAVES,
         "train_shape": {k: v for k, v in train["b1"].items() if k != "launches"},
+        "serving": {k: v for k, v in serving.items() if k != "counts"},
     }]
     bptt = {}
     for name, launches in (("forward", "bptt_forward"), ("token_projection", "token_projection"),
@@ -2939,6 +3526,7 @@ def main() -> int:
                                           "clip": accuracy["ntm"]["host_counts"][launches]},
             "launches_on_data_path": {k: c[launches] for k, c in data_counts.items()},
             "launches_on_lab_path": {k: c[launches] for k, c in lab_counts.items()},
+            "launches_on_serving_path": {"serving_profile_train": serving_counts["serving_profile_train"][launches]},
         }
         kernels.append(bptt[name])
     bptt["forward"].update({
@@ -2972,7 +3560,8 @@ def main() -> int:
         "name": ADDR_NAME, "route": "cuda", "source": ADDR_SOURCE, "replaces": ADDR_REPLACES,
         "launches": fleet["fleet_counts"]["fused_ntm_addressing"],
         "launches_by_path": {"fleet": fleet["fleet_counts"]["fused_ntm_addressing"],
-                             "device_loop": fleet["loop_counts"]["fused_ntm_addressing"]},
+                             "device_loop": fleet["loop_counts"]["fused_ntm_addressing"],
+                             **{k: c.get("fused_ntm_addressing", 0) for k, c in serving_counts.items()}},
         "max_abs_err": addr["max_abs_err"], "grad_max_abs_err": addr["grad_err"], "ms": at64["ms"],
         "plain_ms": at64["plain_ms"], "bound_ms": at64["bound_ms"], "bound_by": at64["bound_by"], "library_ms": None,
         "device_ms": at64["device_ms"],

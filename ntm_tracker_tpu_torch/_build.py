@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -25,9 +26,12 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 NATIVE = _PKG / "native"
 BUILD_ROOT = _PKG / "_build"
+# --split-compile=3: each nvcc optimizes and assembles its kernels on up to
+# three threads (the template-heavy sources hold 3-9 kernels each), so the
+# libraries that build_all starts together finish sooner on a few cores
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=3",
 )
 NVCC_TIMEOUT_S = 300
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
@@ -84,7 +88,8 @@ def build_all(names) -> dict:
     """Compile the library of every name not built yet (csrc/<name>.cu, its
     VARIANTS entry, or native/<name>.cpp), one compiler each, all started
     together; prints each compile time and ptxas's register, shared-memory
-    and spill report. Returns {name: library path}."""
+    and spill report to stderr (stdout may be a protocol stream: track-vot's
+    TraX wire). Returns {name: library path}."""
     outs = {name: library_path(name) for name in names}
     running = []
     for name, out in outs.items():
@@ -109,7 +114,7 @@ def build_all(names) -> dict:
         if proc.returncode != 0:
             failed.append(f"{cmd[0]} exited {proc.returncode} building {name}:\n{stdout}{stderr}")
             continue
-        print(f"[build] {name}: {os.path.basename(cmd[0])} {secs:.2f} s\n{stderr.strip()}", flush=True)
+        print(f"[build] {name}: {os.path.basename(cmd[0])} {secs:.2f} s\n{stderr.strip()}", file=sys.stderr, flush=True)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

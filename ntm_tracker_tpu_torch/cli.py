@@ -19,12 +19,22 @@ defaults).
   dnc-repeat-copy       <- dnc/train.py
   find-validation-batch <- main.py:2299-2320
   inspect-batch         <- the reference's --test_input / --test_read_imgs
+  track-vot             VOT-protocol tracking (file mode, native TraX over
+                        stdin/stdout, or the trax package); --serving_npz
+                        serves an exported artifact
+  validate              replay pickled validation sequences (--fleet N
+                        batches them; --serving_npz through an artifact)
+  convert-vgg           the slim vgg_16.ckpt -> .npz (needs tensorflow)
+  convert-ntm           a reference NTM training checkpoint -> .npz
+  convert-dnc           a reference DNC training checkpoint -> .npz
+  export-serving        the frame step as torch.export programs in one .npz
 
 The JAX package's --platform is --device here: cuda unless the caller asks
 for another (the CPU runs the plain PyTorch routes). A kernel that fails
 to build or launch raises; no command moves to another route on its own.
-The JAX package's other commands are not ported (ROADMAP.md, queue A), nor
-are the flags of modules the port lacks: they raise naming their item.
+The JAX package's `bench` is not ported (ROADMAP.md, item A1), nor are the
+flags of modules the port lacks: they raise naming their item. In trax
+mode track-vot's stdout is the protocol's: everything else goes to stderr.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ from datetime import datetime
 _NOT_PORTED = {
     # flag -> the ROADMAP item that ports its module
     "dist_coordinator": "A7", "dist_num_processes": "A7", "dist_process_id": "A7",
-    "profile_steps": "A8", "shard": "A7",
+    "shard": "A7",
 }
 
 
@@ -90,7 +100,9 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dist_coordinator", default=None, help="not ported (ROADMAP.md, item A7)")
     p.add_argument("--dist_num_processes", type=int, default=None, help="not ported (ROADMAP.md, item A7)")
     p.add_argument("--dist_process_id", type=int, default=None, help="not ported (ROADMAP.md, item A7)")
-    p.add_argument("--profile_steps", default="", help="not ported (ROADMAP.md, item A8)")
+    p.add_argument("--profile_steps", default="",
+                   help="trace train steps START:STOP with torch.profiler into <log dir>/profile "
+                   "(a Chrome/Perfetto trace file)")
 
 
 def _centered_grid(gw: int):
@@ -113,6 +125,7 @@ def _tracker_config(args, core: str):
         core=core,
         **grid_kwargs,
         data=DataConfig(gt_width=gw),
+        vgg_int8=getattr(args, "vgg_int8", False),
         compute_dtype=torch.bfloat16 if getattr(args, "bf16", False) else torch.float32,
         predict_scale=predict_scale,
         scale_range=getattr(args, "scale_range", TrackerConfig.scale_range),
@@ -224,8 +237,10 @@ def train_offsets(args) -> dict:
     from ntm_tracker_tpu_torch.data.loader import PrefetchIterator, batch_iterator
     from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
     from ntm_tracker_tpu_torch.train.harness import CheckpointManager, train_loop
+    from ntm_tracker_tpu_torch.utils.profiling import parse_profile_steps
 
     _refuse_unported(args)
+    profile_steps = parse_profile_steps(getattr(args, "profile_steps", ""))
     dev = resolve_device(args.device)
     cfg = _tracker_config(args, args.core)
     real_log_dir = _log_dir(args)
@@ -311,12 +326,14 @@ def train_offsets(args) -> dict:
         validation_batch=cfg.train.validation_batch,
         log_interval=cfg.train.log_interval,
         checkpoint=ckpt,
+        profile_steps=profile_steps,
     )
     ckpt.save(steps, {"params": params, "opt_state": opt_state})
     train_s = time.perf_counter() - t0
     print(f"trained {steps} steps; final checkpoint in {real_log_dir}/ckpt")
     return {"steps": steps, "log_dir": real_log_dir, "train_s": train_s,
-            "waits": train_it.waits, "step_starts": step_starts}
+            "waits": train_it.waits, "step_starts": step_starts,
+            "profile_dir": os.path.join(real_log_dir, "profile") if profile_steps else None}
 
 
 def cmd_train_offsets(args) -> int:
@@ -741,6 +758,228 @@ def cmd_inspect_batch(args) -> int:
     return 0
 
 
+# ---- serving and evaluation: track-vot, validate, the converters, export ------
+
+def _load_converted_npz(args, cfg, template_params, device):
+    """Converted REFERENCE weights (--ntm_npz / --dnc_npz) on `device`,
+    checked against the live model config's tree before serving."""
+    from ntm_tracker_tpu_torch.tools.convert_ntm_ckpt import validate_params_like
+
+    ntm_npz = getattr(args, "ntm_npz", "")
+    dnc_npz = getattr(args, "dnc_npz", "")
+    if ntm_npz and dnc_npz:
+        raise SystemExit("pass only one of --ntm_npz / --dnc_npz")
+    if ntm_npz:
+        if cfg.core != "ntm":
+            raise SystemExit("--ntm_npz serves the NTM core; pass --core ntm (or use --dnc_npz for DNC checkpoints)")
+        from ntm_tracker_tpu_torch.tools.convert_ntm_ckpt import load_params_npz
+        loaded = load_params_npz(ntm_npz, device)
+    else:
+        if cfg.core != "dnc":
+            raise SystemExit("--dnc_npz serves the DNC core; pass --core dnc")
+        from ntm_tracker_tpu_torch.tools.convert_dnc_ckpt import load_params_npz
+        loaded = load_params_npz(dnc_npz, device)
+    validate_params_like(loaded, template_params, flag="--ntm_npz" if ntm_npz else "--dnc_npz")
+    return loaded
+
+
+def _resolve_tracker_weights(args, cfg, core, device):
+    """The serving commands' weights (track-vot, validate, export-serving):
+    converted reference .npz, else --ckpt_path, else a seeded init."""
+    import torch
+
+    from ntm_tracker_tpu_torch.tracking.tracker import _to_device
+
+    params = core.init_params(torch.Generator().manual_seed(0), cfg.input_depth, device)
+    if getattr(args, "ntm_npz", "") or getattr(args, "dnc_npz", ""):
+        return _load_converted_npz(args, cfg, params, device)
+    if args.ckpt_path:
+        return _to_device(_restore_params(args.ckpt_path, params), device)
+    return params
+
+
+def _load_serving_model(serving_npz: str, args, device=None):
+    """Load an exported artifact on `device`, with --vgg_int8 checked
+    against the token path its programs hold: a flag that disagrees with
+    the file fails instead of serving the other path."""
+    from ntm_tracker_tpu_torch.tools.export_serving import ServingModel
+
+    model = ServingModel(serving_npz, device=device)
+    baked = bool(model.meta.get("vgg_int8"))
+    if getattr(args, "vgg_int8", False) and not baked:
+        raise SystemExit(f"--vgg_int8 requested but {serving_npz} was exported with the exact token path; "
+                         "re-export with export-serving --vgg_int8")
+    if baked and not getattr(args, "vgg_int8", False):
+        print(f"note: {serving_npz} bakes int8 VGG tokens (quantized numerics); exported that way via "
+              "export-serving --vgg_int8", file=sys.stderr)
+    return model
+
+
+def _serving_tracker(serving_npz: str, args, device=None):
+    """StreamingTracker from an exported artifact (--vgg_int8 checked)."""
+    from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker
+
+    return StreamingTracker.from_serving(_load_serving_model(serving_npz, args, device))
+
+
+def cmd_track_vot(args) -> int:
+    import numpy as np
+    from PIL import Image
+
+    from ntm_tracker_tpu_torch.config import resolve_device
+    from ntm_tracker_tpu_torch.models.core import make_core
+    from ntm_tracker_tpu_torch.tracking import vot
+    from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker
+
+    dev = resolve_device(args.device)
+    serving_npz = getattr(args, "serving_npz", "")
+    if serving_npz:
+        # the artifact holds geometry, token order and weights: the model
+        # flags are ignored, --vgg_int8 is checked against it
+        tracker = _serving_tracker(serving_npz, args, dev)
+    else:
+        cfg = _tracker_config(args, args.core)
+        vgg_params = _load_vgg(args, dev)
+        core = make_core(cfg)
+        params = _resolve_tracker_weights(args, cfg, core, dev)
+        tracker = StreamingTracker(cfg, vgg_params, params, core,
+                                   delimiter_first=getattr(args, "delimiter_first", False), device=dev)
+
+    handle = vot.VOT("rectangle", workdir=args.workdir, mode=getattr(args, "vot_mode", "auto"))
+    trax_wire = hasattr(handle, "_trax_native") or hasattr(handle, "_trax")
+    selection = handle.region()
+    imagefile = handle.frame()
+    if not imagefile:
+        return 0
+    img = np.array(Image.open(imagefile).convert("RGB"))
+    tracker.init(img, (selection.x, selection.y, selection.width, selection.height))
+    count = 1
+    while True:
+        imagefile = handle.frame()
+        if not imagefile:
+            break
+        img = np.array(Image.open(imagefile).convert("RGB"))
+        x, y, w, h = tracker.track(img)
+        handle.report(vot.Rectangle(x, y, w, h))
+        count += 1
+    handle.quit()
+    from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+
+    # in trax mode stdout carries the protocol; the kernels' launch counts
+    # are this process's, over the whole session
+    print(f"tracked {count} frames (launches: ntm_scan_fused {ntm_scan_fused.launches}, fused_ntm_addressing "
+          f"{fused_ntm_addressing.launches})", file=sys.stderr if trax_wire else sys.stdout)
+    return 0
+
+
+def cmd_validate(args) -> int:
+    from ntm_tracker_tpu_torch.tracking.validate import validate_tracker
+
+    validate_tracker(args)
+    return 0
+
+
+def cmd_convert_vgg(args) -> int:
+    """vgg_16.ckpt -> .npz (the reference's freeze_vgg workflow,
+    freeze_vgg.py:4-16, re-targeted at load_params_npz), then the conv4_3
+    self-check on --device."""
+    from ntm_tracker_tpu_torch.tools.convert_vgg import activation_stats, convert_vgg_checkpoint
+
+    shapes = convert_vgg_checkpoint(args.ckpt, args.out, require_conv5=args.require_conv5,
+                                    expect_sha256=args.expect_sha256 or None)
+    for key in sorted(shapes):
+        print(f"  {key}  {shapes[key]}")
+    print(f"wrote {len(shapes)} arrays to {args.out}")
+    stats = activation_stats(args.out, args.device)
+    print("conv4_3 self-check on a deterministic ramp image (ImageNet weights give O(10-100) activations; a "
+          "wrong/random-looking conversion reads very differently):")
+    for k, v in stats.items():
+        print(f"  {k}: {v:.4f}")
+    return 0
+
+
+def cmd_convert_ntm(args) -> int:
+    """Reference NTM training checkpoint -> the port's parameter .npz
+    (tools/convert_ntm_ckpt.py; pass the model flags the checkpoint was
+    trained with: every shape is checked against them)."""
+    from ntm_tracker_tpu_torch.config import NTMConfig
+    from ntm_tracker_tpu_torch.tools.convert_ntm_ckpt import convert_checkpoint, save_params_npz
+
+    ntm_cfg = NTMConfig(output_dim=2, mem_size=args.mem_size, mem_dim=args.mem_dim,
+                        controller_hidden_size=args.hidden_size, controller_num_layers=args.num_layers,
+                        read_head_size=args.read_head_size, write_head_size=args.write_head_size,
+                        write_first=args.write_first)
+    params = convert_checkpoint(args.ckpt, ntm_cfg)
+    save_params_npz(args.out, params)
+    print(f"converted {7 + 2 * len(params['controller'])} cell parameters -> {args.out}")
+    print("serve with: track-vot --ntm_npz", args.out)
+    return 0
+
+
+def cmd_convert_dnc(args) -> int:
+    """Reference DNC training checkpoint -> the port's parameter .npz
+    (tools/convert_dnc_ckpt.py; shapes checked against the model flags)."""
+    from ntm_tracker_tpu_torch.config import DNCConfig
+    from ntm_tracker_tpu_torch.tools.convert_dnc_ckpt import convert_checkpoint, save_params_npz
+
+    dnc_cfg = DNCConfig(output_dim=2, memory_size=args.mem_size, word_size=args.mem_dim,
+                        num_reads=args.read_head_size, num_writes=args.write_head_size, hidden_size=args.hidden_size)
+    params = convert_checkpoint(args.ckpt, dnc_cfg)
+    save_params_npz(args.out, params)
+    print(f"converted controller + 10 interface heads + output linear -> {args.out}")
+    print("serve with: track-vot --core dnc --dnc_npz", args.out)
+    return 0
+
+
+def cmd_export_serving(args) -> int:
+    """Export the serving frame step (tools/export_serving.py) to one .npz;
+    prints the entries, platforms, route, size and seconds."""
+    import json
+
+    from ntm_tracker_tpu_torch.config import resolve_device
+    from ntm_tracker_tpu_torch.models.core import make_core
+    from ntm_tracker_tpu_torch.tools.export_serving import export_serving, save_serving
+
+    # the flag first: a typo must not cost the model build
+    device_loop = None
+    if getattr(args, "device_loop", ""):
+        try:
+            h, w = args.device_loop.lower().split("x")
+            device_loop = (int(h), int(w))
+        except ValueError:
+            raise SystemExit(f"--device_loop wants HxW (e.g. 360x640), got {args.device_loop!r}")
+        if device_loop[0] < 2 or device_loop[1] < 2:
+            raise SystemExit(f"--device_loop frame geometry too small: {args.device_loop}")
+    platforms = [x.strip() for x in args.platforms.split(",") if x.strip()] or [resolve_device(args.device).type]
+    # the weights live where the first platform's program is traced
+    dev = resolve_device(platforms[0])
+    cfg = _tracker_config(args, args.core)
+    vgg_params = _load_vgg(args, dev)
+    core = make_core(cfg)
+    params = _resolve_tracker_weights(args, cfg, core, dev)
+    t0 = time.perf_counter()
+    artifact = export_serving(cfg, core, vgg_params, params, batch=args.batch,
+                              delimiter_first=getattr(args, "delimiter_first", False), platforms=platforms,
+                              device_loop=device_loop)
+    save_serving(args.out, artifact)
+    secs = time.perf_counter() - t0
+    meta = json.loads(str(artifact["meta"]))
+    mb = os.path.getsize(args.out) / 1e6
+    tokens = "int8 tokens, " if meta["vgg_int8"] else ""
+    entries = "init/first/step"
+    if meta["device_loop"]:
+        entries += "/dinit/dstep@{}x{}".format(*meta["device_loop"])
+    print(f"exported {entries} for platforms {meta['platforms']} (batch {meta['batch']}, {tokens}{meta['core']} "
+          f"core, {meta['route']}) -> {args.out} ({mb:.1f} MB) in {secs:.1f} s")
+    if meta["batch"] == 1:
+        print("serve with: track-vot --serving_npz, or StreamingTracker.from_serving(ServingModel(path))")
+    else:
+        print(f"serve with: FleetTracker.from_serving(ServingModel(path)) or validate --fleet {meta['batch']} "
+              "--serving_npz")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from ntm_tracker_tpu_torch.config import DataConfig
 
@@ -933,6 +1172,101 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--sequences_dir", required=True)
     f.add_argument("--target_step", type=int, default=1700)
     f.set_defaults(fn=cmd_find_validation_batch)
+
+    v = sub.add_parser("track-vot", help="VOT-protocol streaming tracking")
+    _add_model_flags(v)
+    _add_train_flags(v)
+    v.add_argument("--core", choices=["ntm", "dnc"], default="ntm")
+    v.add_argument("--vgg_weights", default="")
+    v.add_argument("--workdir", default=".")
+    v.add_argument("--ntm_npz", default="", help="converted reference weights (convert-ntm output); overrides "
+                   "--ckpt_path")
+    v.add_argument("--dnc_npz", default="", help="converted reference DNC weights (convert-dnc output, requires "
+                   "--core dnc); overrides --ckpt_path")
+    v.add_argument("--delimiter_first", action="store_true",
+                   help="use the reference's streaming token order (delimiter prepended; train/inference mismatch)")
+    v.add_argument("--serving_npz", default="",
+                   help="serve an exported artifact (export-serving output): weights, geometry and token order come "
+                   "from the artifact; model/weight flags are ignored")
+    v.add_argument("--vgg_int8", action="store_true",
+                   help="the VGG token convs in int8 with exact int32 sums (models/vgg_int8.py; quantized "
+                   "numerics, not for parity work)")
+    v.add_argument("--vot_mode", choices=["auto", "file", "trax", "trax-lib"], default="auto",
+                   help="protocol: file (images.txt/region.txt in --workdir), trax (native TraX wire protocol over "
+                   "stdin/stdout, no deps), trax-lib (the optional trax package); auto = trax-lib if importable "
+                   "else file")
+    v.set_defaults(fn=cmd_track_vot)
+
+    val = sub.add_parser("validate", help="replay pickled validation sequences")
+    _add_model_flags(val)
+    _add_train_flags(val)
+    val.add_argument("--core", choices=["ntm", "dnc"], default="ntm")
+    val.add_argument("--vgg_weights", default="")
+    val.add_argument("--ntm_npz", default="", help="converted reference weights (convert-ntm output)")
+    val.add_argument("--dnc_npz", default="",
+                     help="converted reference DNC weights (convert-dnc output, requires --core dnc)")
+    val.add_argument("--pickle_path", required=True)
+    val.add_argument("--delimiter_first", action="store_true")
+    val.add_argument("--serving_npz", default="",
+                     help="replay through an exported artifact (export-serving output); model/weight flags are "
+                     "ignored")
+    val.add_argument("--vgg_int8", action="store_true", help="quantized VGG token convs (see track-vot)")
+    val.add_argument("--fleet", type=int, default=0, metavar="N",
+                     help="replay up to N sequences per batched frame step (tracking/fleet.py) instead of one at a "
+                     "time; with --serving_npz, N must equal the artifact's batch (export-serving --batch N)")
+    val.add_argument("--limit", type=int, default=0,
+                     help="dress rehearsal: replay only the first N pickled sequences (0 = all)")
+    val.set_defaults(fn=cmd_validate)
+
+    cv = sub.add_parser("convert-vgg", help="convert the public slim vgg_16.ckpt to the .npz weight layout")
+    cv.add_argument("--ckpt", required=True, help="path to vgg_16.ckpt")
+    cv.add_argument("--out", required=True, help="destination .npz")
+    cv.add_argument("--require_conv5", action="store_true", help="fail unless the conv5 block is present")
+    cv.add_argument("--expect_sha256", default="",
+                    help="verify the checkpoint bytes hash to this hex digest before converting (guards against a "
+                    "corrupt or wrong download)")
+    cv.set_defaults(fn=cmd_convert_vgg)
+
+    cn = sub.add_parser("convert-ntm",
+                        help="convert a REFERENCE training checkpoint (TF1 Saver, direct_offset_output graph) into "
+                        "the port's NTM params (.npz usable via track-vot/validate --ntm_npz)")
+    _add_model_flags(cn)
+    cn.add_argument("--ckpt", required=True,
+                    help="checkpoint prefix (the model.ckpt-NNN the reference's save_path.txt points at)")
+    cn.add_argument("--out", required=True, help="destination .npz")
+    cn.set_defaults(fn=cmd_convert_ntm)
+
+    cd = sub.add_parser("convert-dnc",
+                        help="convert a REFERENCE DNC training checkpoint (TF1 Saver, direct_offset_output_with_dnc "
+                        "graph) into the port's DNC params (.npz usable via track-vot/validate --core dnc --dnc_npz)")
+    _add_model_flags(cd)
+    cd.add_argument("--ckpt", required=True, help="checkpoint prefix (model.ckpt-NNN)")
+    cd.add_argument("--out", required=True, help="destination .npz")
+    cd.set_defaults(fn=cmd_convert_dnc)
+
+    es = sub.add_parser("export-serving",
+                        help="export the serving frame step (torch.export programs, weights inside) to one .npz "
+                        "artifact servable without model code; same weight sources as track-vot")
+    _add_model_flags(es)
+    _add_train_flags(es)
+    es.add_argument("--core", choices=["ntm", "dnc"], default="ntm")
+    es.add_argument("--vgg_weights", default="")
+    es.add_argument("--ntm_npz", default="", help="converted reference weights (convert-ntm output); overrides "
+                    "--ckpt_path")
+    es.add_argument("--dnc_npz", default="", help="converted reference DNC weights (requires --core dnc); "
+                    "overrides --ckpt_path")
+    es.add_argument("--delimiter_first", action="store_true", help="bake the reference's streaming token order in")
+    es.add_argument("--vgg_int8", action="store_true", help="bake the int8 VGG token path in (see track-vot)")
+    es.add_argument("--batch", type=int, default=1,
+                    help="batch of the artifact's init/step (1 = streaming tracker; >1 = a fleet of that capacity)")
+    es.add_argument("--device_loop", default="", metavar="HxW",
+                    help="also export the device-resident track loop (crop geometry + VGG + cell steps + recrop "
+                    "in one program) at this raw-frame geometry, e.g. 360x640 (ServingModel.device_init/"
+                    "device_step)")
+    es.add_argument("--platforms", default="",
+                    help="comma-separated platforms to export for (cuda, cpu); default = --device")
+    es.add_argument("--out", required=True, help="destination .npz")
+    es.set_defaults(fn=cmd_export_serving)
     return p
 
 

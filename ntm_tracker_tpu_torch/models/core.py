@@ -6,7 +6,7 @@ two training entries differ only in the recurrent core
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -75,9 +75,13 @@ def unroll_states(core: MemoryCore, params: Any, inputs: torch.Tensor, state: An
     return torch.cat(logits, dim=1), stacked, state
 
 
-def make_core(cfg: TrackerConfig) -> MemoryCore:
+def make_core(cfg: TrackerConfig, loop: Optional[Callable] = None) -> MemoryCore:
+    """The config's memory core. loop, when given, runs unroll's steps in
+    place of the eager Python loop: loop(step, xs [T, B, D], state) ->
+    (outs [T, B, out], state) (tools/export_serving passes
+    models/traced_loop.scan_steps)."""
     if cfg.core == "dnc":
-        return _dnc_core(cfg)
+        return _dnc_core(cfg, loop)
     if cfg.core != "ntm":
         raise ValueError(f"unknown core: {cfg.core!r}")
     ncfg = cfg.ntm
@@ -105,6 +109,7 @@ def make_core(cfg: TrackerConfig) -> MemoryCore:
             compute_dtype=cfg.compute_dtype,
             layout=cfg.train.scan_layout,
             fused_bptt=cfg.train.fused_bptt if fused_bptt is None else fused_bptt,
+            loop=loop,
         )
         return logits, final
 
@@ -115,7 +120,7 @@ def make_core(cfg: TrackerConfig) -> MemoryCore:
                       state_view=state_view)
 
 
-def _dnc_core(cfg: TrackerConfig) -> MemoryCore:
+def _dnc_core(cfg: TrackerConfig, loop: Optional[Callable]) -> MemoryCore:
     dcfg = cfg.dnc
 
     def init_params(generator, input_size, device=None):
@@ -128,7 +133,7 @@ def _dnc_core(cfg: TrackerConfig) -> MemoryCore:
     def unroll(params, inputs, state=None, remat=True, fused_bptt=None):
         # no fused kernel serves the DNC: fused_bptt is not read
         return dnc_mod.dnc_unroll(params, dcfg, inputs, state=state, remat=remat,
-                                  remat_chunk=dcfg.remat_chunk)
+                                  remat_chunk=dcfg.remat_chunk, loop=loop)
 
     def step(params, x, state):
         return dnc_mod.dnc_step(params, dcfg, x, state)

@@ -14,7 +14,7 @@ the card as on the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -89,7 +89,7 @@ def dnc_step(params: Dict[str, Any], cfg: DNCConfig, inputs: torch.Tensor,
 
 def dnc_unroll(params: Dict[str, Any], cfg: DNCConfig, inputs: torch.Tensor, state: Optional[DNCState] = None,
                remat: bool = True, time_major: bool = False,
-               remat_chunk: Optional[int] = None) -> Tuple[torch.Tensor, DNCState]:
+               remat_chunk: Optional[int] = None, loop: Optional[Callable] = None) -> Tuple[torch.Tensor, DNCState]:
     """The DNC over a sequence, inputs [B, T, D] ([T, B, D] if time_major)
     -> (outputs in the same layout, final state); the reference runs it
     in tf.nn.dynamic_rnn (dnc/train.py:69-91).
@@ -104,7 +104,8 @@ def dnc_unroll(params: Dict[str, Any], cfg: DNCConfig, inputs: torch.Tensor, sta
     state saved per step is dominated by the link matrix [B, Wh, N, N],
     21.8 GB over T=1300 at B=256, N=128, which an 80 GB card holds. (The
     JAX package's auto switches to C=65 past 2 GB, a rule made for a TPU's
-    16 GB.)"""
+    16 GB.) loop, when given, runs the steps instead: loop(step, xs
+    [T, B, D], state) -> (outs [T, B, out], state)."""
     xs = inputs if time_major else inputs.transpose(0, 1)
     T = xs.shape[0]
     if state is None:
@@ -125,7 +126,10 @@ def dnc_unroll(params: Dict[str, Any], cfg: DNCConfig, inputs: torch.Tensor, sta
             outs.append(out)
         return torch.stack(outs), carry
 
-    if checkpointed and chunk and T >= chunk:
+    if loop is not None and T:
+        # the caller's loop (tools/export_serving: one scan)
+        outputs, state = loop(step, xs, state)
+    elif checkpointed and chunk and T >= chunk:
         pieces = []
         for start in range(0, T - T % chunk, chunk):
             out, state = torch.utils.checkpoint.checkpoint(run, state, xs[start:start + chunk],

@@ -10,7 +10,7 @@ State is {'M' [B,N,D], 'w' [B,H,N], 'read' [B,R,D],
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -189,17 +189,24 @@ def cell_loop(
     state: NTMState,
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
+    loop: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, NTMState]:
     """T cell steps over tokens [B, T, IN] as a Python loop over
     ntm_cell_step with cfg as given (use_pallas included): (logits
     [B, T, out], final state). remat=True wraps each step in
     torch.utils.checkpoint when gradients are recorded (the backward
-    recomputes the step instead of keeping its activations)."""
+    recomputes the step instead of keeping its activations). loop, when
+    given, runs the steps instead: loop(step, xs [T, B, IN], state) ->
+    (outs [T, B, out], state) (tools/export_serving passes
+    models/traced_loop.scan_steps)."""
 
     def step(x, carry):
         _, logit, new_state = ntm_cell_step(params, cfg, x, carry, compute_dtype)
         return logit, new_state
 
+    if loop is not None and tokens.shape[1]:
+        logits, state = loop(step, tokens.transpose(0, 1), state)
+        return logits.transpose(0, 1), state
     checkpointed = remat and torch.is_grad_enabled()
     logits = [tokens.new_zeros(tokens.shape[0], 0, cfg.output_dim)]
     for t in range(tokens.shape[1]):

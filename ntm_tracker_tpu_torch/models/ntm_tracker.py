@@ -12,7 +12,7 @@ jax.checkpoint, or the whole-sequence training kernels
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -49,6 +49,7 @@ def ntm_tracker_unroll(
     compute_dtype: Optional[torch.dtype] = None,
     layout: str = "nd",
     fused_bptt: bool | str = False,
+    loop: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, NTMState]:
     """Run the cell over inputs [B, T, input_size].
 
@@ -60,7 +61,8 @@ def ntm_tracker_unroll(
     outputs) and layout="dn" are not ported (ROADMAP.md queues them).
     jax.lax.scan's `unroll` has no counterpart in an eager loop. With
     fused_bptt routed to the kernels (see use_fused_bptt) remat does not
-    apply.
+    apply. loop replaces the per-step route's Python loop
+    (models/ntm_cell.cell_loop).
     """
     if layout == "dn":
         raise NotImplementedError("layout='dn' is not ported (ROADMAP.md, item A9)")
@@ -77,7 +79,7 @@ def ntm_tracker_unroll(
     else:
         # the per-step route keeps cfg as given: use_pallas reaches B3
         logits, final_state = cell_loop(
-            params, cfg, inputs, state, compute_dtype, remat=remat in (True, "full")
+            params, cfg, inputs, state, compute_dtype, remat=remat in (True, "full"), loop=loop
         )
     return torch.softmax(logits, dim=-1), logits, final_state
 

@@ -33,6 +33,23 @@ VGG16_PREFIX: List[Tuple[str, int, bool]] = [
     ("conv5/conv5_3", 512, True),
 ]
 
+
+def _net_def_through_conv43() -> List[Tuple[int, int, int, str]]:
+    """(kernel, stride, pad, name) for the conv1_1..conv4_3 prefix, derived
+    from VGG16_PREFIX: the geometry table receptive_field() and
+    project_receptive_field() walk (receptive_field_sizes.py's net
+    definition through conv4_3, which has no pool4)."""
+    out: List[Tuple[int, int, int, str]] = []
+    for name, _ch, pooled in VGG16_PREFIX[:10]:  # conv1_1 .. conv4_3
+        short = name.split("/")[-1]
+        out.append((3, 1, 1, short))  # every VGG conv is 3x3/s1/p1
+        if pooled and short != "conv4_3":
+            out.append((2, 2, 0, "pool" + short[4]))
+    return out
+
+
+NET_DEF: List[Tuple[int, int, int, str]] = _net_def_through_conv43()
+
 # VGG preprocessing mean, RGB (direct_offset_output.py:58-59)
 VGG_MEAN = np.array([123.68, 116.78, 103.94], dtype=np.float32)
 
@@ -181,3 +198,40 @@ def extract_features(
     ys = torch.tensor([p[0] for p in pts], device=feature_map.device)
     xs = torch.tensor([p[1] for p in pts], device=feature_map.device)
     return feature_map[:, ys, xs, :]
+
+
+def project_receptive_field(y: int, x: int, layer: str = "conv4_3", input_size: int = 224, clamp: bool = True):
+    """Input-space receptive-field box of feature pixel (y, x) at `layer`
+    (projectRF, receptive_field_sizes.py:38-102): walk the layers backward,
+    expanding [lo, hi] by each kernel/stride/pad. Returns ((ymin, xmin),
+    (ymax, xmax)) inclusive pixel coords, clamped to the image like the
+    reference's `rectify` (:132-133)."""
+    idx = next(i for i, (_, _, _, n) in enumerate(NET_DEF) if n == layer)
+    y0 = y1 = y
+    x0 = x1 = x
+    for k, s, p, _name in reversed(NET_DEF[: idx + 1]):
+        y0 = y0 * s - p
+        x0 = x0 * s - p
+        y1 = y1 * s - p + (k - 1)
+        x1 = x1 * s - p + (k - 1)
+    if clamp:
+        y0, x0 = max(y0, 0), max(x0, 0)
+        y1, x1 = min(y1, input_size - 1), min(x1, input_size - 1)
+    return ((y0, x0), (y1, x1))
+
+
+def receptive_field(net_def=None, input_size: int = 224):
+    """Receptive field, absolute stride and blob size per layer
+    (receptive_field_sizes.py:20-30): [(rf, stride, size, name)], from the
+    data layer on."""
+    if net_def is None:
+        net_def = NET_DEF
+    r, s = 1, 1
+    rows = [(1, 1, input_size, "data")]
+    size = input_size
+    for k, rs, p, name in net_def:
+        r = r + (k - 1) * s
+        s = s * rs
+        size = (size - k + 2 * p) // rs + 1
+        rows.append((r, s, size, name))
+    return rows

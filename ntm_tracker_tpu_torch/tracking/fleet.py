@@ -14,9 +14,10 @@ initial state). The batch width is fixed at construction; inactive slots
 get zero crops, and their outputs are ignored.
 
 Slot writes are out of place (index_copy), so no write reaches a tensor
-that an earlier state or another slot shares. The JAX fleet's `mesh`
-(data parallelism) and `serving_model`/`from_serving` (exported
-artifacts) are not ported (ROADMAP.md, items A7 and A8).
+that an earlier state or another slot shares. FleetTracker.from_serving
+drives the fleet from an exported artifact (tools/export_serving.py,
+--batch equal to the capacity); the JAX fleet's `mesh` (data
+parallelism) is not ported (ROADMAP.md, item A7) and raises.
 """
 
 from __future__ import annotations
@@ -70,21 +71,55 @@ class FleetTracker:
         core: Optional[MemoryCore] = None,
         delimiter_first: bool = False,
         device=None,
+        mesh: Any = None,
+        serving_model: Any = None,
     ):
+        """serving_model: a tools/export_serving.ServingModel exported with
+        --batch == capacity; its programs replace the live frame step
+        (vgg_params, params and core unused). Build it with from_serving."""
+        if mesh is not None:
+            raise NotImplementedError("FleetTracker(mesh=...): data parallelism is not ported (ROADMAP.md, item A7)")
         self.cfg = cfg
         self.capacity = capacity
-        self.device = resolve_device(device)
-        self.core = core or make_core(cfg)
-        self.params = _to_device(params, self.device)
-        self._step_first, self._step_rest = build_frame_step(
-            cfg, self.core, vgg_params, self.params, delimiter_first=delimiter_first, device=self.device
-        )
+        self._serving = serving_model
+        if serving_model is not None:
+            baked = serving_model.meta.get("batch")
+            if baked != capacity:
+                raise ValueError(
+                    f"serving artifact bakes batch {baked} but fleet capacity is {capacity}; use "
+                    f"FleetTracker.from_serving (capacity comes from the file) or re-export with export-serving "
+                    f"--batch {capacity}")
+            self.device = serving_model.device
+            self.core = core
+            self._init_full = serving_model.init_state()  # leaves at capacity
+            self._step_first, self._step_rest = serving_model.first, serving_model.step
+        else:
+            self.device = resolve_device(device)
+            self.core = core or make_core(cfg)
+            self.params = _to_device(params, self.device)
+            self._step_first, self._step_rest = build_frame_step(
+                cfg, self.core, vgg_params, self.params, delimiter_first=delimiter_first, device=self.device
+            )
         self._mean = torch.as_tensor(VGG_MEAN, device=self.device)
         self.state = self._fresh_state(capacity)
         self._tracks: List[Optional[_Track]] = [None] * capacity
 
+    @classmethod
+    def from_serving(cls, model):
+        """Fleet-serve an exported artifact (export-serving --batch N):
+        capacity, geometry, token order, weights and programs all come from
+        the file."""
+        from ntm_tracker_tpu_torch.tools.export_serving import config_from_meta
+
+        meta = model.meta
+        return cls(config_from_meta(meta), None, None, capacity=meta["batch"],
+                   delimiter_first=meta["delimiter_first"], serving_model=model)
+
     def _fresh_state(self, n: int):
-        """The learnable initial state for n slots."""
+        """The learnable initial state for n slots. An artifact bakes it at
+        capacity, every slot the same state, so n slots are a slice."""
+        if self._serving is not None:
+            return tuple(leaf[:n] for leaf in self._init_full)
         with torch.no_grad():
             return self.core.init_state(self.params, n)
 

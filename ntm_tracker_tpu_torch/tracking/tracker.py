@@ -10,6 +10,9 @@
 StreamingTracker keeps the bbox decode and re-crop geometry on the host
 (numpy), as the reference's test_tracker.py:252-329 does;
 make_device_track_step runs the same geometry on the device.
+make_frame_fn and make_device_track_fns are the same steps with the
+weights as arguments, which tools/export_serving.py exports;
+StreamingTracker.from_serving drives the host loop from such an artifact.
 """
 
 from __future__ import annotations
@@ -50,6 +53,33 @@ def use_fused_kernel(cfg: TrackerConfig, batch: int, device: torch.device) -> bo
     return bool(cfg.fused_inference) and cfg.core == "ntm"
 
 
+def make_frame_fn(cfg: TrackerConfig, core: MemoryCore, delimiter_first: bool = False, device=None):
+    """The frame step with its weights as arguments:
+    frame_fn(vgg_params, params, crops, gt or None, state) -> (offsets,
+    new state), on `device` (its cell route depends on it). build_frame_step
+    binds the weights; tools/export_serving.py passes its buffers."""
+    validate_head(cfg)
+    dev = resolve_device(device)
+    F = cfg.num_features
+
+    def frame_fn(vgg_params, params, crops: torch.Tensor, gt: Optional[torch.Tensor], state):
+        B = crops.shape[0]
+        toks = frame_tokens(cfg, vgg_params, crops.float())
+        stream = serialize_streaming_batch(
+            toks, None if gt is None else gt.reshape(B, F), delimiter_first=delimiter_first
+        )
+        if use_fused_kernel(cfg, B, dev):
+            logits, final_state = ntm_scan_fused(
+                params, cfg.ntm, stream, state, compute_dtype=cfg.compute_dtype
+            )
+            return torch.tanh(logits[:, -1]), final_state
+        with float32_matmul_precision(cfg.cell_matmul_precision):
+            logits, final_state = core.unroll(params, stream, state, remat=False, fused_bptt=False)
+        return torch.tanh(logits[:, -1]), final_state
+
+    return frame_fn
+
+
 def build_frame_step(
     cfg: TrackerConfig,
     core: MemoryCore,
@@ -65,36 +95,75 @@ def build_frame_step(
       step_first(crops [B,H,W,3] mean-subtracted, gt [B,F] or None, state)
         -> (offsets [B, head_dim], new state)
       step_rest(crops, state) -> (offsets, new state)
+    step_first.frame_fn is the step with the weights as arguments
+    (make_frame_fn).
 
     delimiter_first=False matches the training serialization (prediction
     read at the delimiter step); True is the reference's streaming order.
     """
-    validate_head(cfg)
     dev = resolve_device(device)
     vgg_params = _to_device(vgg_params, dev)
     params = _to_device(params, dev)
-    F = cfg.num_features
+    frame_fn = make_frame_fn(cfg, core, delimiter_first, dev)
 
     @torch.no_grad()
     def step_first(crops: torch.Tensor, gt: Optional[torch.Tensor], state):
-        B = crops.shape[0]
-        toks = frame_tokens(cfg, vgg_params, crops.float())
-        stream = serialize_streaming_batch(
-            toks, None if gt is None else gt.reshape(B, F), delimiter_first=delimiter_first
-        )
-        if use_fused_kernel(cfg, B, dev):
-            logits, final_state = ntm_scan_fused(
-                params, cfg.ntm, stream, state, compute_dtype=cfg.compute_dtype
-            )
-            return torch.tanh(logits[:, -1]), final_state
-        with float32_matmul_precision(cfg.cell_matmul_precision):
-            logits, final_state = core.unroll(params, stream, state, remat=False, fused_bptt=False)
-        return torch.tanh(logits[:, -1]), final_state
+        return frame_fn(vgg_params, params, crops, gt, state)
 
     def step_rest(crops: torch.Tensor, state):
         return step_first(crops, None, state)
 
+    step_first.frame_fn = frame_fn
     return step_first, step_rest
+
+
+def make_device_track_fns(cfg: TrackerConfig, frame_fn, device=None):
+    """make_device_track_step's pair with the weights as arguments:
+    init_body(vgg_params, params, frames, bbox0, state) -> state and
+    step_body(vgg_params, params, frames, bbox, state, gt=None) -> (region,
+    next_bbox, state); frame_fn is make_frame_fn's. step_body's gt is the
+    target indicator the frame step reads (None: zeros, a tracking step);
+    with the canonical first-frame indicator it computes init_body's state
+    (tools/export_serving.py exports one program for both)."""
+    dev = resolve_device(device)
+    d = cfg.data
+    canon = canonical_box(d.cropbox_grid, d.bbox_grid, device=dev)
+    heat0 = torch.as_tensor(canonical_first_frame_gt(cfg), device=dev)
+    mean = torch.as_tensor(VGG_MEAN, device=dev)
+
+    def crop(frames: torch.Tensor, cropbox: torch.Tensor) -> torch.Tensor:
+        return crop_and_resize_mm(frames.float() - mean, cropbox, (d.crop_size, d.crop_size))
+
+    def init_body(vgg_params, params, frames, bbox0, state):
+        frames = torch.as_tensor(frames, device=dev)
+        bbox0 = torch.as_tensor(bbox0, dtype=torch.float32, device=dev)
+        crops = crop(frames, cropbox_of(bbox0, d.cropbox_grid, d.bbox_grid))
+        _, state = frame_fn(vgg_params, params, crops, heat0[None].expand(crops.shape[0], -1), state)
+        return state
+
+    def step_body(vgg_params, params, frames, bbox, state, gt=None):
+        frames = torch.as_tensor(frames, device=dev)
+        bbox = torch.as_tensor(bbox, dtype=torch.float32, device=dev)
+        H, W = frames.shape[1:3]
+        cb = cropbox_of(bbox, d.cropbox_grid, d.bbox_grid)
+        offsets, state = frame_fn(vgg_params, params, crop(frames, cb), gt, state)
+        # the device twin of decode_head: optional scale about the canonical
+        # center, then the (dy, dx) shift
+        if cfg.predict_scale:
+            base = scale_box(canon.expand(offsets.shape[0], 4), torch.exp(offsets[:, 2] * cfg.scale_range))
+            offsets = offsets[:, :2]
+        else:
+            base = canon[None]
+        img_box = to_image_space(base + torch.cat([offsets, offsets], dim=-1), cb)
+        y1, x1, y2, x2 = img_box.unbind(-1)
+        region = torch.stack([x1 * W, y1 * H, (x2 - x1) * W, (y2 - y1) * H], dim=-1)
+        # the reference's decode/renormalize round trip: pixels = box * dim,
+        # the next normalization divides by (dim - 1)
+        quirk = torch.tensor([H / (H - 1.0), W / (W - 1.0), H / (H - 1.0), W / (W - 1.0)],
+                             dtype=torch.float32, device=dev)
+        return region, img_box * quirk, state
+
+    return init_body, step_body
 
 
 def make_device_track_step(
@@ -124,46 +193,17 @@ def make_device_track_step(
     Frames may be tensors (uint8 or float) or numpy arrays.
     """
     dev = resolve_device(device)
-    d = cfg.data
-    canon = canonical_box(d.cropbox_grid, d.bbox_grid, device=dev)
-    heat0 = torch.as_tensor(canonical_first_frame_gt(cfg), device=dev)
-    mean = torch.as_tensor(VGG_MEAN, device=dev)
-    step_first, _ = build_frame_step(cfg, core, vgg_params, params, delimiter_first=delimiter_first,
-                                     device=dev)
-
-    def crop(frames: torch.Tensor, cropbox: torch.Tensor) -> torch.Tensor:
-        return crop_and_resize_mm(frames.float() - mean, cropbox, (d.crop_size, d.crop_size))
+    vgg_params = _to_device(vgg_params, dev)
+    params = _to_device(params, dev)
+    init_body, step_body = make_device_track_fns(cfg, make_frame_fn(cfg, core, delimiter_first, dev), dev)
 
     @torch.no_grad()
     def init_fn(frames, bbox0, state):
-        frames = torch.as_tensor(frames, device=dev)
-        bbox0 = torch.as_tensor(bbox0, dtype=torch.float32, device=dev)
-        crops = crop(frames, cropbox_of(bbox0, d.cropbox_grid, d.bbox_grid))
-        _, state = step_first(crops, heat0[None].expand(crops.shape[0], -1), state)
-        return state
+        return init_body(vgg_params, params, frames, bbox0, state)
 
     @torch.no_grad()
     def step_fn(frames, bbox, state):
-        frames = torch.as_tensor(frames, device=dev)
-        bbox = torch.as_tensor(bbox, dtype=torch.float32, device=dev)
-        H, W = frames.shape[1:3]
-        cb = cropbox_of(bbox, d.cropbox_grid, d.bbox_grid)
-        offsets, state = step_first(crop(frames, cb), None, state)
-        # the device twin of decode_head: optional scale about the canonical
-        # center, then the (dy, dx) shift
-        if cfg.predict_scale:
-            base = scale_box(canon.expand(offsets.shape[0], 4), torch.exp(offsets[:, 2] * cfg.scale_range))
-            offsets = offsets[:, :2]
-        else:
-            base = canon[None]
-        img_box = to_image_space(base + torch.cat([offsets, offsets], dim=-1), cb)
-        y1, x1, y2, x2 = img_box.unbind(-1)
-        region = torch.stack([x1 * W, y1 * H, (x2 - x1) * W, (y2 - y1) * H], dim=-1)
-        # the reference's decode/renormalize round trip: pixels = box * dim,
-        # the next normalization divides by (dim - 1)
-        quirk = torch.tensor([H / (H - 1.0), W / (W - 1.0), H / (H - 1.0), W / (W - 1.0)],
-                             dtype=torch.float32, device=dev)
-        return region, img_box * quirk, state
+        return step_body(vgg_params, params, frames, bbox, state)
 
     return init_fn, step_fn
 
@@ -232,7 +272,10 @@ class StreamingTracker:
 
     init(first frame, region) then track(frame) per frame, re-cropping
     around the previous prediction each time (test_tracker.py:301-329).
-    Runs on cuda unless `device` names another device."""
+    Runs on cuda unless `device` names another device. With a
+    `serving_model` (tools/export_serving.ServingModel, built by
+    from_serving) the artifact's programs replace the live frame step, and
+    vgg_params/params/core are unused."""
 
     cfg: TrackerConfig
     vgg_params: Any
@@ -240,16 +283,38 @@ class StreamingTracker:
     core: Optional[MemoryCore] = None
     delimiter_first: bool = False
     device: Any = None
+    serving_model: Any = None
+
+    @classmethod
+    def from_serving(cls, model):
+        """Drive the host-geometry loop from an exported serving artifact:
+        no model code, no weights; the artifact's device."""
+        from ntm_tracker_tpu_torch.tools.export_serving import config_from_meta
+
+        meta = model.meta
+        if meta["batch"] != 1:
+            raise ValueError(
+                f"StreamingTracker needs a batch-1 artifact, got {meta['batch']} (fleet-sized artifacts serve via "
+                "FleetTracker.from_serving)")
+        return cls(config_from_meta(meta), None, None, delimiter_first=meta["delimiter_first"],
+                   device=model.device, serving_model=model)
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
-        if self.core is None:
-            self.core = make_core(self.cfg)
-        self.params = _to_device(self.params, self.device)
-        self._step_first, self._step_rest = build_frame_step(
-            self.cfg, self.core, self.vgg_params, self.params,
-            delimiter_first=self.delimiter_first, device=self.device,
-        )
+        if self.serving_model is not None:
+            m = self.serving_model
+            self.device = m.device
+            self._init_state = m.init_state
+            self._step_first, self._step_rest = m.first, m.step
+        else:
+            self.device = resolve_device(self.device)
+            if self.core is None:
+                self.core = make_core(self.cfg)
+            self.params = _to_device(self.params, self.device)
+            self._init_state = lambda: self.core.init_state(self.params, 1)
+            self._step_first, self._step_rest = build_frame_step(
+                self.cfg, self.core, self.vgg_params, self.params,
+                delimiter_first=self.delimiter_first, device=self.device,
+            )
         self._mean = torch.as_tensor(VGG_MEAN, device=self.device)
 
     def _crop(self, image: np.ndarray) -> torch.Tensor:
@@ -272,7 +337,7 @@ class StreamingTracker:
         self._update_bbox(self.image_size, region_xywh)
         gt = first_frame_gt(self.cfg, self.normalized_bbox, self.transformation)
         with torch.no_grad():
-            state = self.core.init_state(self.params, 1)
+            state = self._init_state()
         _, self.state = self._step_first(
             self._crop(image), torch.as_tensor(gt.reshape(1, -1), device=self.device), state
         )

@@ -5,14 +5,15 @@ reference's validate_tracker.py:1-40).
 
 Reports the per-frame IoU between tracked and annotated regions: the
 reference defines bb_iou (test_tracker.py:59-83) but never aggregates it;
-the means here clamp per frame (demo.mean_clamped_iou). The command-line
-glue (`validate_tracker`, its pickle loading and `--serving_npz` route)
-comes with the port's CLI.
+the means here clamp per frame (demo.mean_clamped_iou). `validate_tracker`
+is the `validate` command's body: the pickle of sequences, --limit,
+--fleet N and the --serving_npz route.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from typing import List, Tuple
 
 import numpy as np
@@ -130,3 +131,51 @@ def replay_sequences_fleet(seqs, cfg, vgg_params, params, core=None, capacity: i
                 finish(slot, seq_idx)
         admit()
     return all_ious
+
+
+def validate_tracker(args) -> List[List[float]]:
+    """The validate command's body: load the pickle of (sequence dir, frame
+    names), build the tracker (live, on --device, or from --serving_npz),
+    replay, print the overall mean IoU. Returns the per-sequence IoUs."""
+    from ntm_tracker_tpu_torch import cli
+    from ntm_tracker_tpu_torch.config import resolve_device
+
+    fleet_n = int(getattr(args, "fleet", 0) or 0)
+    if fleet_n < 0:
+        raise SystemExit(f"--fleet wants a positive capacity, got {fleet_n}")
+    with open(args.pickle_path, "rb") as f:
+        seqs = pickle.load(f)
+    limit = int(getattr(args, "limit", 0) or 0)
+    if limit > 0:
+        # dress rehearsal (MIGRATION.md real-data runbook)
+        seqs = seqs[:limit]
+        print(f"--limit {limit}: replaying {len(seqs)} sequences")
+    dev = resolve_device(getattr(args, "device", None))
+
+    if getattr(args, "serving_npz", ""):
+        # the artifact holds the weights, the geometry and the token order;
+        # --vgg_int8 is checked against its token path
+        model = cli._load_serving_model(args.serving_npz, args, dev)
+        if fleet_n:
+            if model.meta["batch"] != fleet_n:
+                raise SystemExit(
+                    f"--fleet {fleet_n} but {args.serving_npz} bakes batch {model.meta['batch']} programs; pass "
+                    f"--fleet {model.meta['batch']} or re-export with export-serving --batch {fleet_n}")
+            ious = replay_sequences_fleet(seqs, None, None, None, fleet=FleetTracker.from_serving(model))
+        else:
+            ious = replay_sequences(seqs, None, None, None, tracker=StreamingTracker.from_serving(model))
+    else:
+        cfg = cli._tracker_config(args, args.core)
+        vgg_params = cli._load_vgg(args, dev)
+        core = make_core(cfg)
+        params = cli._resolve_tracker_weights(args, cfg, core, dev)
+        delimiter_first = getattr(args, "delimiter_first", False)
+        if fleet_n:
+            ious = replay_sequences_fleet(seqs, cfg, vgg_params, params, core, capacity=fleet_n,
+                                          delimiter_first=delimiter_first, device=dev)
+        else:
+            ious = replay_sequences(seqs, cfg, vgg_params, params, core, delimiter_first=delimiter_first,
+                                    device=dev)
+    flat = [i for s in ious for i in s]
+    print(f"overall mean IoU over {len(flat)} frames: {mean_clamped_iou(flat):.4f}")
+    return ious

@@ -47,11 +47,21 @@ IMAGE_MODES = ("raw", "resized", "cropped")
 def frame_tokens(cfg: TrackerConfig, vgg_params, crops: torch.Tensor) -> torch.Tensor:
     """[N, crop, crop, 3] mean-subtracted crops -> [N, F, C] frozen VGG
     tokens. Takes the exact receptive-field slice (vgg16_conv43_tokens)
-    whenever it applies."""
-    if cfg.vgg_int8:
-        raise NotImplementedError("vgg_int8: the int8 VGG path is not ported")
+    whenever it applies, and its int8 twin (models/vgg_int8.py) under
+    cfg.vgg_int8, which exists only there."""
     if cfg.fast_conv43 and cfg.feature_points is None and crops.shape[1] == crops.shape[2] == 224:
+        if cfg.vgg_int8:
+            from ntm_tracker_tpu_torch.models.vgg_int8 import vgg16_conv43_tokens_int8
+
+            return vgg16_conv43_tokens_int8(vgg_params, crops)
         return vgg16_conv43_tokens(vgg_params, crops, compute_dtype=cfg.compute_dtype)
+    if cfg.vgg_int8:
+        # never serve the exact path when the quantized one was asked for
+        raise ValueError(
+            "vgg_int8=True requires the canonical fast-conv43 config (fast_conv43=True, feature_points=None, "
+            f"224x224 crops); got crop {crops.shape[1]}x{crops.shape[2]}, feature_points="
+            f"{'custom' if cfg.feature_points is not None else 'None'}, fast_conv43={cfg.fast_conv43}"
+        )
     feats = vgg16_features(vgg_params, crops, compute_dtype=cfg.compute_dtype)
     if cfg.feature_points is None:
         return extract_features(feats)

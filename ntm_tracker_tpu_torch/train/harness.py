@@ -10,6 +10,7 @@ saves it for the JAX package; a restore with a template rebuilds it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -146,31 +147,42 @@ def train_loop(
 ):
     """The reference's epoch/step loop shape: at every validation interval
     (step 0 first) validate and checkpoint, then train. Returns
-    (params, opt_state, steps run). profile_steps needs utils/profiling,
-    which is not ported: it raises."""
-    if profile_steps is not None:
-        raise NotImplementedError("profile_steps: utils/profiling is not ported (ROADMAP.md, item A8)")
+    (params, opt_state, steps run). profile_steps=(start, stop) traces that
+    window of steps with torch.profiler into <log_dir>/profile
+    (utils/profiling.StepWindowProfiler), each step a named range."""
     logger = logger or MetricLogger(log_dir)
+    profiler = None
+    if profile_steps is not None:
+        from ntm_tracker_tpu_torch.utils.profiling import StepWindowProfiler
+
+        profiler = StepWindowProfiler(os.path.join(log_dir, "profile"), *profile_steps)
     step = 0
-    for batch in train_batches:
-        if max_steps is not None and step >= max_steps:
-            break
-        if step % validation_interval == 0:
-            if eval_step and val_batches_fn:
-                accumu, count = 0.0, 0
-                for vb in val_batches_fn():
-                    aux = eval_step(params, vb)
-                    accumu += float(aux["loss"])
-                    count += 1
-                    if count >= validation_batch:
-                        break
-                if count:
-                    logger.log(step, val_loss=accumu / count)
-            # checkpoint on the interval even with no validation split
-            if checkpoint is not None:
-                checkpoint.save(step, {"params": params, "opt_state": opt_state})
-        params, opt_state, metrics = train_step(params, opt_state, batch)
-        if step % log_interval == 0:
-            logger.log(step, train_loss=metrics["loss"])
-        step += 1
+    try:
+        for batch in train_batches:
+            if max_steps is not None and step >= max_steps:
+                break
+            if step % validation_interval == 0:
+                if eval_step and val_batches_fn:
+                    accumu, count = 0.0, 0
+                    for vb in val_batches_fn():
+                        aux = eval_step(params, vb)
+                        accumu += float(aux["loss"])
+                        count += 1
+                        if count >= validation_batch:
+                            break
+                    if count:
+                        logger.log(step, val_loss=accumu / count)
+                # checkpoint on the interval even with no validation split
+                if checkpoint is not None:
+                    checkpoint.save(step, {"params": params, "opt_state": opt_state})
+            with profiler.before_step(step) if profiler is not None else contextlib.nullcontext():
+                params, opt_state, metrics = train_step(params, opt_state, batch)
+            if profiler is not None:
+                profiler.after_step(step)
+            if step % log_interval == 0:
+                logger.log(step, train_loss=metrics["loss"])
+            step += 1
+    finally:
+        if profiler is not None:
+            profiler.close()
     return params, opt_state, step

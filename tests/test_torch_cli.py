@@ -144,7 +144,7 @@ def test_raw_frame_route_host_and_device_resize_agree(workdir, jax_init, monkeyp
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--profile_steps", "1:2"], "A8"),
+    (["--dist_process_id", "1"], "A7"),
     (["--dist_coordinator", "localhost:1"], "A7"), (["--dist_num_processes", "2"], "A7"),
 ])
 def test_unported_train_flags_raise(flag, item):
@@ -176,9 +176,35 @@ def test_parser_keeps_the_jax_flags_and_defaults():
 
     for command in ("preprocess", "mine-sequences", "cache-features", "train-offsets", "train-heatmap",
                     "dnc-repeat-copy", "copy-paste", "train-wholeframe", "train-active-resize", "lstm-only",
-                    "sanity-check", "find-validation-batch", "inspect-batch"):
+                    "sanity-check", "find-validation-batch", "inspect-batch", "track-vot", "validate",
+                    "convert-vgg", "convert-ntm", "convert-dnc", "export-serving"):
         mine, ref = defaults(ours, command), defaults(theirs, command)
         assert mine == ref, command
+
+
+def test_only_bench_is_missing():
+    def commands(parser):
+        return set(next(a for a in parser._actions if a.dest == "command").choices)
+
+    assert commands(jcli.build_parser()) - commands(cli.build_parser()) == {"bench"}
+    assert commands(cli.build_parser()) <= commands(jcli.build_parser())
+
+
+def test_profile_steps_traces_its_window(workdir, monkeypatch):
+    """train-offsets --profile_steps 1:2 writes one torch.profiler trace
+    holding steps 1 and 2 and no other step."""
+    monkeypatch.chdir(workdir)
+    run = train(*TRAIN, "--feature_cache", "cache", "--num_epochs", "2", "--validation_interval", "100",
+                "--profile_steps", "1:2", "--log_dir", "log_profile")
+    assert run["steps"] >= 3
+    traces = sorted(os.listdir(run["profile_dir"]))
+    assert traces == ["steps_1_2.pt.trace.json"]
+    with open(os.path.join(run["profile_dir"], traces[0])) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"train_step_1", "train_step_2"} <= names
+    assert not {"train_step_0", "train_step_3"} & names
+    with pytest.raises(ValueError, match="START:STOP"):
+        train(*TRAIN, "--feature_cache", "cache", "--profile_steps", "1:2:3")
 
 
 # ---- the lab's commands -----------------------------------------------------------
@@ -332,3 +358,79 @@ def test_lab_commands_need_a_card_unless_told_cpu(tmp_path):
                      ["train-wholeframe", "--pickle_path", "x"], ["train-active-resize", "--pickle_path", "x"]):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 cli.main(argv)
+
+
+# ---- export-serving and track-vot through an artifact ------------------------------
+
+
+def _frames_dir(root, n=3):
+    from PIL import Image
+
+    rng = np.random.RandomState(2)
+    names = []
+    for i in range(n):
+        arr = (rng.rand(60, 80, 3) * 255).astype(np.uint8)
+        name = f"{i:08d}.jpg"
+        Image.fromarray(arr).save(os.path.join(root, name))
+        names.append(name)
+    with open(os.path.join(root, "images.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    with open(os.path.join(root, "region.txt"), "w") as f:
+        f.write("30,20,20,15")
+
+
+def test_export_serving_int8_and_track_vot(tmp_path, capsys):
+    """export-serving --vgg_int8 at the canonical 224 config: the artifact's
+    steps against the live int8 frame step, track-vot --serving_npz in file
+    mode against live track-vot --vgg_int8, and the --vgg_int8 cross-check
+    failing loudly on an exact-path artifact."""
+    from ntm_tracker_tpu_torch.models.core import make_core
+    from ntm_tracker_tpu_torch.tools.export_serving import ServingModel
+    from ntm_tracker_tpu_torch.tracking.tracker import build_frame_step
+
+    out = str(tmp_path / "int8.npz")
+    assert cli.main(["--device", "cpu", "export-serving", *TINY, "--vgg_int8", "--out", out]) == 0
+    printed = capsys.readouterr().out
+    assert "exported init/first/step for platforms ['cpu'] (batch 1, int8 tokens, ntm core" in printed
+    model = ServingModel(out, device="cpu")
+    assert model.meta["vgg_int8"] is True and model.meta["crop_size"] == 224 and model.meta["num_features"] == 64
+    args = cli.build_parser().parse_args(["--device", "cpu", "export-serving", *TINY, "--vgg_int8", "--out", out])
+    cfg = cli._tracker_config(args, "ntm")
+    core = make_core(cfg)
+    vgg, params = cli._load_vgg(args, "cpu"), cli._resolve_tracker_weights(args, cfg, core, "cpu")
+    step_first, step_rest = build_frame_step(cfg, core, vgg, params, device="cpu")
+    rng = np.random.RandomState(0)
+    crop = rng.rand(1, 224, 224, 3).astype(np.float32) * 100 - 50
+    gt = np.zeros((1, 64), np.float32)
+    with torch.no_grad():
+        live_off, live_state = step_first(torch.tensor(crop), torch.tensor(gt), core.init_state(params, 1))
+    off, leaves = model.first(crop, gt, model.init_state())
+    np.testing.assert_allclose(off.numpy(), live_off.numpy(), rtol=0, atol=1e-5)
+    crop = rng.rand(1, 224, 224, 3).astype(np.float32) * 100 - 50
+    live_off, _ = step_rest(torch.tensor(crop), live_state)
+    off, _ = model.step(crop, leaves)
+    np.testing.assert_allclose(off.numpy(), live_off.numpy(), rtol=0, atol=1e-5)
+
+    _frames_dir(str(tmp_path))
+    regions = []
+    for extra in (["--serving_npz", out], [*TINY, "--vgg_int8"]):
+        assert cli.main(["--device", "cpu", "track-vot", "--vot_mode", "file", "--workdir", str(tmp_path),
+                         *extra]) == 0
+        # the file protocol reports a region for every frame, the init frame's
+        # too (the reference's vot.py advances only on report): 3 images, 3
+        # regions, 4 frames processed
+        assert "tracked 4 frames" in capsys.readouterr().out
+        regions.append(np.loadtxt(tmp_path / "output.txt", delimiter=","))
+    assert regions[0].shape == (3, 4)
+    np.testing.assert_allclose(regions[0], regions[1], rtol=0, atol=1e-4)
+
+    exact = str(tmp_path / "exact.npz")
+    assert cli.main(["--device", "cpu", "export-serving", *TINY, "--out", exact]) == 0
+    with pytest.raises(SystemExit, match="exact token path"):
+        cli.main(["--device", "cpu", "track-vot", "--serving_npz", exact, "--vgg_int8", "--workdir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("bad,msg", [("48x64a", "HxW"), ("0x640", "too small")])
+def test_export_serving_rejects_bad_device_loop(tmp_path, bad, msg):
+    with pytest.raises(SystemExit, match=msg):
+        cli.main(["--device", "cpu", "export-serving", *TINY, "--device_loop", bad, "--out", str(tmp_path / "x.npz")])

@@ -4,6 +4,8 @@ on: against the port's StreamingTracker (mirroring tests/test_fleet.py and
 tests/test_tracking.py:147-220) and against the JAX package's fleet and
 device loop for the same weights and frames."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -291,3 +293,60 @@ def test_cpu_fleet_never_launches(use_pallas):
     fleet = FleetTracker(cfg, vgg, params, capacity=2, core=core, device="cpu")
     fleet.step({fleet.add(img, (30.0, 20.0, 20.0, 16.0)): img})
     assert addressing.fused_ntm_addressing.launches == 0
+
+
+# ---- the fleet from an exported artifact (export-serving --batch N) -------------
+
+
+@pytest.fixture(scope="module")
+def exported_b2(tmp_path_factory):
+    from ntm_tracker_tpu_torch.tools.export_serving import export_serving, save_serving
+
+    _, (cfg, core, vgg, params) = _setup()
+    path = str(tmp_path_factory.mktemp("export_b2") / "serving_b2.npz")
+    save_serving(path, export_serving(cfg, core, vgg, params, batch=2, platforms=["cpu"]))
+    return path
+
+
+def test_fleet_from_serving_matches_live_fleet(exported_b2):
+    """A batch-2 artifact drives the fleet with no model code: first at B=1
+    (each add), init/step at the capacity; the same regions as the live
+    fleet on the plain route, and a freed slot comes back fresh."""
+    from ntm_tracker_tpu_torch.tools.export_serving import ServingModel
+
+    _, (cfg, core, vgg, params) = _setup()
+    model = ServingModel(exported_b2, device="cpu")
+    assert model.meta["batch"] == 2 and model.meta["first_batch"] == 1
+    img_a, img_b = _img(3, 60, 80), _img(4, 50, 70)
+    region_a, region_b = (30.0, 15.0, 20.0, 16.0), (20.0, 10.0, 16.0, 12.0)
+    plain = dataclasses.replace(cfg, fused_inference=False)
+    live = FleetTracker(plain, vgg, params, capacity=2, core=make_core(plain), device="cpu")
+    la, lb = live.add(img_a, region_a), live.add(img_b, region_b)
+    served = FleetTracker.from_serving(model)
+    assert served.capacity == 2 and served.device.type == "cpu"
+    sa, sb = served.add(img_a, region_a), served.add(img_b, region_b)
+    for _ in range(3):
+        live_out = live.step({la: img_a, lb: img_b})
+        served_out = served.step({sa: img_a, sb: img_b})
+        np.testing.assert_allclose(served_out[sa], live_out[la], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(served_out[sb], live_out[lb], rtol=0, atol=1e-4)
+    # an omitted slot keeps its state; a freed slot is reset from the baked init
+    before = [t.clone() for t in served.state]
+    served.step({sa: img_a})
+    assert all(torch.equal(x[sb], y[sb]) for x, y in zip(served.state, before))
+    served.remove(sa)
+    assert all(torch.equal(x[sa], y[0]) for x, y in zip(served.state, served._fresh_state(1)))
+    assert served.add(img_a, region_a) == sa
+
+
+def test_serving_refusals(exported_b2):
+    from ntm_tracker_tpu_torch.tools.export_serving import ServingModel
+
+    _, (cfg, *_rest) = _setup()
+    model = ServingModel(exported_b2, device="cpu")
+    with pytest.raises(ValueError, match="batch-1"):
+        StreamingTracker.from_serving(model)
+    with pytest.raises(ValueError, match="bakes batch 2"):
+        FleetTracker(cfg, None, None, capacity=4, serving_model=model)
+    with pytest.raises(NotImplementedError, match="A7"):
+        FleetTracker(cfg, None, None, capacity=2, mesh=object(), serving_model=model)

@@ -112,10 +112,14 @@ def test_train_loop_validates_first_then_trains(tmp_path):
 
 
 def test_train_loop_refuses_profiling(tmp_path):
+    """A profile window that ends before it starts is refused; a window the
+    loop never reaches writes nothing."""
     exp, params, opt_state = _experiment()
-    with pytest.raises(NotImplementedError, match="profiling"):
+    with pytest.raises(ValueError, match="stop 1 < start 2"):
         train_loop(exp.make_train_step(), None, params, opt_state, [], log_dir=str(tmp_path),
-                   profile_steps=(1, 2))
+                   profile_steps=(2, 1))
+    train_loop(exp.make_train_step(), None, params, opt_state, [], log_dir=str(tmp_path), profile_steps=(1, 2))
+    assert not (tmp_path / "profile").exists()
 
 
 def test_checkpoint_restores_onto_another_device_map(tmp_path):

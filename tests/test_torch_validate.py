@@ -121,3 +121,103 @@ def test_replay_sequences_fleet_matches_jax(seqs, models):
     single = tval.replay_sequences(seqs, tcfg, vgg, params, log=lambda m: None, device="cpu")
     for g, s in zip(got, single):
         np.testing.assert_allclose(g, s, atol=IOU_ATOL, rtol=0)
+
+
+# ---- the validate command against the JAX package's validate_tracker -------------
+
+CLI_MODEL = ["--mem_size", "16", "--mem_dim", "8", "--hidden_size", "24", "--read_head_size", "2"]
+
+
+@pytest.fixture(scope="module")
+def cli_files(seqs, tmp_path_factory):
+    """The pickle of the sequences, and one set of weights both packages'
+    CLIs load: JAX-initialized NTM params as a convert-ntm .npz (--ntm_npz)
+    and VGG weights under the slim names (--vgg_weights)."""
+    import pickle
+
+    from ntm_tracker_tpu import cli as jcli
+    from ntm_tracker_tpu.tools.convert_ntm_ckpt import save_params_npz
+
+    root = tmp_path_factory.mktemp("validate_cli")
+    with open(root / "val.pkl", "wb") as f:
+        pickle.dump(seqs, f)
+    args = jcli.build_parser().parse_args(["validate", "--pickle_path", "x", *CLI_MODEL])
+    jcfg = jcli._tracker_config(args, "ntm")
+    save_params_npz(str(root / "ntm.npz"), jmake_core(jcfg).init_params(jax.random.PRNGKey(3), jcfg.input_depth))
+    vgg = flatten_vgg_params(jinit_vgg(jax.random.PRNGKey(0)))
+    np.savez(root / "vgg.npz", **{f"vgg_16/{k}": v for k, v in vgg.items()})
+    return root
+
+
+def _weight_flags(cli_files):
+    return ["--ntm_npz", str(cli_files / "ntm.npz"), "--vgg_weights", str(cli_files / "vgg.npz"), *CLI_MODEL]
+
+
+@pytest.fixture(scope="module")
+def artifacts(cli_files):
+    """Each package's batch-1 artifact (export-serving) from the same weight
+    files."""
+    from ntm_tracker_tpu import cli as jcli
+    from ntm_tracker_tpu_torch import cli
+
+    for mod, name in ((cli, "port.npz"), (jcli, "jax.npz")):
+        prefix = ["--device", "cpu"] if mod is cli else []
+        args = mod.build_parser().parse_args([*prefix, "export-serving", *_weight_flags(cli_files), "--out",
+                                              str(cli_files / name)])
+        assert args.fn(args) == 0
+    return str(cli_files / "port.npz"), str(cli_files / "jax.npz")
+
+
+def _jax_validate(argv, monkeypatch):
+    """JAX's validate_tracker on argv; returns the IoUs its replay made."""
+    from ntm_tracker_tpu import cli as jcli
+
+    got = []
+    for name in ("replay_sequences", "replay_sequences_fleet"):
+        orig = getattr(jval, name)
+
+        def record(*a, _orig=orig, **k):
+            got.append(_orig(*a, **dict(k, log=lambda m: None)))
+            return got[-1]
+
+        monkeypatch.setattr(jval, name, record)
+    assert jval.validate_tracker(jcli.build_parser().parse_args(argv)) == 0
+    return got[0]
+
+
+@pytest.mark.parametrize("extra", [["--limit", "2"], ["--fleet", "2"], ["--serving_npz"]],
+                         ids=["limit", "fleet", "serving_npz"])
+def test_validate_command_matches_jax(cli_files, artifacts, monkeypatch, capsys, extra):
+    from ntm_tracker_tpu_torch import cli
+
+    base = ["validate", "--pickle_path", str(cli_files / "val.pkl")]
+    if extra == ["--serving_npz"]:
+        mine, theirs = base + ["--serving_npz", artifacts[0]], base + ["--serving_npz", artifacts[1]]
+    else:
+        mine = theirs = base + _weight_flags(cli_files) + extra
+    args = cli.build_parser().parse_args(["--device", "cpu", *mine])
+    got = tval.validate_tracker(args)
+    printed = capsys.readouterr().out
+    assert "overall mean IoU over" in printed
+    if extra[0] == "--limit":
+        assert "--limit 2: replaying 2 sequences" in printed
+    want = _jax_validate(theirs, monkeypatch)
+    assert [len(s) for s in got] == [len(s) for s in want] == ([3, 2] if extra[0] == "--limit" else [3, 2, 0])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=IOU_ATOL, rtol=0)
+
+
+def test_validate_command_refusals(cli_files, artifacts):
+    from ntm_tracker_tpu_torch import cli
+
+    base = ["--device", "cpu", "validate", "--pickle_path", str(cli_files / "val.pkl")]
+    with pytest.raises(SystemExit, match="positive capacity"):
+        cli.main([*base, "--fleet", "-1"])
+    with pytest.raises(SystemExit, match="bakes batch 1"):
+        cli.main([*base, "--serving_npz", artifacts[0], "--fleet", "2"])
+    with pytest.raises(SystemExit, match="exact token path"):
+        cli.main([*base, "--serving_npz", artifacts[0], "--vgg_int8"])
+    with pytest.raises(ValueError, match="JAX package's serving artifact"):
+        cli.main([*base, "--serving_npz", artifacts[1]])
+    with pytest.raises(SystemExit, match="only one of"):
+        cli.main([*base, "--ntm_npz", "a.npz", "--dnc_npz", "b.npz"])
