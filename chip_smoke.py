@@ -95,7 +95,8 @@ PREVIOUS_MS = {"forward": 161.1, "backward": 383.4, "grad_reduce": 24.7}
 # the training slice's shape: the JAX bench's cached-token train step
 # (ntm_tracker_tpu/benchmarks.py:646), B=256 rows of L=20 frames
 TRAIN_B, TRAIN_L = 256, 20
-B8_L = 4
+# the B=8 fused-vs-plain check's depth (T = 65 B8_L), cut from 4 for room
+B8_L = 2
 PACKED_SOURCE = "ntm_tracker_tpu_torch/csrc/scan_packed.cu"
 ADDR_NAME = "addressing.fused_ntm_addressing"
 ADDR_SOURCE = "ntm_tracker_tpu_torch/csrc/addressing.cu"
@@ -123,12 +124,15 @@ LOOP_TOL_PX = 5e-2
 # the same step on the CPU: the loss within DNC_LOSS_RTOL, each gradient
 # within GRAD_TOL of its largest magnitude (float32 in other orders, over
 # 520 cell steps and the frozen VGG's cuDNN convs against the CPU's).
-ACC_STEPS, ACC_WINDOW = 60, 10
-ACC_FLAG_SEQS, ACC_FLAG_STEPS, ACC_FLAG_WINDOW = 64, 20, 5
+# (ACC_STEPS was 60, ACC_FLAG_STEPS 20 and ACC_DNC_L 3 before the parallel
+# phase took their room)
+ACC_STEPS, ACC_WINDOW = 40, 10
+ACC_FLAG_SEQS, ACC_FLAG_STEPS, ACC_FLAG_WINDOW = 64, 10, 5
 ACC_CLIP_FRAMES, ACC_DNC_FRAMES = 12, 4
-# the DNC's card-against-CPU train step runs 3 frames a clip (T = 195), not
-# the demo's 8: its eager step is host dispatch, ~0.5 s a frame on each side
-ACC_DNC_L = 3
+# the DNC's card-against-CPU train step runs ACC_DNC_L frames a clip (T =
+# 130), not the demo's 8: its eager step is host dispatch, ~0.5 s a frame on
+# each side
+ACC_DNC_L = 2
 DNC_LOSS_RTOL = 1e-4
 # the data phase: a synthetic VID tree (seqname, split, (width, height),
 # frames, objects; an object is a track, so a sequence dir after
@@ -187,6 +191,15 @@ LEGACY_TOL = 1e-5
 # the dequantization is what differs) and their cosine to the exact path
 # above INT8_COS (the JAX package's bar); train-offsets --profile_steps.
 SERVE_CLIP, SERVE_FLEET, SERVE_VAL_FRAMES = 12, 8, 8
+# the packed phase holds B4 against its plain version on phase_bptt's cases
+# at T <= PACKED_CHECK_T (cut from 1,300 to make room for the parallel
+# phase: phase_bptt holds B2 against the plain loop at T = 1,300, and
+# packed (c) holds B4 against B2 at B = 256, T = 1,300)
+PACKED_CHECK_T = 260
+# B4's kernels recording gradients and the packed plain version's autograd
+# are timed against each other at B = 256 on the first PACKED_PLAIN_T
+# steps (the plain autograd at T = 1,300 takes 9-11 s)
+PACKED_PLAIN_T = 130
 SERVE_REGION_TOL_PX = 1e-2
 # validate's witness of the closed loop's growth: the first box moved this
 # share of the frame's width (validate's first regions are normalized)
@@ -194,6 +207,35 @@ SERVE_NUDGE = 1e-4
 SERVE_IOU_TOL = 1e-3
 INT8_TOL, INT8_COS = 1e-6, 0.995
 INT8_TIME_B = (1, 64)
+
+# the parallel phase, at TrackerConfig()'s width: (a) two gloo ranks on the
+# one card (NCCL refuses two ranks on one device), DP_STEPS steps of
+# parallel_train_step at a global batch of DP_B (DP_B / 2 a rank), L =
+# DP_L (T = 260) on tokens drawn on the card from DP_SEED, against one
+# process at the global batch: the loss within F32_TOL (relative), the
+# pre-clip gradients within GRAD_TOL of their largest; (b) train-offsets at
+# world size 1 over NCCL against the same command without --dist_*, every
+# step's loss within PAR_LOSS_TOL (relative); (c) cache-features --shard
+# against the data phase's float32 cache (base), DATA_TOL; (d) FleetTracker
+# over a mesh at capacity PAR_FLEET_CAP for PAR_FLEET_FRAMES frames
+# (B1 in the adds and the steps): its first shard against a meshless fleet
+# of that shard's slots, F32_TOL (the same batch), and the whole against
+# the meshless fleet within REGION_TOL_PX (its shards run VGG and B1 at
+# half the batch: float32 rounding that three recrops carry); (e)
+# one plain-route train step at B = PAR_KNOB_B, L = PAR_KNOB_L with layout
+# "dn" and remat "dots" against "nd" / "full" (F32_TOL, GRAD_TOL), and a
+# "dn" forward with use_pallas, B3 once a step, against the plain "nd"
+# forward (F32_TOL); (f) tools/bench_scale_head at SCALE_HEAD_STEPS steps a
+# head, SCALE_HEAD_FRAMES frames a clip.
+DP_B, DP_L, DP_STEPS, DP_SEED = 16, 4, 2, 11
+# the one card stands in for PAR_SHARDS local devices where one process
+# splits its work: each rank's mesh in (a), the sharded cache build (c)
+# and the sharded fleet (d) run PAR_SHARDS shards on cuda:0
+PAR_SHARDS = 2
+PAR_LOSS_TOL = 1e-6
+PAR_FLEET_CAP, PAR_FLEET_FRAMES = 8, 3
+PAR_KNOB_B, PAR_KNOB_L = 4, 2
+SCALE_HEAD_STEPS, SCALE_HEAD_FRAMES = 5, 12
 
 
 def log(phase: str, msg: str) -> None:
@@ -1299,7 +1341,7 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     check_budget("train")
 
     # ---- one fused step against one plain autograd step at B=8 --------------------
-    # at L=B8_L frames (T=260), a fifth of the main path's depth: the plain
+    # at L=B8_L frames (T=130), a tenth of the main path's depth: the plain
     # step's eager loop costs ~14 s a pass at T=1300, and the B=256 step
     # above is held at the full depth
     cfg8 = dataclasses.replace(base, train=dataclasses.replace(base.train, batch_size=8, sequence_length=B8_L,
@@ -1365,8 +1407,10 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
             fwd_err[r] = max(forward_errors(got, fwd_ref).values())
             del got
         del fwd_ref
+        # timed at the route's tile only (the other tiles' times were cut
+        # for room; their last numbers are in PERF.md)
         fwd_ms_by = {r: cuda_ms(lambda r=r: scan_bptt.bptt_forward(params, ncfg, tokens, state, proj, rows_per_block=r),
-                                iters=2, warmup=1) for r in scan_bptt.FORWARD_ROWS}
+                                iters=2, warmup=1) for r in (fwd_rows,)}
         fwd_ms = fwd_ms_by[fwd_rows]
         logits, final, res = scan_bptt.bptt_forward(params, ncfg, tokens, state, proj)
         # B1's tile route is B2's forward tile step without the residuals:
@@ -1377,10 +1421,10 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
         dlogits = torch.randn_like(logits) * 1e-2
         dfinal = tree_map(torch.zeros_like, final)
         # the backward on the same projection: as the route runs it (its
-        # tile, no dtokens), and at one row per block and with dtokens
+        # tile, no dtokens), and with dtokens (one row per block was cut
+        # from the timings for room; its last numbers are in PERF.md)
         rows = scan_bptt.backward_tile(ncfg, IN, B, dev)
-        variants = {f"rows {rows}, no dtokens (the route)": (rows, False), f"rows {rows}, dtokens": (rows, True),
-                    "rows 1, no dtokens": (1, False), "rows 1, dtokens": (1, True)}
+        variants = {f"rows {rows}, no dtokens (the route)": (rows, False), f"rows {rows}, dtokens": (rows, True)}
         rec_variants = {}
         for name, (r, need) in variants.items():
             rec_variants[name] = cuda_ms(lambda: scan_bptt.bptt_backward(
@@ -1638,8 +1682,8 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
     phase_train's params and tokens against B2's kernels, the same bits on
     a rerun, the backward without dtokens the same bits as with them but
     for dtokens, both kernels' initial-state gradients against float64,
-    and the times at every tile beside B2's, the plain version's and the
-    bounds; (d) the shared-memory mirror against the kernel; the token
+    and the times at the rule's tiles beside B2's and the bounds, and at
+    T=PACKED_PLAIN_T beside the plain version's on the same inputs; (d) the shared-memory mirror against the kernel; the token
     projection's launches on B4's path. No main path launches B4 (checked:
     its counts are 0 on entry); the launches are this phase's own."""
     from ntm_tracker_tpu_torch.config import NTMConfig
@@ -1688,6 +1732,7 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
         return tiles + ([(*big, False)] if flagship else [])
 
     for i, (name, (ncfg, B, T)) in enumerate(bptt_cases().items()):
+        T = min(T, PACKED_CHECK_T)
         params, tokens, cot = scan_case(ncfg, B, T, 300 + i, dev, IN)
         compare(name, ncfg, B, T, params, tokens, cot, lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B),
                 case_tiles(ncfg, "flagship" in name))
@@ -1806,15 +1851,17 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
                 referee = initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_names, ref, got)
             del got, lo, fi
             check_budget("packed")
-        # every instantiated tile, each kernel's launches back to back
+        # one row per block, the rule's tiles and the probe's (the other
+        # tiles' times were cut for room; their last numbers are in
+        # PERF.md), each kernel's launches back to back
         ms = {"forward": {}, "forward_residuals": {}, "backward": {}}
-        for rows in packed_tiles(ncfg, IN, False):
+        for rows in sorted({1, rule[0], scan_packed.PROBE_ROWS}):
             ms["forward"][rows] = cuda_ms(lambda: scan_packed.packed_forward(params, ncfg, tokens, state, proj, rows),
                                           iters=2, warmup=1)
             ms["forward_residuals"][rows] = cuda_ms(lambda: scan_packed.packed_forward_residuals(
                 params, ncfg, tokens, state, proj, rows), iters=2, warmup=0)
         _, _, res = scan_packed.packed_forward_residuals(params, ncfg, tokens, state, proj, rule[0])
-        for brows in packed_tiles(ncfg, IN, True):
+        for brows in sorted({1, rule[1], scan_packed.PROBE_ROWS}):
             ms["backward"][brows] = cuda_ms(lambda: scan_packed.packed_backward(
                 params, ncfg, tokens, proj, res, dlogits, dfinal, False, brows), iters=2, warmup=1)
         ms["backward_dtokens"] = cuda_ms(lambda: scan_packed.packed_backward(
@@ -1845,34 +1892,52 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
                      f"{rule[1]}; the projection {train['token_projection'][0]:.3f} ms (phase train)")
         del ref, dtok, dst, logits, final
 
-    # the plain version at the same shape: forward without gradients, and
-    # forward and backward of its autograd
+    # the plain version: its runs at T=1,300 (2.6 s without gradients,
+    # 11-13 s recording them) were cut for room (PERF.md keeps their
+    # times), so the kernels and the plain version are timed against each
+    # other on the first PACKED_PLAIN_T steps of the same params and tokens
     with torch.no_grad():
-        plain_fwd = cuda_ms(lambda: scan_packed.ntm_scan_packed_reference(params, ncfg, tokens, state), iters=1, warmup=0)
+        Ts = PACKED_PLAIN_T
+        tok_s, dlog_s = tokens[:, :Ts].contiguous(), dlogits[:, :Ts].contiguous()
+        proj_s = scan_bptt.token_projection(tok_s, layer0["kernel"], layer0["bias"])
+        plain_fwd = cuda_ms(lambda: scan_packed.ntm_scan_packed_reference(params, ncfg, tok_s, state), iters=1, warmup=0)
+        short = {"forward": cuda_ms(lambda: scan_packed.packed_forward(params, ncfg, tok_s, state, proj_s, rule[0]),
+                                    iters=2, warmup=1),
+                 "forward_residuals": cuda_ms(lambda: scan_packed.packed_forward_residuals(
+                     params, ncfg, tok_s, state, proj_s, rule[0]), iters=2, warmup=1)}
+        _, _, res = scan_packed.packed_forward_residuals(params, ncfg, tok_s, state, proj_s, rule[0])
+        short["backward"] = cuda_ms(lambda: scan_packed.packed_backward(
+            params, ncfg, tok_s, proj_s, res, dlog_s, dfinal, False, rule[1]), iters=2, warmup=1)
+        del res, proj_s
     live = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
-    torch.cuda.reset_peak_memory_stats()
-    lo, fi = scan_packed.ntm_scan_packed_reference(live, ncfg, tokens, init_ntm_state(live, ncfg, B))
-    loss = (lo * dlogits).sum() + sum((a * b).sum() for a, b in zip(scan_bptt.flatten_state(fi),
-                                                                    scan_bptt.flatten_state(dfinal)))
+    lo, fi = scan_packed.ntm_scan_packed_reference(live, ncfg, tok_s, init_ntm_state(live, ncfg, B))
+    loss = (lo * dlog_s).sum() + sum((a * b).sum() for a, b in zip(scan_bptt.flatten_state(fi),
+                                                                   scan_bptt.flatten_state(dfinal)))
     ev[1].record()
     torch.autograd.grad(loss, [live["heads_w"], live["controller"][0]["kernel"]])
     ev[2].record()
     torch.cuda.synchronize()
-    plain_res_fwd, plain_bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
-    plain_peak = torch.cuda.max_memory_allocated() / 1e9
-    del lo, fi, loss, live
+    plain_short = {"forward": plain_fwd, "forward_residuals": ev[0].elapsed_time(ev[1]),
+                   "backward": ev[1].elapsed_time(ev[2])}
+    del lo, fi, loss, live, tok_s, dlog_s
     # B4's kernels read the projection (no token rows of W0); the backward
     # as timed writes no dtokens
     work = scan_bptt_work(ncfg, B, T, IN)
     bounds = {"forward": bound(*scan_bptt_work(ncfg, B, T, IN, residuals=False)["forward"]),
               "forward_residuals": bound(*work["forward"]), "backward": bound(*work["backward"]),
               "reduction": bound(*work["grad_reduce"])}
-    log("times", f"{smi}: B={B} T={T} plain packed version: forward {plain_fwd:.1f} ms (no gradients); recording "
-                 f"gradients forward {plain_res_fwd:.1f} ms, backward {plain_bwd:.1f} ms (CUDA events, peak "
-                 f"{plain_peak:.1f} GB); bounds "
-                 + ", ".join(f"{k} {v[0]:.3f} ms by {v[1]}" for k, v in bounds.items())
+    work_s = scan_bptt_work(ncfg, B, Ts, IN)
+    bounds_short = {"forward": bound(*scan_bptt_work(ncfg, B, Ts, IN, residuals=False)["forward"]),
+                    "forward_residuals": bound(*work_s["forward"]), "backward": bound(*work_s["backward"])}
+    log("times", f"{smi}: B={B} T={Ts} (phase train's params and tokens' first steps) plain packed version: forward "
+                 f"{plain_fwd:.1f} ms without gradients; recording gradients forward {plain_short['forward_residuals']:.1f} "
+                 f"ms, backward {plain_short['backward']:.1f} ms; the kernels at rows {rule[0]}/{rule[1]}: forward "
+                 f"{short['forward']:.3f} ms, with residuals {short['forward_residuals']:.3f} ms, backward "
+                 f"{short['backward']:.3f} ms (bounds "
+                 + ", ".join(f"{k} {v[0]:.3f} ms by {v[1]}" for k, v in bounds_short.items()) + "); bounds at "
+                 f"T={T} " + ", ".join(f"{k} {v[0]:.3f} ms by {v[1]}" for k, v in bounds.items())
                  + f"; B2: projection {train['token_projection'][0]:.3f} ms, forward {train['forward'][0]:.3f} ms, "
                  f"backward {train['backward'][0]:.3f} ms, reduction {train['grad_reduce'][0]:.3f} ms; B1 "
                  f"{train['b1']['ms']:.3f} ms (phase train)")
@@ -1900,7 +1965,8 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
                      for b in (1, 64, 132, 133, 256, 264, 265, 512)}
     return {"counts": path, "phase_counts": phase_counts, "probe": probe, "frame": frame_out, "train": train_out,
             "ms": ms, "rule": rule, "rule_by_batch": rule_by_batch, "worst": worst,
-            "plain": {"forward": plain_fwd, "forward_residuals": plain_res_fwd, "backward": plain_bwd},
+            "short": {"T": Ts, "ms": short, "plain_ms": plain_short,
+                                                       "bounds": bounds_short},
             "bounds": bounds, "smem": smem, "B": B, "T": T, "initial_state_referee": referee}
 
 
@@ -2669,9 +2735,10 @@ def phase_lab(dev: torch.device, smi: str, root: str) -> dict:
     return out
 
 
-def cli_subprocess(dev: torch.device, work: str, tag: str, argv: list, stdin: bool = False, nice: int = 0):
-    """`python -m ntm_tracker_tpu_torch --device <dev> <argv>` from this
-    checkout: (process, log file). Its stderr (and stdout, unless stdin is
+def cli_subprocess(dev: torch.device, work: str, tag: str, argv: list, stdin: bool = False, nice: int = 0,
+                   module: str = "ntm_tracker_tpu_torch"):
+    """`python -m <module> --device <dev> <argv>` from this checkout
+    (module=None: `python <argv>`): (process, log file). Its stderr (and stdout, unless stdin is
     asked for: a TraX server's stdout is its wire) goes to <work>/<tag>.log,
     since a full pipe would block it. TF32 off through the libraries' own
     switch (the CLI keeps PyTorch's defaults; the in-process references run
@@ -2682,7 +2749,8 @@ def cli_subprocess(dev: torch.device, work: str, tag: str, argv: list, stdin: bo
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
                NVIDIA_TF32_OVERRIDE="0")
     log_f = open(os.path.join(work, f"{tag}.log"), "w+")
-    proc = subprocess.Popen([sys.executable, "-m", "ntm_tracker_tpu_torch", "--device", str(dev), *argv], cwd=here,
+    cmd = [sys.executable, "-m", module, "--device", str(dev), *argv] if module else [sys.executable, *argv]
+    proc = subprocess.Popen(cmd, cwd=here,
                             env=env, stdin=subprocess.PIPE if stdin else subprocess.DEVNULL,
                             stdout=subprocess.PIPE if stdin else log_f, stderr=log_f, text=True,
                             preexec_fn=(lambda: os.nice(nice)) if nice else None)
@@ -3204,6 +3272,367 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
     out["counts"] = counts
     return out
 
+def dp_config():
+    from ntm_tracker_tpu_torch.config import TrackerConfig, TrainConfig
+
+    return TrackerConfig(train=TrainConfig(batch_size=DP_B, sequence_length=DP_L))
+
+
+def dp_batch(cfg, dev: torch.device, n: int = DP_B * DP_L, seed: int = DP_SEED) -> dict:
+    """A cached-token batch of n rows drawn on the card from `seed` (the
+    feature cache's float16 tokens at conv4_3's scale): every process that
+    draws it holds the same bits."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gw = cfg.data.gt_width
+    gts = torch.rand(n, gw, gw, generator=g, device=dev)
+    return {"features": (torch.rand(n, cfg.num_features, cfg.feature_depth, generator=g, device=dev) * 40).half(),
+            "gts": gts / gts.sum(dim=(1, 2), keepdim=True),
+            "y_offsets": (torch.rand(n, generator=g, device=dev) - 0.5) * 0.4,
+            "x_offsets": (torch.rand(n, generator=g, device=dev) - 0.5) * 0.4}
+
+
+def dp_worker(rank: int, world: int, port: int, out: str, device: str = "cuda") -> None:
+    """One rank of phase_parallel (a): a gloo group of `world` ranks, all on
+    the card (cuda:0: rank % 1), DP_STEPS steps of parallel_train_step on
+    this rank's rows of dp_batch over a mesh of PAR_SHARDS shards on that
+    card (the chunks' gradients summed, then the group's all_reduce); saves
+    the losses, the reduced pre-clip
+    gradients, the params and B1/B2's launches to `out`. Imports only the
+    port. Run as `python -c "import chip_smoke; chip_smoke.dp_worker(...)"`."""
+    import torch.distributed as dist
+
+    from ntm_tracker_tpu_torch.parallel.distributed import initialize_distributed, rank_device
+    from ntm_tracker_tpu_torch.parallel.mesh import make_mesh, parallel_train_step
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo", device=device) != (world > 1):
+        raise AssertionError("the group did not start")
+    dev = rank_device(device)
+    cfg = dp_config()
+    exp = OffsetExperiment(cfg, None, device=dev)
+    params, opt_state = exp.init(torch.Generator().manual_seed(DP_SEED))
+    per = DP_B * DP_L // world
+    local = {k: v[rank * per:(rank + 1) * per] for k, v in dp_batch(cfg, dev).items()}
+    mesh = make_mesh([dev] * PAR_SHARDS)
+    step = parallel_train_step(exp, mesh, keep_grads=True)
+    reset_all_counts()
+    losses, grads, ms = [], [], []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, local)
+        losses.append(float(m["loss"]))  # a host read: the step has ended
+        ms.append((time.perf_counter() - t0) * 1e3)
+        grads.append(tree_map(lambda t: t.cpu(), m["grads"]))
+    torch.save({"losses": losses, "grads": grads, "params": tree_map(lambda t: t.cpu(), params), "ms": ms,
+                "counts": kernel_counts(), "device": str(dev), "mesh": [str(d) for d in mesh.devices],
+                "backend": dist.get_backend(), "world": dist.get_world_size()}, out)
+    dist.destroy_process_group()
+
+
+def start_parallel_subprocesses(dev: torch.device, work: str) -> dict:
+    """phase_parallel's subprocesses, started a few phases early (each
+    takes ~8 s to reach the card): (a)'s two gloo ranks and (f)'s
+    tools/bench_scale_head. {tag: (process, log file[, out path])}."""
+    import os
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    out = {}
+    for rank in range(2):
+        path = os.path.join(work, f"dp_rank{rank}.pt")
+        code = f"import chip_smoke; chip_smoke.dp_worker({rank}, 2, {port}, {path!r}, {str(dev)!r})"
+        out[f"rank{rank}"] = (*cli_subprocess(dev, work, f"dp_rank{rank}", ["-c", code], module=None), path)
+    out["scale_head"] = cli_subprocess(dev, work, "scale_head", [str(SCALE_HEAD_STEPS), "0.15", "0", "--eval_frames",
+                                                                 str(SCALE_HEAD_FRAMES)],
+                                       module="ntm_tracker_tpu_torch.tools.bench_scale_head")
+    return out
+
+
+def grads_rel(got, ref) -> tuple:
+    """(the largest of each gradient's max |got - ref| / max |ref|, its leaf)."""
+    from ntm_tracker_tpu_torch.train.optim import tree_leaves
+
+    rel = [max_abs(g, r) / max(float(r.abs().max()), 1e-30) for g, r in zip(tree_leaves(got), tree_leaves(ref))]
+    i = int(np.argmax(rel))
+    return rel[i], i
+
+
+def phase_parallel(dev: torch.device, smi: str, root: str, procs: dict) -> dict:
+    """Data parallelism and the scan knobs at TrackerConfig()'s width, in
+    the data phase's tree (`root`): (a) the two gloo ranks (dp_worker,
+    started early), each over PAR_SHARDS shards: bit-equal to each other,
+    against one process at the global batch in one chunk, B2 once a shard
+    a step a rank; (b) train-offsets at world size 1 over NCCL against the
+    run without --dist_*, every step's loss; (c) cache-features --shard
+    over PAR_SHARDS shards against the float32 cache; (d) the fleet over
+    PAR_SHARDS shards against the meshless one; (e) layout "dn" and remat
+    "dots" against "nd" / "full" on the plain route, with peak memory, and
+    "dn" with use_pallas through B3; (f) tools/bench_scale_head's JSON and
+    launches."""
+    import os
+
+    from ntm_tracker_tpu_torch import cli
+    from ntm_tracker_tpu_torch.config import TrainConfig
+    from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_params
+    from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
+    from ntm_tracker_tpu_torch.models.ntm_tracker import ntm_tracker_unroll
+    from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
+    from ntm_tracker_tpu_torch.parallel.mesh import Mesh, parallel_train_step
+    from ntm_tracker_tpu_torch.tracking.fleet import FleetTracker
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, gradient_step
+    from ntm_tracker_tpu_torch.train.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    d = str(dev)
+    parser = cli.build_parser()
+    out, counts = {}, {}
+
+    # ---- (a) two gloo ranks on the card against one process -------------------------
+    cfg = dp_config()
+    exp = OffsetExperiment(cfg, None, device=dev)
+    params, opt_state = exp.init(torch.Generator().manual_seed(DP_SEED))
+    batch = dp_batch(cfg, dev)
+    single = parallel_train_step(exp, Mesh((dev,)), keep_grads=True)
+    ref_losses, ref_grads = [], []
+    reset_all_counts()
+    for _ in range(DP_STEPS):
+        params, opt_state, m = single(params, opt_state, batch)
+        ref_losses.append(float(m["loss"]))
+        ref_grads.append(m["grads"])
+    counts["parallel_single_process"] = kernel_counts()
+    ranks = []
+    for r in range(2):
+        proc, log_f, path = procs[f"rank{r}"]
+        finish_subprocess(f"dp_rank{r}", proc, log_f, timeout=max(10.0, BUDGET_S - (time.perf_counter() - T_START)))
+        ranks.append(torch.load(path, weights_only=False))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(ranks[0]["params"]), tree_leaves(ranks[1]["params"])))
+    same = same and ranks[0]["losses"] == ranks[1]["losses"] and all(
+        torch.equal(a, b) for s in range(DP_STEPS) for a, b in zip(tree_leaves(ranks[0]["grads"][s]),
+                                                                    tree_leaves(ranks[1]["grads"][s])))
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref_losses)]
+    grad_rel = [grads_rel(ranks[0]["grads"][s], [g.cpu() for g in tree_leaves(ref_grads[s])])[0]
+                for s in range(DP_STEPS)]
+    per_rank = {f"rank{r}": ranks[r]["counts"] for r in range(2)}
+    n = DP_STEPS * PAR_SHARDS
+    expected = {"bptt_forward": n, "bptt_backward": n, "grad_reduce": 2 * n, "token_projection": n,
+                "ntm_scan_fused": 0}
+    log("parallel", f"{smi}: (a) 2 gloo ranks on {ranks[0]['device']} ({ranks[0]['backend']}, world "
+                    f"{ranks[0]['world']}, mesh {ranks[0]['mesh']}), {DP_STEPS} steps at B={DP_B // 2} a rank "
+                    f"({DP_B // 2 // PAR_SHARDS} a shard) of a "
+                    f"global {DP_B}, L={DP_L} (T={DP_L * 65}): ranks bit-equal {same}; losses {ranks[0]['losses']} "
+                    f"against one process {ref_losses}: rel {[f'{x:.2e}' for x in loss_rel]} (tol {F32_TOL:g}); "
+                    f"pre-clip gradients rel {[f'{x:.2e}' for x in grad_rel]} of their largest (tol {GRAD_TOL:g}); "
+                    f"step ms rank 0 {[round(x, 2) for x in ranks[0]['ms']]}, rank 1 "
+                    f"{[round(x, 2) for x in ranks[1]['ms']]}; launches a rank {per_rank}")
+    if not same or max(loss_rel) > F32_TOL or max(grad_rel) > GRAD_TOL or dev.type == "cuda" and any(
+            {k: c[k] for k in expected} != expected for c in per_rank.values()):
+        raise AssertionError(f"the two ranks: bit-equal {same}, loss rel {loss_rel}, grads rel {grad_rel}, launches "
+                             f"{per_rank} (expected {expected} a rank)")
+    counts.update({f"parallel_gloo_{k}": c for k, c in per_rank.items()})
+    out["gloo"] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "ms": {k: ranks[r]["ms"] for r, k in
+                                                                      enumerate(per_rank)}}
+    del exp, params, opt_state, batch, ref_grads
+    check_budget("parallel_gloo")
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        # ---- (b) train-offsets over NCCL at world size 1 ------------------------------
+        import socket
+
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        common = ["--device", d, "train-offsets", "--sequences_dir", "cropped", "--sequence_length", str(DP_L),
+                  "--batch_size", str(DATA_B), "--feature_cache", "cache_float16", "--num_epochs", "2",
+                  "--log_interval", "1", "--validation_interval", "1000"]
+        runs = {}
+        for tag, extra in (("plain", []), ("nccl", ["--dist_coordinator", f"127.0.0.1:{port}",
+                                                    "--dist_num_processes", "1", "--dist_process_id", "0"])):
+            reset_all_counts()
+            run = cli.train_offsets(parser.parse_args([*common, "--log_dir", f"log_par_{tag}", *extra]))
+            recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
+            runs[tag] = {"losses": [r["train_loss"] for r in recs if "train_loss" in r],
+                         "val": [r["val_loss"] for r in recs if "val_loss" in r], "counts": kernel_counts(),
+                         "backend": run["backend"], "world": run["world"], "steps": run["steps"]}
+        rels = [abs(a - b) / abs(b) for a, b in zip(runs["nccl"]["losses"], runs["plain"]["losses"])]
+        c = runs["nccl"]["counts"]
+        log("parallel", f"{smi}: (b) train-offsets B={DATA_B} L={DP_L}, {runs['nccl']['steps']} steps: --dist_* at "
+                        f"world {runs['nccl']['world']} over {runs['nccl']['backend']}: losses {runs['nccl']['losses']}, "
+                        f"val {runs['nccl']['val']}; without: {runs['plain']['losses']}, val {runs['plain']['val']}; "
+                        f"rel by step {[f'{x:.2e}' for x in rels]} (tol {PAR_LOSS_TOL:g}); launches {c}")
+        steps = runs["nccl"]["steps"]
+        if (runs["nccl"]["backend"] != ("nccl" if dev.type == "cuda" else "gloo") or max(rels) > PAR_LOSS_TOL
+                or steps != runs["plain"]["steps"] or len(rels) != steps or steps < 2
+                or len(runs["nccl"]["losses"]) != len(runs["plain"]["losses"])
+                or not np.isfinite(runs["nccl"]["losses"]).all()
+                or dev.type == "cuda" and ((c["bptt_forward"], c["bptt_backward"], c["grad_reduce"])
+                                           != (steps, steps, 2 * steps) or c["ntm_scan_fused"] != len(runs["nccl"]["val"]))):
+            raise AssertionError(f"train-offsets over NCCL: {runs}")
+        counts["parallel_train_offsets_nccl"] = c
+        out["nccl"] = {"loss_rel": rels, "losses": runs["nccl"]["losses"]}
+        check_budget("parallel_nccl")
+
+        # ---- (c) cache-features --shard --------------------------------------------
+        from ntm_tracker_tpu_torch.parallel import mesh as mesh_mod
+
+        records = sum(n * objects for _, _, _, n, objects in DATA_SEQS)
+        # the CLI splits over every local card: the one card stands in for
+        # PAR_SHARDS of them, so the build runs PAR_SHARDS shards on it
+        real_local, real_make, built = mesh_mod.local_devices, mesh_mod.make_mesh, []
+        mesh_mod.local_devices = lambda device=None: [dev] * PAR_SHARDS
+        mesh_mod.make_mesh = lambda *a, **k: built.append(real_make(*a, **k)) or built[-1]
+        t0 = time.perf_counter()
+        try:
+            cli.cache_features(parser.parse_args(["--device", d, "cache-features", "--sequences_dir", "cropped_f32",
+                                                  "--cache_dir", "cache_shard32", "--store_dtype", "float32",
+                                                  "--frames_per_batch", str(records), "--shard"]))
+            torch.cuda.synchronize()
+        finally:
+            mesh_mod.local_devices, mesh_mod.make_mesh = real_local, real_make
+        shard_s = time.perf_counter() - t0
+        worst, scale, n_files = 0.0, 0.0, 0
+        for sub, _, files in os.walk(os.path.join("cache_float32", "base")):
+            for f in files:
+                if f.endswith(".npy"):
+                    ref = np.load(os.path.join(sub, f))
+                    got = np.load(os.path.join("cache_shard32", os.path.relpath(os.path.join(sub, f), "cache_float32")))
+                    worst, scale, n_files = max(worst, float(np.abs(got - ref).max())), max(scale, float(
+                        np.abs(ref).max())), n_files + 1
+        shard_rel = worst / max(scale, 1e-30)
+        shards = [[str(x) for x in m.devices] for m in built]
+        log("parallel", f"{smi}: (c) cache-features --shard over {shards} ({records} frames a batch), float32, base: "
+                        f"{n_files} token files in {shard_s:.2f}s against the data phase's unsharded cache: rel max_abs "
+                        f"{shard_rel:.2e} (tol {DATA_TOL:g})")
+        if n_files == 0 or shard_rel > DATA_TOL or [len(m) for m in shards] != [PAR_SHARDS]:
+            raise AssertionError(f"the sharded cache disagrees: {shard_rel:.2e} over {n_files} files, meshes {shards}")
+        out["shard"] = {"rel": shard_rel, "files": n_files, "s": shard_s}
+    finally:
+        os.chdir(cwd)
+    check_budget("parallel_shard")
+
+    # ---- (d) the fleet over PAR_SHARDS shards of the card ---------------------------
+    from ntm_tracker_tpu_torch.config import TrackerConfig
+
+    tcfg = TrackerConfig()
+    fcfg = dataclasses.replace(tcfg, fused_inference=True)
+    gen = torch.Generator().manual_seed(0)
+    vgg = init_vgg_params(gen, dev)
+    nparams = init_ntm_params(tcfg.ntm, tcfg.input_depth, gen, dev)
+    video, _ = synthetic_video(seed=5, frames=1 + PAR_FLEET_FRAMES, hw=FLEET_HW)
+    regions = fleet_regions(PAR_FLEET_CAP)
+    mesh = Mesh((dev,) * PAR_SHARDS)
+    offsets = {}
+    # "half": a meshless fleet of the first shard's slots, which that shard
+    # should match bit for bit (the same batch)
+    half = PAR_FLEET_CAP // PAR_SHARDS
+    for tag, cap, kw in (("mesh", PAR_FLEET_CAP, {"mesh": mesh}), ("plain", PAR_FLEET_CAP, {"device": dev}),
+                         ("half", half, {"device": dev})):
+        reset_all_counts()
+        fleet = FleetTracker(fcfg, vgg, nparams, capacity=cap, **kw)
+        slots = [fleet.add(video[0], r) for r in regions[:cap]]
+        stepped = [fleet.step({s: video[t] for s in slots}) for t in range(1, 1 + PAR_FLEET_FRAMES)]
+        offsets[tag] = np.asarray([[out[s] for s in slots] for out in stepped])
+        counts[f"parallel_fleet_{tag}"] = kernel_counts()
+    fleet_err = float(np.abs(offsets["mesh"] - offsets["plain"]).max())
+    half_err = float(np.abs(offsets["mesh"][:, :half] - offsets["half"]).max())
+    log("parallel", f"{smi}: (d) FleetTracker(mesh={[str(x) for x in mesh.devices]}) capacity "
+                    f"{PAR_FLEET_CAP}, {PAR_FLEET_FRAMES} frames at {FLEET_HW[0]}x{FLEET_HW[1]}: the first shard against "
+                    f"a meshless fleet of its {half} slots max_abs {half_err:.3e} px (tol {F32_TOL:g}); the whole "
+                    f"against the meshless fleet of {PAR_FLEET_CAP} max_abs {fleet_err:.3e} px (tol {REGION_TOL_PX:g}); "
+                    f"launches {counts['parallel_fleet_mesh']}")
+    if half_err > F32_TOL or fleet_err > REGION_TOL_PX or not np.isfinite(offsets["mesh"]).all() or \
+            dev.type == "cuda" and \
+            counts["parallel_fleet_mesh"]["ntm_scan_fused"] != PAR_FLEET_CAP + PAR_SHARDS * PAR_FLEET_FRAMES:
+        raise AssertionError(f"the sharded fleet disagrees: {fleet_err:.3e} (first shard {half_err:.3e}), "
+                             f"{counts['parallel_fleet_mesh']}")
+    out["fleet"] = {"max_abs_px": fleet_err, "first_shard_vs_half_fleet_px": half_err}
+    del vgg, nparams, video
+    check_budget("parallel_fleet")
+
+    # ---- (e) layout "dn" and remat "dots" on the plain route --------------------------
+    knobs = {}
+    batch = dp_batch(tcfg, dev, n=PAR_KNOB_B * PAR_KNOB_L, seed=DP_SEED + 1)
+    # the first step measured reads a low peak whatever its knobs (an order
+    # effect, PERF.md): "dn" goes first, "full" and "dots" after it
+    for layout, remat, tag in (("dn", "full", "dn/full"), ("nd", "full", "nd/full"), ("nd", "dots", "nd/dots")):
+        kcfg = dataclasses.replace(tcfg, train=TrainConfig(batch_size=PAR_KNOB_B, sequence_length=PAR_KNOB_L,
+                                                            fused_bptt=False, scan_layout=layout, remat_policy=remat))
+        kexp = OffsetExperiment(kcfg, None, device=dev)
+        kp, ko = kexp.init(torch.Generator().manual_seed(3))
+        kstep = gradient_step(kexp.loss_fn, kexp.optimizer(), keep_grads=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, _, m = kstep(kp, ko, batch)
+        torch.cuda.synchronize()
+        knobs[tag] = {"loss": float(m["loss"]), "grads": m["grads"], "ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_mb": (torch.cuda.max_memory_allocated() - base) / 1e6}
+    ref = knobs["nd/full"]
+    for k, v in knobs.items():
+        v["loss_rel"] = abs(v["loss"] - ref["loss"]) / abs(ref["loss"])
+        v["grad_rel"] = grads_rel([g for g in tree_leaves(v["grads"])], tree_leaves(ref["grads"]))[0]
+    log("parallel", f"{smi}: (e) one plain-route train step at B={PAR_KNOB_B} L={PAR_KNOB_L} (T={PAR_KNOB_L * 65}) "
+                    f"by layout/remat against nd/full: " + "; ".join(
+                        f"{k} loss rel {v['loss_rel']:.2e}, grads rel {v['grad_rel']:.2e}, {v['ms']:.1f} ms, peak "
+                        f"{v['peak_mb']:.1f} MB above the inputs" for k, v in knobs.items())
+                    + f" (tol {F32_TOL:g} / {GRAD_TOL:g})")
+    if any(v["loss_rel"] > F32_TOL or v["grad_rel"] > GRAD_TOL for v in knobs.values()):
+        raise AssertionError("layout dn / remat dots disagree with nd / full")
+    out["knobs"] = {tag: {k: v[k] for k in ("loss_rel", "grad_rel", "ms", "peak_mb")} for tag, v in knobs.items()}
+    del knobs, ref, batch
+    # "dn" runs the "nd" step, so use_pallas sends its addressing to B3
+    T = PAR_KNOB_L * 65
+    kparams, ktokens, _ = scan_case(tcfg.ntm, PAR_KNOB_B, T, 361, dev, tcfg.input_depth)
+    reset_all_counts()
+    fused_ntm_addressing.launches = 0
+    with torch.no_grad():
+        _, dn_logits, _ = ntm_tracker_unroll(kparams, dataclasses.replace(tcfg.ntm, use_pallas=True), ktokens,
+                                             remat=False, layout="dn")
+        counts["parallel_dn_use_pallas"] = dict(kernel_counts(), fused_ntm_addressing=fused_ntm_addressing.launches)
+        _, nd_logits, _ = ntm_tracker_unroll(kparams, tcfg.ntm, ktokens, remat=False, layout="nd")
+    dn_err = max_abs(dn_logits, nd_logits)
+    log("parallel", f"{smi}: (e) layout dn with use_pallas at B={PAR_KNOB_B} T={T}: B3 launches "
+                    f"{counts['parallel_dn_use_pallas']['fused_ntm_addressing']}, logits against the plain nd forward "
+                    f"max_abs {dn_err:.3e} (tol {F32_TOL:g})")
+    if dn_err > F32_TOL or dev.type == "cuda" and counts["parallel_dn_use_pallas"]["fused_ntm_addressing"] != T:
+        raise AssertionError(f"layout dn with use_pallas: {dn_err:.3e}, {counts['parallel_dn_use_pallas']}")
+    out["knobs"]["dn_use_pallas"] = {"max_abs": dn_err, "b3_launches": fused_ntm_addressing.launches}
+    del kparams, ktokens, dn_logits, nd_logits
+    check_budget("parallel_knobs")
+
+    # ---- (f) tools/bench_scale_head ---------------------------------------------------
+    proc, log_f = procs["scale_head"]
+    text = finish_subprocess("scale_head", proc, log_f, timeout=max(10.0, BUDGET_S - (time.perf_counter() - T_START)))
+    lines = text.strip().splitlines()
+    result = json.loads(lines[-1])
+    parity = [ln for ln in lines if ln.startswith("fused-kernel O=3 parity")]
+    launches = json.loads(next(ln for ln in lines if ln.startswith("launches: "))[len("launches: "):])
+    keys = {"steps", "scale_range", "offsets_only", "predict_scale"}
+    log("parallel", f"{smi}: (f) bench_scale_head {SCALE_HEAD_STEPS} steps a head, {SCALE_HEAD_FRAMES}-frame clips: "
+                    f"{parity}; offsets_only {result['offsets_only']}; predict_scale "
+                    f"{ {k: v for k, v in result['predict_scale'].items() if k not in ('diag',)} }, diag "
+                    f"{result['predict_scale']['diag']}; launches {launches}")
+    if set(result) != keys or len(parity) != 1 or dev.type == "cuda" and (
+            launches["ntm_scan_fused"] == 0 or launches["bptt_forward"] != 2 * SCALE_HEAD_STEPS):
+        raise AssertionError(f"bench_scale_head: keys {set(result)}, parity {parity}, launches {launches}")
+    counts["parallel_scale_head"] = launches
+    out["scale_head"] = result
+    out["counts"] = counts
+    out["s"] = time.perf_counter() - t_phase
+    log("parallel", f"the phase in {out['s']:.1f}s (its subprocesses started before the data phase)")
+    check_budget("parallel")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
@@ -3465,20 +3894,26 @@ def main() -> int:
     import tempfile
 
     # ---- 7f. serving and evaluation, on the same tree -----------------------
+    # ---- 7g. data parallelism and the scan knobs, on the same tree ---------
     tree = tempfile.mkdtemp(prefix="ntm_data_")
+    par_work = tempfile.mkdtemp(prefix="ntm_parallel_")
     try:
+        par_procs = start_parallel_subprocesses(dev, par_work)
         data = phase_data(dev, smi, tree)
         trax_servers = start_trax_servers(dev, serve_work, serve_exports)
         lab = phase_lab(dev, smi, tree)
         serving = phase_serving(dev, smi, tree, serve_exports, trax_servers)
+        parallel = phase_parallel(dev, smi, tree, par_procs)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(serve_work, ignore_errors=True)
+        shutil.rmtree(par_work, ignore_errors=True)
     data_counts = {"data_cached_train": data["cached"]["counts"], "data_raw_host_resize":
                    data["raw"]["host_resize"]["counts"], "data_raw_device_resize": data["raw"]["device_resize"]["counts"],
                    "data_resume": data["resumed"]["counts"]}
     lab_counts = {f"lab_{k}": c for k, c in lab["counts"].items()}
     serving_counts = serving["counts"]
+    parallel_counts = parallel["counts"]
 
     # ---- 8. result -----------------------------------------------------------
     # B1 runs on every main path: `launches` is the frame path's count; the
@@ -3498,11 +3933,13 @@ def main() -> int:
                              "accuracy_flagship_train": accuracy["flagship"]["counts"]["ntm_scan_fused"],
                              **{k: c["ntm_scan_fused"] for k, c in data_counts.items()},
                              **{k: c["ntm_scan_fused"] for k, c in lab_counts.items()},
-                             **{k: c["ntm_scan_fused"] for k, c in serving_counts.items()}},
+                             **{k: c["ntm_scan_fused"] for k, c in serving_counts.items()},
+                             **{k: c["ntm_scan_fused"] for k, c in parallel_counts.items()}},
         "route_by_path": {"frame_step": frame_routes, "fleet": fleet["fleet_routes"],
                           "device_loop": {"cluster": 0, "tile": 0}, "train": train["eval_routes"],
                           **{k: c["ntm_scan_fused_by_route"] for k, c in data_counts.items()},
-                          **{k: c["ntm_scan_fused_by_route"] for k, c in lab_counts.items()}},
+                          **{k: c["ntm_scan_fused_by_route"] for k, c in lab_counts.items()},
+                          **{k: c["ntm_scan_fused_by_route"] for k, c in parallel_counts.items()}},
         "lab_dashboard_chunks": lab["save_imgs"]["chunks"],
         "ms_by_route": {"T65": {str(B): v for B, v in by_route.items()},
                         f"B{train['b1']['B']}_T{train['b1']['T']}": train["b1"]["ms_by_route"]},
@@ -3510,6 +3947,7 @@ def main() -> int:
         "cluster_step_us": step_us, "projection_ms_b1": proj_ms, "cluster_waves": CLUSTER_WAVES,
         "train_shape": {k: v for k, v in train["b1"].items() if k != "launches"},
         "serving": {k: v for k, v in serving.items() if k != "counts"},
+        "parallel": {k: v for k, v in parallel.items() if k != "counts"},
     }]
     bptt = {}
     for name, launches in (("forward", "bptt_forward"), ("token_projection", "token_projection"),
@@ -3527,6 +3965,7 @@ def main() -> int:
             "launches_on_data_path": {k: c[launches] for k, c in data_counts.items()},
             "launches_on_lab_path": {k: c[launches] for k, c in lab_counts.items()},
             "launches_on_serving_path": {"serving_profile_train": serving_counts["serving_profile_train"][launches]},
+            "launches_on_parallel_path": {k: c[launches] for k, c in parallel_counts.items()},
         }
         kernels.append(bptt[name])
     bptt["forward"].update({
@@ -3561,7 +4000,8 @@ def main() -> int:
         "launches": fleet["fleet_counts"]["fused_ntm_addressing"],
         "launches_by_path": {"fleet": fleet["fleet_counts"]["fused_ntm_addressing"],
                              "device_loop": fleet["loop_counts"]["fused_ntm_addressing"],
-                             **{k: c.get("fused_ntm_addressing", 0) for k, c in serving_counts.items()}},
+                             **{k: c.get("fused_ntm_addressing", 0) for k, c in serving_counts.items()},
+                             "parallel_dn_use_pallas": parallel_counts["parallel_dn_use_pallas"]["fused_ntm_addressing"]},
         "max_abs_err": addr["max_abs_err"], "grad_max_abs_err": addr["grad_err"], "ms": at64["ms"],
         "plain_ms": at64["plain_ms"], "bound_ms": at64["bound_ms"], "bound_by": at64["bound_by"], "library_ms": None,
         "device_ms": at64["device_ms"],
@@ -3569,7 +4009,9 @@ def main() -> int:
         "phases": addr["probe"]["phases"], "sm_clock_khz": addr["probe"]["sm_clock_khz"],
         "empty_launch_ms": addr["probe"]["empty_launch_ms"],
     })
-    # B4 at the train path's shape (B=256, T=1300) and the rule's tiles. No
+    # B4 at B=256 and the rule's tiles, at T=PACKED_PLAIN_T beside its plain
+    # version on the same inputs (the train path's T=1300 under
+    # at_train_shape). No
     # main path launches it: `launches` is its own path's count (phase
     # packed (d): one forward, one train step), beside the whole phase's
     default = packed["rule"]
@@ -3587,8 +4029,7 @@ def main() -> int:
             "launches_in_phase": packed["phase_counts"][fn], "launches_on_main_paths": 0,
             "max_abs_err": packed["worst"]["grad_abs_train"] if name == "backward" else packed["worst"]["fwd_abs"],
             "max_rel_err": packed["worst"]["grad_rel"], "ms": packed["ms"][name][rows],
-            "plain_ms": packed["plain"][name], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "rows_per_block": rows, "ms_rows_1": packed["ms"][name][1], "row_kernel_ms": row_ms,
+            "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "rows_per_block": rows, "ms_rows_1": packed["ms"][name][1], "row_kernel_ms": row_ms,
             "ms_by_rows_per_block": {str(r): v for r, v in packed["ms"][name].items()},
             "B": packed["B"], "T": packed["T"], "tile_rule": packed["rule_by_batch"],
             "need_dtokens_ms": need_dtokens_ms, "initial_state_vs_float64": packed["initial_state_referee"],
@@ -3598,6 +4039,14 @@ def main() -> int:
             entry["phases"] = packed["probe"][name]
         if name != "backward":
             entry["with_projection_ms"] = entry["ms"] + train["token_projection"][0]
+        # the kernel, its plain version and the bound on the same inputs at
+        # T=PACKED_PLAIN_T; the train shape's times under at_train_shape
+        sh = packed["short"]
+        entry["at_train_shape"] = {k: entry.pop(k) for k in ("ms_rows_1", "row_kernel_ms", "ms_by_rows_per_block",
+                                                             "with_projection_ms") if k in entry}
+        entry["at_train_shape"].update({k: entry[k] for k in ("B", "T", "ms", "bound_ms", "bound_by")})
+        entry.update({"T": sh["T"], "ms": sh["ms"][name], "plain_ms": sh["plain_ms"][name],
+                      "bound_ms": sh["bounds"][name][0], "bound_by": sh["bounds"][name][1]})
         if name == "forward":
             entry["frame_shape"] = packed["frame"]
         if name == "backward":

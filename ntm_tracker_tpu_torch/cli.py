@@ -32,9 +32,13 @@ defaults).
 The JAX package's --platform is --device here: cuda unless the caller asks
 for another (the CPU runs the plain PyTorch routes). A kernel that fails
 to build or launch raises; no command moves to another route on its own.
-The JAX package's `bench` is not ported (ROADMAP.md, item A1), nor are the
-flags of modules the port lacks: they raise naming their item. In trax
+The JAX package's `bench` is not ported (ROADMAP.md, item A1). In trax
 mode track-vot's stdout is the protocol's: everything else goes to stderr.
+
+train-offsets and train-heatmap train data-parallel over torch.distributed
+with --dist_coordinator/--dist_num_processes/--dist_process_id (or
+NTM_DIST_AUTO=1 under torchrun): one process per GPU, where the JAX
+package runs one process over all of a host's chips.
 """
 
 from __future__ import annotations
@@ -45,19 +49,6 @@ import os
 import sys
 import time
 from datetime import datetime
-
-_NOT_PORTED = {
-    # flag -> the ROADMAP item that ports its module
-    "dist_coordinator": "A7", "dist_num_processes": "A7", "dist_process_id": "A7",
-    "shard": "A7",
-}
-
-
-def _refuse_unported(args) -> None:
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag, None) not in (None, False, ""):
-            raise NotImplementedError(f"--{flag}: its module is not ported (ROADMAP.md, item {item})")
-
 
 def _add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mem_size", type=int, default=128)
@@ -97,9 +88,13 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--gt_width", type=int, default=8)
     p.add_argument("--reverse_image", action="store_true")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--dist_coordinator", default=None, help="not ported (ROADMAP.md, item A7)")
-    p.add_argument("--dist_num_processes", type=int, default=None, help="not ported (ROADMAP.md, item A7)")
-    p.add_argument("--dist_process_id", type=int, default=None, help="not ported (ROADMAP.md, item A7)")
+    # data parallelism (train-offsets, train-heatmap): one process per GPU;
+    # batch_size is the GLOBAL batch, each rank loads batch_size / world
+    p.add_argument("--dist_coordinator", default=None,
+                   help="coordinator host:port for torch.distributed's process group "
+                   "(omit for one process, or set NTM_DIST_AUTO=1 under torchrun)")
+    p.add_argument("--dist_num_processes", type=int, default=None)
+    p.add_argument("--dist_process_id", type=int, default=None)
     p.add_argument("--profile_steps", default="",
                    help="trace train steps START:STOP with torch.profiler into <log dir>/profile "
                    "(a Chrome/Perfetto trace file)")
@@ -226,22 +221,59 @@ def _dashboard_eval(exp, cfg, args, real_log_dir: str):
     return eval_step
 
 
+class _NoLogger:
+    """The metrics logger of a rank that is not rank 0: it writes nothing."""
+
+    def log(self, step: int, **scalars):
+        pass
+
+
 def train_offsets(args) -> dict:
     """The train-offsets and train-heatmap commands' body. Returns what the
     run did: steps, the log dir, the train loop's seconds, the seconds the
     loop waited on the prefetcher for each batch, and the host clock at
-    each train step's start."""
+    each train step's start.
+
+    Data parallel when --dist_* (or NTM_DIST_AUTO=1) makes a process
+    group: the group starts before anything touches the card; each rank
+    trains on its own shard of the sequences at batch_size / world rows,
+    on its own device with its own prefetcher; the step sums the ranks'
+    gradients (parallel/mesh.parallel_train_step) and the validation loss
+    is summed over the group as well. Rank 0 writes the logs and
+    checkpoints; every rank restores --ckpt_path."""
+    import torch.distributed as dist
+
+    from ntm_tracker_tpu_torch.parallel.distributed import initialize_distributed, rank_device
+
+    started_group = not dist.is_initialized()
+    initialize_distributed(args.dist_coordinator, args.dist_num_processes, args.dist_process_id,
+                           device=args.device)
+    started_group = started_group and dist.is_initialized()
+    try:
+        return _train_offsets(args, rank_device(args.device) if dist.is_initialized() else None)
+    finally:
+        if started_group:
+            dist.destroy_process_group()
+
+
+def _train_offsets(args, rank_dev) -> dict:
     import torch
+    import torch.distributed as dist
 
     from ntm_tracker_tpu_torch.config import resolve_device
     from ntm_tracker_tpu_torch.data.loader import PrefetchIterator, batch_iterator
     from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
+    from ntm_tracker_tpu_torch.parallel.distributed import process_shard_sequences
+    from ntm_tracker_tpu_torch.parallel.mesh import Mesh, parallel_train_step
     from ntm_tracker_tpu_torch.train.harness import CheckpointManager, train_loop
     from ntm_tracker_tpu_torch.utils.profiling import parse_profile_steps
 
-    _refuse_unported(args)
     profile_steps = parse_profile_steps(getattr(args, "profile_steps", ""))
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if rank_dev is None else rank_dev
+    group = dist.group.WORLD if dist.is_initialized() else None
+    world = dist.get_world_size() if group is not None else 1
+    rank = dist.get_rank() if group is not None else 0
+    lead = rank == 0
     cfg = _tracker_config(args, args.core)
     real_log_dir = _log_dir(args)
     print("real log dir:", real_log_dir)
@@ -268,7 +300,7 @@ def train_offsets(args) -> dict:
         verify_cache(exp.cfg, feature_cache, flip=args.reverse_image, vgg_params=vgg_params)
     params, opt_state = exp.init(torch.Generator().manual_seed(cfg.train.seed))
 
-    ckpt = CheckpointManager(os.path.join(real_log_dir, "ckpt"))
+    ckpt = CheckpointManager(os.path.join(real_log_dir, "ckpt")) if lead else None
     if args.ckpt_path:
         restored = CheckpointManager(args.ckpt_path).restore(
             template={"params": params, "opt_state": opt_state}, map_location="cpu")
@@ -280,8 +312,21 @@ def train_offsets(args) -> dict:
     if limit > 0:
         train_seqs, val_seqs = train_seqs[:limit], val_seqs[:limit]
         print(f"--limit {limit}: {len(train_seqs)} train / {len(val_seqs)} val sequences kept")
-    print(f"{len(train_seqs)} train seqs, {len(val_seqs)} val seqs")
-    bs = cfg.train.batch_size
+    if world > 1:
+        # a disjoint shard per rank, the global batch split evenly; the
+        # validation set is optional, so a set smaller than the group
+        # gives every rank an empty shard instead of killing the run
+        train_seqs = process_shard_sequences(train_seqs)
+        val_seqs = process_shard_sequences(val_seqs, allow_empty=True)
+        if cfg.train.batch_size % world:
+            raise SystemExit(f"--batch_size {cfg.train.batch_size} must divide by the {world} processes")
+    bs = cfg.train.batch_size // world
+    print(f"{len(train_seqs)} train seqs, {len(val_seqs)} val seqs"
+          + (f" (process {rank}/{world})" if world > 1 else ""))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if dev.type == "cuda" and torch.cuda.device_count() > local_world:
+        print(f"NOTE: using {local_world}/{torch.cuda.device_count()} GPUs: the port trains on one GPU a "
+              "process; start one process per GPU (torchrun, --dist_*) to use them all")
     grids = dict(cropbox_grid=cfg.data.cropbox_grid, bbox_grid=cfg.data.bbox_grid)
 
     def put(batch):
@@ -308,9 +353,19 @@ def train_offsets(args) -> dict:
                                   decode_resize_hw=None if dev_resize else tuple(cfg.data.resize_hw), **grids)
 
     train_it = PrefetchIterator(host_batches(train_seqs, cfg.train.num_epochs), prefetch=2, device_put=put)
-    step = exp.make_train_step()
-    eval_step = (_dashboard_eval(exp, exp.cfg, args, real_log_dir) if getattr(args, "save_imgs", False)
-                 else exp.make_eval_step())
+    step = parallel_train_step(exp, Mesh((dev,), group))
+    eval_local = (_dashboard_eval(exp, exp.cfg, args, real_log_dir) if getattr(args, "save_imgs", False) and lead
+                  else exp.make_eval_step())
+
+    def eval_step(p, b):
+        aux = eval_local(p, b)
+        if group is not None:
+            # the global batch's loss: the sum of the ranks'
+            loss = aux["loss"].detach().clone()
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+            aux = {**aux, "loss": loss}
+        return aux
+
     step_starts = []
 
     def timed_step(p, s, b):
@@ -326,14 +381,17 @@ def train_offsets(args) -> dict:
         validation_batch=cfg.train.validation_batch,
         log_interval=cfg.train.log_interval,
         checkpoint=ckpt,
-        profile_steps=profile_steps,
+        logger=None if lead else _NoLogger(),
+        profile_steps=profile_steps if lead else None,
     )
-    ckpt.save(steps, {"params": params, "opt_state": opt_state})
+    if lead:
+        ckpt.save(steps, {"params": params, "opt_state": opt_state})
+        print(f"trained {steps} steps; final checkpoint in {real_log_dir}/ckpt")
     train_s = time.perf_counter() - t0
-    print(f"trained {steps} steps; final checkpoint in {real_log_dir}/ckpt")
     return {"steps": steps, "log_dir": real_log_dir, "train_s": train_s,
-            "waits": train_it.waits, "step_starts": step_starts,
-            "profile_dir": os.path.join(real_log_dir, "profile") if profile_steps else None}
+            "waits": train_it.waits, "step_starts": step_starts, "rank": rank, "world": world,
+            "backend": dist.get_backend() if group is not None else None,
+            "profile_dir": os.path.join(real_log_dir, "profile") if profile_steps and lead else None}
 
 
 def cmd_train_offsets(args) -> int:
@@ -389,7 +447,6 @@ def cache_features(args) -> list:
     from ntm_tracker_tpu_torch.config import TrackerConfig, resolve_device
     from ntm_tracker_tpu_torch.data.feature_cache import build_feature_cache
 
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     cfg = TrackerConfig(compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
     if args.grid_width != 8:
@@ -397,11 +454,18 @@ def cache_features(args) -> list:
         cfg = dataclasses.replace(cfg, num_features=gw * gw, feature_points=_centered_grid(gw))
     vgg_params = _load_vgg(args, dev)
     seq_dirs = _sequence_dirs(args.sequences_dir)
+    mesh = None
+    if args.shard:
+        from ntm_tracker_tpu_torch.parallel.mesh import local_devices, make_mesh
+
+        devices = local_devices(dev)
+        mesh = make_mesh(devices, batch_size=args.frames_per_batch)
+        print(f"sharding the build over {mesh.size} of {len(devices)} devices")
     manifests = []
     for flip in [False] + ([True] if args.reverse_image else []):
         man = build_feature_cache(
             cfg, vgg_params, seq_dirs, args.cache_dir, flip=flip, store_dtype=args.store_dtype,
-            frames_per_batch=args.frames_per_batch, gt_width=args.gt_width, device=dev,
+            frames_per_batch=args.frames_per_batch, gt_width=args.gt_width, device=dev, mesh=mesh,
             progress=lambda done, total: print(f"\r{'flip' if flip else 'base'}: {done}/{total} frames",
                                                end="", flush=True),
         )
@@ -466,7 +530,6 @@ def train_wholeframe(args) -> dict:
     from ntm_tracker_tpu_torch.train.experiments import WholeFrameExperiment
     from ntm_tracker_tpu_torch.train.harness import CheckpointManager
 
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     cfg = _tracker_config(args, "ntm")
     exp = WholeFrameExperiment(cfg, _load_vgg(args, dev), endpoint=args.feature_layer, two_step=args.two_step,
@@ -507,7 +570,6 @@ def train_active_resize(args) -> dict:
     from ntm_tracker_tpu_torch.train.active_resize import ActiveResizeExperiment
     from ntm_tracker_tpu_torch.train.harness import CheckpointManager
 
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     cfg = _tracker_config(args, "ntm")
     exp = ActiveResizeExperiment(cfg, _load_vgg(args, dev), compress_dim=args.compress_dim, device=dev)
@@ -568,7 +630,6 @@ def cmd_lstm_only(args) -> int:
         lstm_baseline_loss,
     )
 
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     cfg = _tracker_config(args, "ntm")
     vgg_params = _load_vgg(args, dev)
@@ -631,7 +692,6 @@ def cmd_sanity_check(args) -> int:
     from ntm_tracker_tpu_torch.train.zoo import sanity_check_pca, sanity_check_similarity
     from ntm_tracker_tpu_torch.utils.viz import save_imgs
 
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     cfg = _tracker_config(args, "ntm")
     if args.pca and args.compressor_ckpt:
@@ -671,7 +731,6 @@ def cmd_copy_paste(args) -> int:
     from ntm_tracker_tpu_torch.train.experiments import copy_paste_loss, gradient_step, make_copy_paste_batch
     from ntm_tracker_tpu_torch.train.optim import reference_optimizer
 
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     ncfg = NTMConfig(output_dim=args.width + 1, mem_size=args.mem_size, mem_dim=args.mem_dim,
                      controller_hidden_size=args.hidden_size, controller_num_layers=args.num_layers,
@@ -713,7 +772,6 @@ def cmd_dnc_repeat_copy(args) -> int:
 def cmd_find_validation_batch(args) -> int:
     from ntm_tracker_tpu_torch.train.zoo import find_validation_batch
 
-    _refuse_unported(args)
     dump = f"validation_seqs_{args.target_step}.pkl"
     seqs = find_validation_batch(args.sequences_dir, target_step=args.target_step, batch_size=args.batch_size,
                                  min_length=args.sequence_length, validation_interval=args.validation_interval,
@@ -1027,7 +1085,9 @@ def build_parser() -> argparse.ArgumentParser:
     cf.add_argument("--frames_per_batch", type=int, default=256, help="frames per VGG call")
     cf.add_argument("--reverse_image", action="store_true",
                     help="also cache the horizontally-flipped variant (needed to train with --reverse_image)")
-    cf.add_argument("--shard", action="store_true", help="not ported (ROADMAP.md, item A7)")
+    cf.add_argument("--shard", action="store_true",
+                    help="split each frame batch over every local device of --device "
+                    "(tokens are per frame, so the output is float-equivalent to the single-device build)")
     cf.add_argument("--bf16", action="store_true",
                     help="bfloat16 VGG compute for the sweep (match the training flag you plan to use)")
     cf.set_defaults(fn=cmd_cache_features)

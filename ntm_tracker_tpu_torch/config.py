@@ -125,7 +125,7 @@ class TrackerConfig:
     cell_matmul_precision: Optional[str] = None
     # conv4_3 tokens from the 204x204 receptive-field slice (exact)
     fast_conv43: bool = True
-    # the int8 VGG serving mode of the JAX package; not ported
+    # the int8 VGG serving mode (models/vgg_int8.py)
     vgg_int8: bool = False
     # the beyond-reference scale head: a third tanh output ds scales the
     # decoded box by exp(ds * scale_range)

@@ -162,18 +162,29 @@ def build_feature_cache(
     sequence dir (all .txt frames, so the cache serves any
     sequence_length), `frames_per_batch` frames per VGG call on `device`
     (cuda unless the caller names another; the VGG params must be there).
-    Returns the manifest dict. `mesh` (the JAX package's sharded build) is
-    data parallelism, not ported (ROADMAP A7): it raises."""
+    With a parallel.mesh.Mesh, each frame batch is split over the mesh's
+    devices instead, the VGG params copied to each (data parallelism:
+    tokens are per frame, so the sharded build is float-equivalent to the
+    single-device one). Returns the manifest dict."""
     from ntm_tracker_tpu_torch.config import resolve_device
     from ntm_tracker_tpu_torch.data.image_ops import preprocess_frame
     from ntm_tracker_tpu_torch.data.loader import load_shared_frames
     from ntm_tracker_tpu_torch.train.experiments import frame_tokens
+    from ntm_tracker_tpu_torch.train.optim import tree_map
 
-    if mesh is not None:
-        raise NotImplementedError("mesh / --shard: a data-parallel cache build is not ported (ROADMAP.md, item A7)")
     if store_dtype not in ("float16", "float32"):
         raise ValueError(f"store_dtype must be float16/float32, got {store_dtype}")
-    dev = resolve_device(device)
+    if mesh is None:
+        devices, vgg_copies = [resolve_device(device)], [vgg_params]
+    else:
+        if mesh.size > 1 and frames_per_batch % mesh.size:
+            raise ValueError(
+                f"frames_per_batch={frames_per_batch} must divide over the "
+                f"{mesh.size}-device mesh (use parallel.mesh.make_mesh(batch_size=...) "
+                "to trim the mesh)"
+            )
+        devices = list(mesh.devices)
+        vgg_copies = [tree_map(lambda t, d=d: t.to(d), vgg_params) for d in devices]
     d = cfg.data
     if decode_resize_hw is None:
         decode_resize_hw = tuple(d.resize_hw)
@@ -184,14 +195,20 @@ def build_feature_cache(
     done = 0
     for start in range(0, len(frames), frames_per_batch):
         chunk = frames[start:start + frames_per_batch]
-        # each distinct frame crosses to the device once (a frame holds
-        # a record of each of its objects)
+        # each distinct frame crosses to a device once (a frame holds a
+        # record of each of its objects)
         fb, index = load_shared_frames(chunk, gt_width, reverse_image=flip, decode_resize_hw=decode_resize_hw)
+        parts = []
         with torch.no_grad():
-            images = torch.as_tensor(fb.images, device=dev).float()[torch.as_tensor(index, device=dev)]
-            crops = preprocess_frame(images, torch.as_tensor(fb.cropboxes, device=dev),
-                                     resize_hw=d.resize_hw, crop_size=d.crop_size, do_resize=False)
-            toks = frame_tokens(cfg, vgg_params, crops).float().cpu().numpy().astype(np_dtype)
+            for dev, vgg, rows in zip(devices, vgg_copies, np.array_split(np.arange(len(chunk)), len(devices))):
+                if not len(rows):
+                    continue
+                distinct, local = np.unique(np.asarray(index)[rows], return_inverse=True)
+                images = torch.as_tensor(fb.images[distinct], device=dev).float()[torch.as_tensor(local, device=dev)]
+                crops = preprocess_frame(images, torch.as_tensor(fb.cropboxes[rows], device=dev),
+                                         resize_hw=d.resize_hw, crop_size=d.crop_size, do_resize=False)
+                parts.append(frame_tokens(cfg, vgg, crops).float())
+            toks = torch.cat([p.cpu() for p in parts]).numpy().astype(np_dtype)
         for i, frame in enumerate(chunk):
             out = _frame_path(root, frame)
             os.makedirs(os.path.dirname(out), exist_ok=True)

@@ -182,23 +182,40 @@ def ntm_cell_step(
     return output, logit, new_state
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """jax.checkpoint_policies.dots_saveable: keep the matrix products'
+    outputs, recompute everything else in the backward."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def cell_loop(
     params: Dict[str, Any],
     cfg: NTMConfig,
     tokens: torch.Tensor,
     state: NTMState,
     compute_dtype: Optional[torch.dtype] = None,
-    remat: bool = False,
+    remat: bool | str = False,
     loop: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, NTMState]:
     """T cell steps over tokens [B, T, IN] as a Python loop over
     ntm_cell_step with cfg as given (use_pallas included): (logits
-    [B, T, out], final state). remat=True wraps each step in
-    torch.utils.checkpoint when gradients are recorded (the backward
-    recomputes the step instead of keeping its activations). loop, when
-    given, runs the steps instead: loop(step, xs [T, B, IN], state) ->
-    (outs [T, B, out], state) (tools/export_serving passes
-    models/traced_loop.scan_steps)."""
+    [B, T, out], final state). remat, when gradients are recorded, wraps
+    each step in torch.utils.checkpoint: True / "full" recomputes the
+    whole step in the backward, "dots" keeps the matrix products' outputs
+    (aten mm/addmm/bmm) and recomputes the rest; False / "none" keeps
+    every activation. loop, when given, runs the steps instead: loop(step,
+    xs [T, B, IN], state) -> (outs [T, B, out], state)
+    (tools/export_serving passes models/traced_loop.scan_steps)."""
 
     def step(x, carry):
         _, logit, new_state = ntm_cell_step(params, cfg, x, carry, compute_dtype)
@@ -207,11 +224,13 @@ def cell_loop(
     if loop is not None and tokens.shape[1]:
         logits, state = loop(step, tokens.transpose(0, 1), state)
         return logits.transpose(0, 1), state
-    checkpointed = remat and torch.is_grad_enabled()
+    checkpointed = remat not in (False, "none") and torch.is_grad_enabled()
+    context = {"context_fn": _dots_context} if remat == "dots" else {}
     logits = [tokens.new_zeros(tokens.shape[0], 0, cfg.output_dim)]
     for t in range(tokens.shape[1]):
         if checkpointed:
-            logit, state = torch.utils.checkpoint.checkpoint(step, tokens[:, t], state, use_reentrant=False)
+            logit, state = torch.utils.checkpoint.checkpoint(step, tokens[:, t], state, use_reentrant=False,
+                                                             **context)
         else:
             logit, state = step(tokens[:, t], state)
         logits.append(logit[:, None])

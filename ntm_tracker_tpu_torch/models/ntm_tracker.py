@@ -5,8 +5,9 @@ ntm_tracker_tpu/models/ntm_tracker.py).
 eager loop over ntm_cell_step (models/ntm_cell.cell_loop, which keeps
 `use_pallas`, so each step's addressing goes to the B3 kernel when the
 config asks for it), with torch.utils.checkpoint standing in for
-jax.checkpoint, or the whole-sequence training kernels
-(ops/kernels/scan_bptt.py) when `fused_bptt` routes there.
+jax.checkpoint (a selective policy for "dots"), or the whole-sequence
+training kernels (ops/kernels/scan_bptt.py) when `fused_bptt` routes
+there.
 """
 
 from __future__ import annotations
@@ -57,20 +58,18 @@ def ntm_tracker_unroll(
     state defaults to the learnable initial state.
 
     remat: True / "full" checkpoints every step (the backward recomputes
-    it); False / "none" keeps every intermediate. "dots" (keep the matmul
-    outputs) and layout="dn" are not ported (ROADMAP.md queues them).
-    jax.lax.scan's `unroll` has no counterpart in an eager loop. With
-    fused_bptt routed to the kernels (see use_fused_bptt) remat does not
-    apply. loop replaces the per-step route's Python loop
-    (models/ntm_cell.cell_loop).
+    it); "dots" keeps each step's matrix products and recomputes the rest
+    (jax.checkpoint_policies.dots_saveable); False / "none" keeps every
+    intermediate. layout="dn" runs the "nd" loop: JAX's "dn" carries the
+    memory transposed for the TPU's 128-lane tiles, the same math, and
+    the state goes in and comes out [B,N,D] either way. jax.lax.scan's
+    `unroll` has no counterpart in an eager loop. With fused_bptt routed
+    to the kernels (see use_fused_bptt) remat does not apply. loop
+    replaces the per-step route's Python loop (models/ntm_cell.cell_loop).
     """
-    if layout == "dn":
-        raise NotImplementedError("layout='dn' is not ported (ROADMAP.md, item A9)")
-    if layout != "nd":
+    if layout not in ("nd", "dn"):
         raise ValueError(f"unknown scan layout {layout!r}")
-    if remat == "dots":
-        raise NotImplementedError("remat='dots' is not ported (ROADMAP.md, item A9)")
-    if remat not in (True, False, "full", "none"):
+    if remat not in (True, False, "full", "none", "dots"):
         raise ValueError(f"unknown remat policy {remat!r}")
     if state is None:
         state = init_ntm_state(params, cfg, inputs.shape[0])
@@ -78,9 +77,7 @@ def ntm_tracker_unroll(
         logits, final_state = ntm_scan_fused_bptt(params, cfg, inputs, state)
     else:
         # the per-step route keeps cfg as given: use_pallas reaches B3
-        logits, final_state = cell_loop(
-            params, cfg, inputs, state, compute_dtype, remat=remat in (True, "full"), loop=loop
-        )
+        logits, final_state = cell_loop(params, cfg, inputs, state, compute_dtype, remat=remat, loop=loop)
     return torch.softmax(logits, dim=-1), logits, final_state
 
 

@@ -16,8 +16,10 @@ get zero crops, and their outputs are ignored.
 Slot writes are out of place (index_copy), so no write reaches a tensor
 that an earlier state or another slot shares. FleetTracker.from_serving
 drives the fleet from an exported artifact (tools/export_serving.py,
---batch equal to the capacity); the JAX fleet's `mesh` (data
-parallelism) is not ported (ROADMAP.md, item A7) and raises.
+--batch equal to the capacity). FleetTracker(mesh=) splits the slots over
+a parallel.mesh.Mesh's local devices: slots [i*n, (i+1)*n) are shard i, a
+fleet of its own on device i (the JAX package lets GSPMD split one
+batched step; here each device runs its shard's step).
 """
 
 from __future__ import annotations
@@ -76,12 +78,28 @@ class FleetTracker:
     ):
         """serving_model: a tools/export_serving.ServingModel exported with
         --batch == capacity; its programs replace the live frame step
-        (vgg_params, params and core unused). Build it with from_serving."""
-        if mesh is not None:
-            raise NotImplementedError("FleetTracker(mesh=...): data parallelism is not ported (ROADMAP.md, item A7)")
+        (vgg_params, params and core unused). Build it with from_serving.
+
+        mesh: a parallel.mesh.Mesh; capacity / mesh.size slots on each of
+        its devices (`device` unused). With more than one device the
+        shards are FleetTrackers of their own (self.shards), each with its
+        state; slot numbers run over them in mesh order."""
         self.cfg = cfg
         self.capacity = capacity
         self._serving = serving_model
+        self.shards = None
+        if mesh is not None:
+            if serving_model is not None:
+                raise ValueError("mesh-sharded fleets need the live frame step; an exported artifact bakes an "
+                                 "unsharded program")
+            if capacity % mesh.size:
+                raise ValueError(f"capacity {capacity} must divide over the {mesh.size}-device mesh")
+            if mesh.size > 1:
+                self._per_shard = capacity // mesh.size
+                self.shards = [FleetTracker(cfg, vgg_params, params, self._per_shard, core, delimiter_first, device=d)
+                               for d in mesh.devices]
+                return
+            device = mesh.devices[0]
         if serving_model is not None:
             baked = serving_model.meta.get("batch")
             if baked != capacity:
@@ -141,6 +159,11 @@ class FleetTracker:
     def add(self, image: np.ndarray, region_xywh) -> int:
         """Claim a slot and present the target-indicated first frame (a
         frame step at B=1, whose state is written into the slot)."""
+        if self.shards is not None:
+            for i, shard in enumerate(self.shards):
+                if None in shard._tracks:
+                    return i * self._per_shard + shard.add(image, region_xywh)
+            raise RuntimeError("fleet is full")
         slot = next((i for i, t in enumerate(self._tracks) if t is None), None)
         if slot is None:
             raise RuntimeError("fleet is full")
@@ -158,11 +181,16 @@ class FleetTracker:
         return slot
 
     def remove(self, slot: int) -> None:
+        if self.shards is not None:
+            self.shards[slot // self._per_shard].remove(slot % self._per_shard)
+            return
         self._tracks[slot] = None
         self.state = _write_rows(self.state, torch.tensor([slot], device=self.device), self._fresh_state(1))
 
     @property
     def active(self) -> List[int]:
+        if self.shards is not None:
+            return [i * self._per_shard + s for i, shard in enumerate(self.shards) for s in shard.active]
         return [i for i, t in enumerate(self._tracks) if t is not None]
 
     # -- stepping -------------------------------------------------------------
@@ -170,6 +198,12 @@ class FleetTracker:
         """Advance every active track one frame. images: slot -> HxWx3
         frame (sizes may differ across slots). Returns slot -> (x, y, w, h)
         region for every slot given a frame."""
+        if self.shards is not None:
+            n, out = self._per_shard, {}
+            for i, shard in enumerate(self.shards):
+                regions = shard.step({s - i * n: img for s, img in images.items() if s // n == i})
+                out.update({i * n + s: r for s, r in regions.items()})
+            return out
         d = self.cfg.data
         # same-shaped frames go through one batched crop; crops stay on the
         # device up to the frame step

@@ -68,20 +68,33 @@ def frame_tokens(cfg: TrackerConfig, vgg_params, crops: torch.Tensor) -> torch.T
     return extract_features(feats, list(cfg.feature_points))
 
 
-def gradient_step(loss_fn: Callable, opt: TFRMSProp) -> Callable:
+def gradient_step(loss_fn: Callable, opt: TFRMSProp, reduce: Optional[Callable] = None,
+                  keep_grads: bool = False) -> Callable:
     """train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss"}): loss_fn(params, batch) -> (loss, aux) differentiated wrt
-    every param (a param the loss does not reach gets a zero gradient),
-    then opt's clip and TF RMSProp."""
+    {"loss"[, "grads"]}): loss_fn(params, batch) -> (loss, aux)
+    differentiated wrt every param (a param the loss does not reach gets a
+    zero gradient), then opt's clip and TF RMSProp. reduce(grads, loss) ->
+    (grads, loss), when given, runs between the gradient and the update,
+    on the gradients in tree_leaves order (parallel/mesh.py's all-reduce
+    over the process group). keep_grads adds the gradients the update
+    took, before its clip, under "grads"."""
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, _ = loss_fn(live, batch)
         grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
-        fill = iter([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
-        params, opt_state = opt.update(tree_map(lambda _: next(fill), params), opt_state, params)
-        return params, opt_state, {"loss": loss.detach()}
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        loss = loss.detach()
+        if reduce is not None:
+            grads, loss = reduce(grads, loss)
+        fill = iter(grads)
+        grad_tree = tree_map(lambda _: next(fill), params)
+        params, opt_state = opt.update(grad_tree, opt_state, params)
+        metrics = {"loss": loss}
+        if keep_grads:
+            metrics["grads"] = grad_tree
+        return params, opt_state, metrics
 
     return train_step
 

@@ -143,17 +143,66 @@ def test_raw_frame_route_host_and_device_resize_agree(workdir, jax_init, monkeyp
     assert np.isfinite(losses).all() and abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--dist_process_id", "1"], "A7"),
-    (["--dist_coordinator", "localhost:1"], "A7"), (["--dist_num_processes", "2"], "A7"),
-])
-def test_unported_train_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train(*TRAIN, *flag)
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def test_dist_flags_at_world_one_equal_the_plain_run(workdir, jax_init, monkeypatch, one_thread):
+    """--dist_* at world size 1 (a gloo group on the CPU) runs the same
+    validation and step, bit for bit, as the run without: one rank's
+    all-reduce is the identity; the group ends with the command."""
+    monkeypatch.chdir(workdir)
+    _, _, ckpt = jax_init
+    losses = []
+    for extra in ([], ["--dist_coordinator", f"127.0.0.1:{_free_port()}", "--dist_num_processes", "1",
+                       "--dist_process_id", "0"]):
+        run = train(*TRAIN, "--feature_cache", "cache", "--ckpt_path", ckpt, "--limit", "1",
+                    "--validation_interval", "1", "--log_dir", "log_dist", *extra)
+        assert run["steps"] == 1 and (run["rank"], run["world"]) == (0, 1)
+        assert run["backend"] == (None if not extra else "gloo")
+        losses.append([(r.get("train_loss"), r.get("val_loss")) for r in metrics(run)])
+    assert losses[0] == losses[1] and len(losses[0]) == 2 and not torch.distributed.is_initialized()
+
+
+def test_two_ranks_train_offsets(workdir):
+    """Two `train-offsets` processes over gloo: each rank trains on its own
+    shard (1 of the 2 train sequences, 1 row of --batch_size 2); the
+    single val sequence gives both ranks an empty shard; rank 0 alone
+    writes metrics and checkpoints."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    base = [sys.executable, "-m", "ntm_tracker_tpu_torch", "--device", "cpu", "train-offsets", *TRAIN[:-4],
+            "--batch_size", "2", "--log_interval", "1", "--feature_cache", "cache", "--validation_interval", "1",
+            "--dist_coordinator", f"127.0.0.1:{port}", "--dist_num_processes", "2"]
+    procs = [subprocess.Popen([*base, "--dist_process_id", str(r), "--log_dir", f"log_ranks{r}"], cwd=workdir,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out[-3000:]
+        assert f"1 train seqs, 0 val seqs (process {r}/2)" in out, out[-3000:]
+    assert "trained 1 steps" in outs[0] and "trained" not in outs[1]
+    (run0,) = os.listdir(os.path.join(workdir, "log_ranks0"))
+    with open(os.path.join(workdir, "log_ranks0", run0, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["step"] for r in recs] == [0] and np.isfinite(recs[0]["train_loss"])
+    assert CheckpointManager(os.path.join(workdir, "log_ranks0", run0, "ckpt")).steps() == [0, 1]
+    assert not os.path.exists(os.path.join(workdir, "log_ranks1"))
 
 
 def test_cache_features_shard_raises_and_cuda_is_the_default(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
+    """--shard builds (its own refusals are the build's: an empty tree has
+    no frame records); cuda is every command's default device."""
+    with pytest.raises(ValueError, match="no frame records"):
         cli.main(["--device", "cpu", "cache-features", "--sequences_dir", str(tmp_path),
                   "--cache_dir", str(tmp_path), "--shard"])
     assert cli.build_parser().parse_args(["preprocess", "--annotation_dir", "a", "--image_dir", "b",
@@ -163,6 +212,18 @@ def test_cache_features_shard_raises_and_cuda_is_the_default(tmp_path):
             cli.main(["train-offsets", *TRAIN])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["cache-features", "--sequences_dir", str(tmp_path), "--cache_dir", str(tmp_path)])
+
+
+def test_cache_features_shard_equals_the_unsharded_cache(workdir, monkeypatch, capsys, one_thread):
+    monkeypatch.chdir(workdir)
+    cli.main(["--device", "cpu", "cache-features", "--sequences_dir", "cropped", "--cache_dir", "cache_shard",
+              "--frames_per_batch", "8", "--shard"])
+    assert "sharding the build over 1 of 1 devices" in capsys.readouterr().out
+    for root, _, files in os.walk(os.path.join("cache", "base")):
+        for f in files:
+            other = os.path.join("cache_shard", os.path.relpath(os.path.join(root, f), "cache"))
+            if f.endswith(".npy"):
+                np.testing.assert_array_equal(np.load(os.path.join(root, f)), np.load(other))
 
 
 def test_parser_keeps_the_jax_flags_and_defaults():

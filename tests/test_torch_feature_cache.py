@@ -22,6 +22,7 @@ from ntm_tracker_tpu_torch.config import DataConfig, DNCConfig, NTMConfig, Track
 from ntm_tracker_tpu_torch.data import feature_cache as fc
 from ntm_tracker_tpu_torch.data.loader import batch_iterator, load_frame_batch
 from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
+from ntm_tracker_tpu_torch.parallel.mesh import make_mesh
 from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment
 
 from tests.test_experiment import tiny_cfg
@@ -149,6 +150,31 @@ def test_caches_built_by_either_package_load_in_the_other(vgg, seq_dirs, tmp_pat
                 np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
 
 
+@pytest.mark.parametrize("flip", [False, True])
+def test_sharded_build_equals_unsharded_and_jax_sharded(vgg, seq_dirs, tmp_path, flip):
+    """build_feature_cache(mesh=) over two CPU devices (the last chunk of
+    3 splits 2 + 1): the same manifest and tokens as the unsharded build,
+    and JAX's sharded build's files within 1e-5 of the largest (the VGG
+    tolerance of test_torch_vgg.py)."""
+    from ntm_tracker_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    jv, tv = vgg
+    tcfg, jcfg = port_tiny_cfg(), tiny_cfg("ntm", batch=1, seq_len=SEQ_LEN)
+    kw = dict(store_dtype="float32", frames_per_batch=4, flip=flip)
+    sharded, plain, jax_sharded = (str(tmp_path / n) for n in ("sharded", "plain", "jax"))
+    man = build_port(tcfg, tv, seq_dirs, sharded, mesh=make_mesh(["cpu", "cpu"], batch_size=4), **kw)
+    assert man == build_port(tcfg, tv, seq_dirs, plain, **kw)
+    jmesh = jmake_mesh(batch_size=4)
+    assert jmesh.devices.size == 4
+    assert man == build_jax(jcfg, jv, seq_dirs, jax_sharded, mesh=jmesh, **kw)
+    sub = "flip" if flip else "base"
+    for s in seq_dirs:
+        for f in sorted(os.listdir(os.path.join(sharded, sub, os.path.basename(s)))):
+            a, b, j = (np.load(os.path.join(c, sub, os.path.basename(s), f)) for c in (sharded, plain, jax_sharded))
+            np.testing.assert_allclose(a, b, atol=1e-5 * np.abs(b).max())
+            np.testing.assert_allclose(a, j, atol=1e-5 * np.abs(j).max())
+
+
 def test_float16_storage_and_flip(vgg, seq_dirs, tmp_path):
     _, tv = vgg
     cfg = port_tiny_cfg()
@@ -213,8 +239,8 @@ def test_refusals(vgg, seq_dirs, tmp_path):
     os.makedirs("other/train_seq00_0")
     with pytest.raises(ValueError, match="duplicate basenames"):
         build_port(cfg, tv, seq_dirs + ["other/train_seq00_0"], str(tmp_path / "dup"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_port(cfg, tv, seq_dirs, str(tmp_path / "m"), mesh=object())
+    with pytest.raises(ValueError, match="must divide over the 2-device mesh"):
+        build_port(cfg, tv, seq_dirs, str(tmp_path / "m"), frames_per_batch=3, mesh=make_mesh(["cpu", "cpu"]))
     with pytest.raises(ValueError, match="store_dtype"):
         build_port(cfg, tv, seq_dirs, str(tmp_path / "d"), store_dtype="bfloat16")
     with pytest.raises(ValueError, match="no frame records"):

@@ -29,6 +29,7 @@ from ntm_tracker_tpu_torch.interop import (
 )
 from ntm_tracker_tpu_torch.models.core import make_core
 from ntm_tracker_tpu_torch.ops.kernels import addressing
+from ntm_tracker_tpu_torch.parallel.mesh import make_mesh
 from ntm_tracker_tpu_torch.tracking.fleet import FleetTracker
 from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker, make_device_track_step
 
@@ -102,6 +103,36 @@ def test_matches_single_tracker(use_pallas):
         single = StreamingTracker(cfg, vgg, params, core, device="cpu")
         single.init(img, region)
         np.testing.assert_allclose(out[slot], single.track(img), rtol=FLEET_RTOL, atol=FLEET_ATOL)
+
+
+@PALLAS
+def test_mesh_of_two_devices_equals_the_meshless_fleet(use_pallas):
+    """FleetTracker(mesh=) with two CPU devices: slots 0-1 on the first,
+    2-3 on the second, each a fleet of its own; the regions equal the
+    meshless fleet's over three frames (the same per-row math in batches
+    of 2 against 4: BATCH_RTOL/ATOL), through a removal and a re-add."""
+    _, (cfg, core, vgg, params) = _setup(use_pallas)
+    imgs = [_img(10 + i, 64, 96) for i in range(4)]
+    regions = [(30.0 + 4 * i, 20.0, 20.0, 16.0) for i in range(3)]
+    plain = FleetTracker(cfg, vgg, params, capacity=4, core=core, device="cpu")
+    sharded = FleetTracker(cfg, vgg, params, capacity=4, core=core, mesh=make_mesh(["cpu", "cpu"]))
+    assert len(sharded.shards) == 2 and [f.capacity for f in sharded.shards] == [2, 2]
+    for f in (plain, sharded):
+        assert [f.add(imgs[0], r) for r in regions] == [0, 1, 2]
+    for t in range(1, 4):
+        if t == 2:
+            for f in (plain, sharded):
+                f.remove(1)
+                assert f.active == [0, 2] and f.add(imgs[0], (44.0, 24.0, 20.0, 16.0)) == 1
+        frames = {s: imgs[t] for s in (0, 1, 2)}
+        a, b = plain.step(frames), sharded.step(frames)
+        assert set(a) == set(b) == {0, 1, 2}
+        for s in a:
+            np.testing.assert_allclose(b[s], a[s], rtol=BATCH_RTOL, atol=BATCH_ATOL)
+    with pytest.raises(ValueError, match="capacity 3 must divide over the 2-device mesh"):
+        FleetTracker(cfg, vgg, params, capacity=3, core=core, mesh=make_mesh(["cpu", "cpu"]))
+    one = FleetTracker(cfg, vgg, params, capacity=2, core=core, mesh=make_mesh(["cpu"]))
+    assert one.shards is None and one.device.type == "cpu"
 
 
 @PALLAS
@@ -348,5 +379,5 @@ def test_serving_refusals(exported_b2):
         StreamingTracker.from_serving(model)
     with pytest.raises(ValueError, match="bakes batch 2"):
         FleetTracker(cfg, None, None, capacity=4, serving_model=model)
-    with pytest.raises(NotImplementedError, match="A7"):
-        FleetTracker(cfg, None, None, capacity=2, mesh=object(), serving_model=model)
+    with pytest.raises(ValueError, match="mesh-sharded fleets need the live frame step"):
+        FleetTracker(cfg, None, None, capacity=2, mesh=make_mesh(["cpu"]), serving_model=model)

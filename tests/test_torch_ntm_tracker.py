@@ -1,7 +1,9 @@
 """models/ntm_tracker.py and the MemoryCore unroll on the CPU: the eager
 unroll with remat "full"/"none" against the plain loop and against the
 JAX package's ntm_tracker_unroll (values and jax.grad), the two-step
-token stream, the streaming step, and the knobs that are not ported."""
+token stream, the streaming step, and the unroll's knobs
+(tests/test_torch_scan_layout.py holds layout="dn" and remat="dots" to
+JAX's)."""
 
 import dataclasses
 
@@ -17,6 +19,7 @@ from ntm_tracker_tpu.models.ntm_tracker import ntm_tracker_unroll as jax_unroll
 from ntm_tracker_tpu.models.ntm_tracker import two_step_inputs as jax_two_step
 from ntm_tracker_tpu_torch.config import NTMConfig, TrackerConfig, TrainConfig
 from ntm_tracker_tpu_torch.interop import flatten_ntm_params, ntm_params_from_flat
+from ntm_tracker_tpu_torch.models import core as core_mod
 from ntm_tracker_tpu_torch.models.core import make_core
 from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state, ntm_cell_step
 from ntm_tracker_tpu_torch.models.ntm_tracker import (
@@ -85,13 +88,15 @@ def test_remat_gives_the_plain_loop_bit_for_bit():
 
 
 def test_unported_knobs_raise():
+    """The JAX package's knobs all run (remat "dots", layout "dn": the
+    plain loop's logits within FWD_TOL); an unknown one raises."""
     _, tcfg, jp, tokens = _setup()
     params = ntm_params_from_flat(flatten_ntm_params(jp))
     x = torch.tensor(tokens)
-    with pytest.raises(NotImplementedError, match="dots"):
-        ntm_tracker_unroll(params, tcfg, x, remat="dots")
-    with pytest.raises(NotImplementedError, match="dn"):
-        ntm_tracker_unroll(params, tcfg, x, layout="dn")
+    _, ref, _ = ntm_tracker_unroll(params, tcfg, x)
+    for kw in ({"remat": "dots"}, {"layout": "dn"}, {"remat": "dots", "layout": "dn"}):
+        _, logits, _ = ntm_tracker_unroll(params, tcfg, x, **kw)
+        np.testing.assert_allclose(logits.numpy(), ref.numpy(), atol=FWD_TOL, err_msg=str(kw))
     with pytest.raises(ValueError, match="remat"):
         ntm_tracker_unroll(params, tcfg, x, remat="some")
     with pytest.raises(ValueError, match="layout"):
@@ -121,18 +126,27 @@ def test_streaming_step_is_the_cell_step():
     assert st["M"].shape == (3, tcfg.mem_size, tcfg.mem_dim) and params2["heads_w"].shape[0] == 12
 
 
-def test_core_unroll_takes_the_config_and_its_overrides():
+def test_core_unroll_takes_the_config_and_its_overrides(monkeypatch):
     _, tcfg, jp, tokens = _setup()
     params = ntm_params_from_flat(flatten_ntm_params(jp))
     x = torch.tensor(tokens)
-    cfg = TrackerConfig(ntm=tcfg, train=TrainConfig(remat_policy="dots"))
+    cfg = TrackerConfig(ntm=tcfg, train=TrainConfig(remat_policy="dots", scan_layout="dn"))
     core = make_core(cfg)
-    with pytest.raises(NotImplementedError, match="dots"):
-        core.unroll(params, x)                      # remat=True defers to the config's policy
+    seen = []
+    real = core_mod.ntm_tracker_unroll
+
+    def spy(*args, **kwargs):
+        seen.append((kwargs["remat"], kwargs["layout"]))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(core_mod, "ntm_tracker_unroll", spy)
+    core.unroll(params, x)                      # remat=True defers to the config's policy
     logits, _ = core.unroll(params, x, remat=False)  # ... and False stays False
+    monkeypatch.undo()
+    assert seen == [("dots", "dn"), (False, "dn")]
     with pytest.raises(ValueError, match="fused_bptt"):
         core.unroll(params, x, remat=False, fused_bptt="sometimes")
-    cfg = dataclasses.replace(cfg, train=TrainConfig(fused_bptt="bogus"))
+    cfg = dataclasses.replace(cfg, train=TrainConfig(fused_bptt="bogus", scan_layout="dn"))
     with pytest.raises(ValueError, match="fused_bptt"):
         make_core(cfg).unroll(params, x)
     plain, _ = make_core(cfg).unroll(params, x, remat=False, fused_bptt=False)
