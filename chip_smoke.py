@@ -24,7 +24,11 @@ then, in the same tree, the experiment lab through the CLI: train-heatmap
 train-wholeframe and train-active-resize (B2 once a frame) on a pickle
 mine-sequences makes, train-offsets --save_imgs (the dashboards through B1
 a chunk), dnc-repeat-copy and the legacy NTM, each training path's first
-step against the plain route on the card.
+step against the plain route on the card; then serving and data
+parallelism; and last the bench path: benchmarks.main (the `bench`
+subcommand) at reduced sizes, its JSON line and launches held, and
+tools/bench_train.py, bench_bptt_knee.py and profile_train.py as CLI
+subprocesses, each line's launches held.
 
     python3 chip_smoke.py
 
@@ -236,6 +240,34 @@ PAR_LOSS_TOL = 1e-6
 PAR_FLEET_CAP, PAR_FLEET_FRAMES = 8, 3
 PAR_KNOB_B, PAR_KNOB_L = 4, 2
 SCALE_HEAD_STEPS, SCALE_HEAD_FRAMES = 5, 12
+
+# the bench phase: (a) benchmarks.main in-process at BENCH_KW (the JAX
+# bench's sizes cut: a sweep of 128 -> 256, 5 timed steps a pass, 20
+# latency frames, the cached train step at B=256, L=20 for 2 steps, the
+# device loop 5 steps a pass; no TRACK artifact); its JSON line carries
+# every key of the JAX bench's (JAX_BENCH_KEYS, ntm_tracker_tpu/
+# benchmarks.py:490-516). (b) the three measurement tools as CLI
+# subprocesses at BENCH_TOOLS' sizes, run beside the data phase, whose
+# times go into no kernel's entry; each JSON line's launches held to the
+# counts its variant implies.
+BENCH_KW = dict(sweep_max=256, iters=5, latency_frames=20, train_iters=2, device_loop_iters=5, track_artifact=False)
+# the measured fields of the bench's JSON line that go into the kernels line
+BENCH_MEASURED = ("value", "best_batch", "pipelined_frame_ms_b1", "pipelined_frame_ms_b1_med", "p10_roundtrip_ms_b1",
+                  "p50_roundtrip_ms_b1", "p90_roundtrip_ms_b1", "roundtrip_n", "device_loop_frames_per_sec",
+                  "train_frames_per_sec_cached", "train_step_ms_cached")
+JAX_BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "pipelined_frame_ms_b1", "pipelined_frame_ms_b1_med",
+    "p10_roundtrip_ms_b1", "p50_roundtrip_ms_b1", "p90_roundtrip_ms_b1", "roundtrip_n", "best_batch",
+    "headline_variant", "frames_per_sec_weights_as_args", "frame_gflops", "achieved_tflops", "mfu",
+    "device_loop_frames_per_sec", "train_frames_per_sec_cached", "train_step_ms_cached", "train_mfu",
+    "budget_skipped", "platform",
+)
+BENCH_TOOLS = {
+    "bench_train": ["--modes", "images,tokens", "--batch", "2", "--seq_len", "2", "--iters", "1"],
+    "bench_bptt_knee": ["--batches", "8", "--seq", "65", "--iters", "1", "--paths", "fused,plain"],
+    "profile_train": ["--batch", "8", "--seq_len", "1", "--iters", "1", "--variants",
+                      "fused_bptt_f32,fused_fwd_f32,f32_pallas_fwd,abl_none,lstm_only_f32"],
+}
 
 
 def log(phase: str, msg: str) -> None:
@@ -1256,30 +1288,25 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     kernels = (ntm_scan_fused, scan_bptt.bptt_forward, scan_bptt.token_projection, scan_bptt.bptt_backward,
                scan_bptt.grad_reduce)
 
-    # ---- the main path: 1 warm-up + 3 timed train steps, 1 eval step -----------
+    # ---- the main path: 1 train step, 1 eval step ---------------------------------
+    # (the step is timed in the bench phase: benchmarks.main's cached train
+    # step at the same shape)
     reset_counts()
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     p1, s1, m = train_step(params, opt_state, batch)
-    p, s = p1, s1
-    losses, step_ms = [float(m["loss"])], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p, s, m = train_step(p, s, batch)
-        losses.append(float(m["loss"]))
-        step_ms.append(1e3 * (time.perf_counter() - t0))
+    losses = [float(m["loss"])]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    aux = eval_step(p, batch)
+    aux = eval_step(p1, batch)
     eval_loss = float(aux["loss"])
     eval_ms = 1e3 * (time.perf_counter() - t0)
     counts = {k.__name__: k.launches for k in kernels}
     eval_routes = dict(ntm_scan_fused.launches_by_route)
-    expected = {"ntm_scan_fused": 1, "bptt_forward": 4, "token_projection": 5, "bptt_backward": 4,
-                "grad_reduce": 4 * (L + 1)}
+    expected = {"ntm_scan_fused": 1, "bptt_forward": 1, "token_projection": 2, "bptt_backward": 1,
+                "grad_reduce": L + 1}
     log("train", f"main path launches {counts} (expected {expected}: a projection per train step and one for the "
                  f"eval step's B1; each grad_reduce call is two kernels, the partial sums and their fixed-order sum; "
                  f"one call per LSTM layer and one for the head and output linears together); B1 by route "
@@ -1288,15 +1315,12 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
         raise AssertionError("the training path did not run through the kernels as expected")
     # an update far below a parameter's ulp leaves it as it was (init_w's
     # gradient is small), so the check is on the parameters as a whole
-    changed = {k: int((a != b).sum()) for k, a, b in zip(named_leaves(p), tree_leaves(params), tree_leaves(p))}
+    changed = {k: int((a != b).sum()) for k, a, b in zip(named_leaves(p1), tree_leaves(params), tree_leaves(p1))}
     if not (np.isfinite(losses).all() and np.isfinite(eval_loss) and changed["controller[0].kernel"] > 0):
         raise AssertionError(f"bad training run: losses {losses}, eval {eval_loss}, elements changed {changed}")
-    log("train", f"elements changed by the 4 steps, per parameter: {changed}")
-    step = float(np.median(step_ms))
-    log("train", f"{smi}: fused train step B={TRAIN_B} T={base.total_steps} "
-                 f"steps {[round(t, 3) for t in step_ms]} ms, median {step:.3f} ms = "
-                 f"{TRAIN_B * TRAIN_L / step * 1e3:.1f} trained frames/s; losses {[round(v, 6) for v in losses]}; "
-                 f"peak {peak_gb:.2f} GB; eval step (B1, no residuals) {eval_ms:.3f} ms, loss {eval_loss:.6f}")
+    log("train", f"elements changed by the step, per parameter: {changed}")
+    log("train", f"fused train step B={TRAIN_B} T={base.total_steps}: loss {losses[0]:.6f}; peak {peak_gb:.2f} GB; "
+                 f"eval step (B1, no residuals) {eval_ms:.3f} ms, loss {eval_loss:.6f}")
     check_budget("train")
 
     # ---- the main path's first step against the plain autograd step at B=256 ------
@@ -1500,7 +1524,7 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     check_budget("times")
     gw = max(err256["grad"], key=err256["grad"].get)
     return {
-        "counts": counts, "step_ms": step, "eval_ms": eval_ms, "plain_step_ms": plain_step, "peak_gb": peak_gb,
+        "counts": counts, "eval_ms": eval_ms, "plain_step_ms": plain_step, "peak_gb": peak_gb,
         "forward": (fwd_ms, plain_fwd, None), "backward": (bwd_ms, plain_bwd, None),
         "token_projection": (proj_ms, proj_plain_ms, proj_lib_ms),
         "grad_reduce": (red_ms, red_plain_ms, red_lib_ms), "work": work, "grad_vs_f64": f64_err,
@@ -3354,6 +3378,69 @@ def start_parallel_subprocesses(dev: torch.device, work: str) -> dict:
     return out
 
 
+def start_bench_tools(dev: torch.device, work: str, after: list) -> tuple:
+    """phase_bench's (b): tools/bench_train, tools/bench_bptt_knee and
+    tools/profile_train at BENCH_TOOLS' sizes, each a CLI subprocess, run
+    beside the data phase: a thread starts them once the processes `after`
+    (the parallel phase's ranks, whose train steps are timed) have exited,
+    and join_bench_tools waits for them before the lab phase's timings.
+    (thread, {tool: (process, log file)}, a list that gets the tools' start
+    time), both filled by the thread."""
+    import threading
+
+    tools, started = {}, []
+
+    def run():
+        for proc in after:
+            proc.wait()
+        started.append(time.perf_counter())
+        tools.update({tool: cli_subprocess(dev, work, tool, argv, module=f"ntm_tracker_tpu_torch.tools.{tool}")
+                      for tool, argv in BENCH_TOOLS.items()})
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, tools, started
+
+
+def join_bench_tools(started_tools: tuple) -> dict:
+    """Wait for start_bench_tools' subprocesses: {tool: (process, log file)}."""
+    thread, tools, started = started_tools
+    t0 = time.perf_counter()
+    thread.join(timeout=max(10.0, BUDGET_S - (t0 - T_START)))
+    if thread.is_alive():
+        raise AssertionError("the parallel phase's ranks did not exit, so the bench tools never started")
+    for proc, _ in tools.values():
+        proc.wait(timeout=max(10.0, BUDGET_S - (time.perf_counter() - T_START)))
+    log("bench", f"the tools started at t={started[0] - T_START:.1f}s (after the parallel ranks exited); "
+                 f"waited {time.perf_counter() - t0:.1f}s for them after the data phase")
+    return tools
+
+
+def bench_tool_expected(tool: str, line: dict) -> dict:
+    """The launches a BENCH_TOOLS JSON line implies, by wrapper (B2's four,
+    B1, B3). A train step through B2 at one LSTM layer: one projection, one
+    forward, one backward, two reduction calls (the layer, then the head
+    and output linears). Each line times 1 untimed + `--iters` (1) calls,
+    bench_bptt_knee 1 + 3 passes."""
+    def b2(steps):
+        return {"token_projection": steps, "bptt_forward": steps, "bptt_backward": steps, "grad_reduce": 2 * steps}
+
+    zero = {"ntm_scan_fused": 0, "token_projection": 0, "bptt_forward": 0, "bptt_backward": 0, "grad_reduce": 0,
+            "fused_ntm_addressing": 0}
+    if tool == "bench_train":
+        return {**zero, **b2(2)}
+    if tool == "bench_bptt_knee":
+        return {**zero, **(b2(4) if line["path"] == "fused" else {})}
+    variant = line["variant"]
+    if variant == "fused_bptt_f32":
+        return {**zero, **b2(2)}
+    if variant == "fused_fwd_f32":  # B1 after its projection, B=8: the cluster route
+        return {**zero, "ntm_scan_fused": 2, "token_projection": 2}
+    if variant == "f32_pallas_fwd":  # B3 once a cell step, again in each checkpointed step's recompute
+        return {**zero, "fused_ntm_addressing": 2 * 2 * 65}
+    return zero
+
+
 def grads_rel(got, ref) -> tuple:
     """(the largest of each gradient's max |got - ref| / max |ref|, its leaf)."""
     from ntm_tracker_tpu_torch.train.optim import tree_leaves
@@ -3633,6 +3720,90 @@ def phase_parallel(dev: torch.device, smi: str, root: str, procs: dict) -> dict:
     return out
 
 
+def phase_bench(dev: torch.device, smi: str, tools: dict) -> dict:
+    """The bench path: (a) benchmarks.main in-process at BENCH_KW, its JSON
+    line parsed from its stdout and held (every JAX key, in the JAX order;
+    the headline, the B=1 roundtrip, the train step and the device loop
+    finite and positive; both MFUs in (0, 1]; B1 once a B=1 frame on the
+    cluster route, B2 once a train step; no B3); (b) the three tools
+    started by start_bench_tools: rc 0, one JSON line a mode, path or
+    variant, no error, each line's launches as bench_tool_expected says."""
+    import contextlib
+    import io
+    import math
+
+    from ntm_tracker_tpu_torch import benchmarks
+    from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
+
+    t0 = time.perf_counter()
+    reset_all_counts()
+    fused_ntm_addressing.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        returned = benchmarks.main(device=dev, deadline=time.time() + 3600, **BENCH_KW)
+    counts = benchmarks.kernel_launches()
+    bench_s = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    result = json.loads(lines[-1])
+    frames = BENCH_KW["latency_frames"]
+    steps = BENCH_KW["train_iters"] + 1
+    b1 = 1 + 4 * frames  # the untimed frame, the roundtrip frames, three pipelined passes
+    expected = {"ntm_scan_fused": b1, "ntm_scan_fused_by_route": {"cluster": b1, "tile": 0},
+                "token_projection": b1 + steps, "bptt_forward": steps, "bptt_backward": steps,
+                "grad_reduce": 2 * steps, "fused_ntm_addressing": 0}
+    keys = [k for k in result if k in JAX_BENCH_KEYS]
+    positive = {k: result[k] for k in ("value", "p50_roundtrip_ms_b1", "train_step_ms_cached",
+                                       "device_loop_frames_per_sec")}
+    fractions = {k: result[k] for k in ("mfu", "train_mfu")}
+    log("bench", f"{smi}: benchmarks.main({', '.join(f'{k}={v}' for k, v in BENCH_KW.items())}) in {bench_s:.1f}s: "
+                 f"{lines[-1]}")
+    log("bench", f"launches {counts} (expected {expected}: B1 once a B=1 frame on the cluster route, after its "
+                 f"projection; B2 once a train step, {steps} steps; the sweep and the device loop at B >= 128 run the "
+                 f"plain cell loop by the rule)")
+    failed = []
+    if result != returned or len(lines) != 1:
+        failed.append(f"{len(lines)} stdout lines, or the printed line is not main's result")
+    if keys != list(JAX_BENCH_KEYS):
+        failed.append(f"the JAX keys in order: {keys}")
+    if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in positive.values()):
+        failed.append(f"not finite and positive: {positive}")
+    if not all(isinstance(v, float) and 0 < v <= 1 for v in fractions.values()):
+        failed.append(f"MFU outside (0, 1]: {fractions}")
+    if result["platform"] != "gpu" or not result["card"] or not result["power_limit"] or result["budget_skipped"]:
+        failed.append("platform, card, power limit or a skipped phase")
+    if counts != expected:
+        failed.append(f"launches {counts}")
+
+    # (b) the tools, run beside the data phase
+    tool_lines = {}
+    for tool, (proc, log_f) in tools.items():
+        text = finish_subprocess(tool, proc, log_f)
+        got = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+        want = {"bench_train": 2, "bench_bptt_knee": 2, "profile_train": 5}[tool]
+        tool_lines[tool] = got
+        for line in got:
+            launches = {k: v for k, v in line["launches"].items() if k != "ntm_scan_fused_by_route"}
+            exp = bench_tool_expected(tool, line)
+            if "error" in line or launches != exp:
+                failed.append(f"{tool}: {line} (expected launches {exp})")
+        tag = {"bench_train": "mode", "bench_bptt_knee": "path", "profile_train": "variant"}[tool]
+        log("bench", f"{smi}: tools/{tool}.py {' '.join(BENCH_TOOLS[tool])}: "
+                     + "; ".join(f"{line[tag]} {line.get('step_ms', line.get('grad_step_ms'))} ms, launches "
+                                 + json.dumps({k: v for k, v in line['launches'].items() if v and k != 'ntm_scan_fused_by_route'})
+                                 for line in got))
+        if len(got) != want:
+            failed.append(f"{tool}: {len(got)} JSON lines, expected {want}")
+    fused_fwd = next(line for line in tool_lines["profile_train"] if line["variant"] == "fused_fwd_f32")
+    if fused_fwd["launches"]["ntm_scan_fused_by_route"] != {"cluster": 2, "tile": 0}:
+        failed.append(f"profile_train fused_fwd_f32 ran B1's routes {fused_fwd['launches']['ntm_scan_fused_by_route']}")
+    log("bench", f"phase {time.perf_counter() - t0:.1f}s (the bench {bench_s:.1f}s; the tools ran beside the data "
+                 f"phase, so their ms are taken on a shared card)")
+    if failed:
+        raise AssertionError(f"bench phase: {failed}")
+    check_budget("bench")
+    return {"result": result, "counts": counts, "tools": tool_lines, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
@@ -3898,12 +4069,21 @@ def main() -> int:
     tree = tempfile.mkdtemp(prefix="ntm_data_")
     par_work = tempfile.mkdtemp(prefix="ntm_parallel_")
     try:
+        # the subprocesses share the card: hand back this process's cached blocks
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        log("data", f"before the subprocesses: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB, this process "
+                    f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
         par_procs = start_parallel_subprocesses(dev, par_work)
+        bench_tools = start_bench_tools(dev, par_work, [par_procs[f"rank{r}"][0] for r in range(2)])
         data = phase_data(dev, smi, tree)
+        bench_tools = join_bench_tools(bench_tools)
         trax_servers = start_trax_servers(dev, serve_work, serve_exports)
         lab = phase_lab(dev, smi, tree)
         serving = phase_serving(dev, smi, tree, serve_exports, trax_servers)
         parallel = phase_parallel(dev, smi, tree, par_procs)
+        # ---- 7h. the bench subcommand and the measurement tools ------------
+        bench = phase_bench(dev, smi, bench_tools)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(serve_work, ignore_errors=True)
@@ -3914,6 +4094,10 @@ def main() -> int:
     lab_counts = {f"lab_{k}": c for k, c in lab["counts"].items()}
     serving_counts = serving["counts"]
     parallel_counts = parallel["counts"]
+    # the bench path's launches: benchmarks.main's, and each tool line's
+    tag_of = {"bench_train": "mode", "bench_bptt_knee": "path", "profile_train": "variant"}
+    bench_counts = {"bench": bench["counts"], **{f"{tool}_{line[tag_of[tool]]}": line["launches"]
+                                                 for tool, lines in bench["tools"].items() for line in lines}}
 
     # ---- 8. result -----------------------------------------------------------
     # B1 runs on every main path: `launches` is the frame path's count; the
@@ -3934,12 +4118,14 @@ def main() -> int:
                              **{k: c["ntm_scan_fused"] for k, c in data_counts.items()},
                              **{k: c["ntm_scan_fused"] for k, c in lab_counts.items()},
                              **{k: c["ntm_scan_fused"] for k, c in serving_counts.items()},
-                             **{k: c["ntm_scan_fused"] for k, c in parallel_counts.items()}},
+                             **{k: c["ntm_scan_fused"] for k, c in parallel_counts.items()},
+                             **{k: c["ntm_scan_fused"] for k, c in bench_counts.items()}},
         "route_by_path": {"frame_step": frame_routes, "fleet": fleet["fleet_routes"],
                           "device_loop": {"cluster": 0, "tile": 0}, "train": train["eval_routes"],
                           **{k: c["ntm_scan_fused_by_route"] for k, c in data_counts.items()},
                           **{k: c["ntm_scan_fused_by_route"] for k, c in lab_counts.items()},
-                          **{k: c["ntm_scan_fused_by_route"] for k, c in parallel_counts.items()}},
+                          **{k: c["ntm_scan_fused_by_route"] for k, c in parallel_counts.items()},
+                          **{k: c["ntm_scan_fused_by_route"] for k, c in bench_counts.items()}},
         "lab_dashboard_chunks": lab["save_imgs"]["chunks"],
         "ms_by_route": {"T65": {str(B): v for B, v in by_route.items()},
                         f"B{train['b1']['B']}_T{train['b1']['T']}": train["b1"]["ms_by_route"]},
@@ -3948,6 +4134,7 @@ def main() -> int:
         "train_shape": {k: v for k, v in train["b1"].items() if k != "launches"},
         "serving": {k: v for k, v in serving.items() if k != "counts"},
         "parallel": {k: v for k, v in parallel.items() if k != "counts"},
+        "bench": {k: bench["result"][k] for k in BENCH_MEASURED}, "bench_phase_s": bench["seconds"],
     }]
     bptt = {}
     for name, launches in (("forward", "bptt_forward"), ("token_projection", "token_projection"),
@@ -3966,6 +4153,7 @@ def main() -> int:
             "launches_on_lab_path": {k: c[launches] for k, c in lab_counts.items()},
             "launches_on_serving_path": {"serving_profile_train": serving_counts["serving_profile_train"][launches]},
             "launches_on_parallel_path": {k: c[launches] for k, c in parallel_counts.items()},
+            "launches_on_bench_path": {k: c[launches] for k, c in bench_counts.items()},
         }
         kernels.append(bptt[name])
     bptt["forward"].update({
@@ -4001,7 +4189,8 @@ def main() -> int:
         "launches_by_path": {"fleet": fleet["fleet_counts"]["fused_ntm_addressing"],
                              "device_loop": fleet["loop_counts"]["fused_ntm_addressing"],
                              **{k: c.get("fused_ntm_addressing", 0) for k, c in serving_counts.items()},
-                             "parallel_dn_use_pallas": parallel_counts["parallel_dn_use_pallas"]["fused_ntm_addressing"]},
+                             "parallel_dn_use_pallas": parallel_counts["parallel_dn_use_pallas"]["fused_ntm_addressing"],
+                             **{k: c["fused_ntm_addressing"] for k, c in bench_counts.items()}},
         "max_abs_err": addr["max_abs_err"], "grad_max_abs_err": addr["grad_err"], "ms": at64["ms"],
         "plain_ms": at64["plain_ms"], "bound_ms": at64["bound_ms"], "bound_by": at64["bound_by"], "library_ms": None,
         "device_ms": at64["device_ms"],
@@ -4060,8 +4249,9 @@ def main() -> int:
     # the shapes it ran
     bptt["backward"]["lab_first_steps"] = {k: {f: v["check"][f] for f in ("loss_rel", "grad_rel", "ms", "plain_ms")}
                                            for k, v in lab.items() if isinstance(v, dict) and "check" in v}
-    log("train", f"{smi}: the train step at B={train['b1']['B']} T={train['b1']['T']}: {train['step_ms']:.3f} ms = "
-                 f"{TRAIN_B * TRAIN_L / train['step_ms'] * 1e3:.1f} trained frames/s, peak {train['peak_gb']:.2f} GB")
+    step_ms = bench["result"]["train_step_ms_cached"]
+    log("train", f"{smi}: the train step at B={train['b1']['B']} T={train['b1']['T']} (the bench's): {step_ms:.2f} ms = "
+                 f"{TRAIN_B * TRAIN_L / step_ms * 1e3:.1f} trained frames/s, peak {train['peak_gb']:.2f} GB")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

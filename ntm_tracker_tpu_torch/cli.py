@@ -28,12 +28,13 @@ defaults).
   convert-ntm           a reference NTM training checkpoint -> .npz
   convert-dnc           a reference DNC training checkpoint -> .npz
   export-serving        the frame step as torch.export programs in one .npz
+  bench                 the headline benchmark (benchmarks.py): one JSON line
 
 The JAX package's --platform is --device here: cuda unless the caller asks
 for another (the CPU runs the plain PyTorch routes). A kernel that fails
 to build or launch raises; no command moves to another route on its own.
-The JAX package's `bench` is not ported (ROADMAP.md, item A1). In trax
-mode track-vot's stdout is the protocol's: everything else goes to stderr.
+In trax mode track-vot's stdout is the protocol's: everything else goes to
+stderr.
 
 train-offsets and train-heatmap train data-parallel over torch.distributed
 with --dist_coordinator/--dist_num_processes/--dist_process_id (or
@@ -1038,6 +1039,13 @@ def cmd_export_serving(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from ntm_tracker_tpu_torch.benchmarks import main as bench_main
+
+    bench_main(device=args.device)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from ntm_tracker_tpu_torch.config import DataConfig
 
@@ -1327,6 +1335,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma-separated platforms to export for (cuda, cpu); default = --device")
     es.add_argument("--out", required=True, help="destination .npz")
     es.set_defaults(fn=cmd_export_serving)
+
+    b = sub.add_parser("bench", help="headline throughput benchmark")
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -31,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from ntm_tracker_tpu_torch.benchmarks import kernel_launches
 from ntm_tracker_tpu_torch.config import resolve_device
 from ntm_tracker_tpu_torch.data.synthetic import SCENES, make_scene, make_video
 from ntm_tracker_tpu_torch.models.core import make_core
@@ -178,17 +179,6 @@ def closed_loop_finetune(cfg, vgg, params, steps: int, device, frames: int) -> d
             log(f"  [closed-loop] step {i} loss {float(m['loss']):.4f}")
     log(f"  closed-loop fine-tuned {steps} steps in {time.time() - t0:.0f}s")
     return scene_ious(cfg, vgg, ft_params["core"], "closed-loop", device, frames)
-
-
-def kernel_launches() -> dict:
-    """The launch counts of B1 (by route) and B2's four wrappers."""
-    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
-
-    out = {"ntm_scan_fused": ntm_scan_fused.launches, "ntm_scan_fused_by_route": dict(ntm_scan_fused.launches_by_route)}
-    for name in ("token_projection", "bptt_forward", "bptt_backward", "grad_reduce"):
-        out[name] = getattr(scan_bptt, name).launches
-    return out
 
 
 def main(argv=None) -> int:

@@ -238,17 +238,21 @@ def test_parser_keeps_the_jax_flags_and_defaults():
     for command in ("preprocess", "mine-sequences", "cache-features", "train-offsets", "train-heatmap",
                     "dnc-repeat-copy", "copy-paste", "train-wholeframe", "train-active-resize", "lstm-only",
                     "sanity-check", "find-validation-batch", "inspect-batch", "track-vot", "validate",
-                    "convert-vgg", "convert-ntm", "convert-dnc", "export-serving"):
+                    "convert-vgg", "convert-ntm", "convert-dnc", "export-serving", "bench"):
         mine, ref = defaults(ours, command), defaults(theirs, command)
         assert mine == ref, command
 
 
 def test_only_bench_is_missing():
+    """No JAX command is missing from the port (bench, the last, came with
+    benchmarks.py), and bench dispatches to benchmarks.main on --device."""
     def commands(parser):
         return set(next(a for a in parser._actions if a.dest == "command").choices)
 
-    assert commands(jcli.build_parser()) - commands(cli.build_parser()) == {"bench"}
+    assert commands(jcli.build_parser()) - commands(cli.build_parser()) == set()
     assert commands(cli.build_parser()) <= commands(jcli.build_parser())
+    args = cli.build_parser().parse_args(["--device", "cpu", "bench"])
+    assert args.fn is cli.cmd_bench and args.device == "cpu"
 
 
 def test_profile_steps_traces_its_window(workdir, monkeypatch):
