@@ -10,15 +10,20 @@ every cell step) and the cached-token training step at full width, holds
 the lane-packed kernels against their plain version, B1 and B2 at the
 frame and train shapes, and times the kernels, their plain versions, the
 frame step, the fleet step on three cell routes, the device loop and the
-train step; splits B3's phases with its probe variant (clock64() stamps);
-then the accuracy path: the demo config's NTM trains through B2 until its
+train step; reads the JAX package's full-width orbax checkpoint in the
+repository with the port alone (every leaf's checksum), resumes its train
+step through B2 against the JAX package's recorded loss and gradient norm,
+and tracks from its weights through B1; splits B3's phases with its probe
+variant (clock64() stamps); then the accuracy path: the demo config's NTM
+trains through B2 until its
 loss falls and tracks a held-out clip through B1 within the accuracy
 artifact's tripwires, the DNC's train step on the card is held against the
 CPU's, and the flagship width trains on build_dataset's tokens; then the
 real-data path through the CLI on a synthetic VID tree: preprocess,
 cache-features (tokens against the CPU's), train-offsets on cached tokens
 (step 0's loss against the CPU's, B2's and B1's launches counted) and on
-decoded frames (host and device resize), and a resume from a checkpoint;
+decoded frames (host and device resize), a resume from a checkpoint and
+one from the JAX package's orbax checkpoint;
 then, in the same tree, the experiment lab through the CLI: train-heatmap
 (both serializations, B2 with the tokens' gradient under the compressor),
 train-wholeframe and train-active-resize (B2 once a frame) on a pickle
@@ -32,9 +37,10 @@ subprocesses, each line's launches held.
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc (PATH or /usr/local/cuda/bin) and nvidia-smi.
-Every phase prints one flushed line with its elapsed seconds; any failure
-raises, so the exit code is non-zero and the final result line is not
+Needs one CUDA card, nvcc (PATH or /usr/local/cuda/bin), nvidia-smi and
+libzstd.so.1. Every phase prints one flushed line with its elapsed
+seconds, and a [phases] line before the result gives each phase's; any
+failure raises, so the exit code is non-zero and the final result line is not
 printed. Card-only checks of the port live here, not in pytest: the test
 suite's conftest imports JAX, which the card's machine does not have.
 
@@ -47,6 +53,7 @@ from __future__ import annotations
 import atexit
 import dataclasses
 import functools
+import importlib
 import json
 import os
 import subprocess
@@ -194,7 +201,8 @@ LEGACY_TOL = 1e-5
 # INT8_TOL of the largest (both sum exactly in int32: float32 rounding of
 # the dequantization is what differs) and their cosine to the exact path
 # above INT8_COS (the JAX package's bar); train-offsets --profile_steps.
-SERVE_CLIP, SERVE_FLEET, SERVE_VAL_FRAMES = 12, 8, 8
+# (SERVE_VAL_FRAMES was 8 before the orbax phase took its room)
+SERVE_CLIP, SERVE_FLEET, SERVE_VAL_FRAMES = 12, 8, 5
 # the packed phase holds B4 against its plain version on phase_bptt's cases
 # at T <= PACKED_CHECK_T (cut from 1,300 to make room for the parallel
 # phase: phase_bptt holds B2 against the plain loop at T = 1,300, and
@@ -242,15 +250,16 @@ PAR_KNOB_B, PAR_KNOB_L = 4, 2
 SCALE_HEAD_STEPS, SCALE_HEAD_FRAMES = 5, 12
 
 # the bench phase: (a) benchmarks.main in-process at BENCH_KW (the JAX
-# bench's sizes cut: a sweep of 128 -> 256, 5 timed steps a pass, 20
+# bench's sizes cut: a sweep of 128 -> 256, 3 timed steps a pass, 20
 # latency frames, the cached train step at B=256, L=20 for 2 steps, the
-# device loop 5 steps a pass; no TRACK artifact); its JSON line carries
+# device loop 3 steps a pass (both were 5, cut for room);
+# no TRACK artifact); its JSON line carries
 # every key of the JAX bench's (JAX_BENCH_KEYS, ntm_tracker_tpu/
 # benchmarks.py:490-516). (b) the three measurement tools as CLI
-# subprocesses at BENCH_TOOLS' sizes, run beside the data phase, whose
-# times go into no kernel's entry; each JSON line's launches held to the
-# counts its variant implies.
-BENCH_KW = dict(sweep_max=256, iters=5, latency_frames=20, train_iters=2, device_loop_iters=5, track_artifact=False)
+# subprocesses at BENCH_TOOLS' sizes, run beside the accuracy and data
+# phases, whose times go into no kernel's entry; each JSON line's launches
+# held to the counts its variant implies.
+BENCH_KW = dict(sweep_max=256, iters=3, latency_frames=20, train_iters=2, device_loop_iters=3, track_artifact=False)
 # the measured fields of the bench's JSON line that go into the kernels line
 BENCH_MEASURED = ("value", "best_batch", "pipelined_frame_ms_b1", "pipelined_frame_ms_b1_med", "p10_roundtrip_ms_b1",
                   "p50_roundtrip_ms_b1", "p90_roundtrip_ms_b1", "roundtrip_n", "device_loop_frames_per_sec",
@@ -270,12 +279,85 @@ BENCH_TOOLS = {
 }
 
 
+# B4's libraries, built beside the others and needed first by the packed phase
+PACKED_LIBRARIES = ("scan_packed", "scan_packed_bwd", "scan_packed_probe")
+# the nice value of B1's, B2's and B3's compilers and of the CPU workers,
+# and of the work needed only later (B4's compilers, the serving exports):
+# main's thread first
+BUILD_NICE, LATER_NICE = 10, 19
+# the orbax phase: the JAX package's full-width checkpoint that the
+# repository carries (tests/make_orbax_fixture.py writes it and its JSON
+# record), read by the port alone; the resumed B2 step within
+# ORBAX_LOSS_RTOL (loss) and ORBAX_GNORM_RTOL (pre-clip global gradient
+# norm) of the JAX package's recorded step on the same batch (float32 on
+# both sides, JAX's on a CPU at "highest" matmul precision: other sums in
+# other orders over T=130 steps), and of the plain route on the card at
+# F32_TOL / GRAD_TOL; StreamingTracker from the restored params for
+# ORBAX_FRAMES frames on B1 against the plain loop (F32_TOL). The data
+# phase's (f) resumes train-offsets from the same directory.
+ORBAX_DIR = os.path.join("tests", "fixtures", "orbax_ntm_full")
+ORBAX_LOSS_RTOL, ORBAX_GNORM_RTOL = 1e-4, 1e-3
+ORBAX_FRAMES = 8
+# plain references that no kernel runs and no check needs at once (float64
+# referees, the CPU's losses) run in CPU_WORKERS spawned processes of
+# CPU_THREADS threads each, beside the card's phases; each check reads its
+# result where it is made
+CPU_WORKERS, CPU_THREADS = 2, 2
+# seconds of each check_budget step since the one before (a name that
+# recurs adds up), printed on one line before the kernels line
+PHASE_S: dict = {}
+_PHASE_MARK = [T_START]
+
+
+def _cpu_worker_init() -> None:
+    os.nice(BUILD_NICE)
+    torch.set_num_threads(CPU_THREADS)
+
+
+def start_cpu_pool():
+    """The CPU workers (spawned: this process holds a CUDA context and
+    threads); shut down at exit."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_cpu_worker_init)
+    atexit.register(pool.shutdown, cancel_futures=True)
+    return pool
+
+
+def offload(pool, fn, *args):
+    """fn(*args) in the CPU pool: a future; pool=None runs it now (a phase
+    run alone)."""
+    from concurrent.futures import Future
+
+    if pool is not None:
+        return pool.submit(fn, *args)
+    done = Future()
+    done.set_result(fn(*args))
+    return done
+
+
+def cpu_offsets_loss(cfg, params, batch) -> tuple:
+    """(OffsetExperiment.loss_fn's loss on the CPU, seconds): the data
+    phase's CPU reference."""
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = float(OffsetExperiment(cfg, None, device="cpu").loss_fn(params, batch)[0])
+    return loss, time.perf_counter() - t0
+
+
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] t={time.perf_counter() - T_START:.1f}s {msg}", flush=True)
 
 
 def check_budget(phase: str) -> None:
-    elapsed = time.perf_counter() - T_START
+    now = time.perf_counter()
+    PHASE_S[phase] = PHASE_S.get(phase, 0.0) + now - _PHASE_MARK[0]
+    _PHASE_MARK[0] = now
+    elapsed = now - T_START
     if elapsed > BUDGET_S:
         raise RuntimeError(f"over budget after phase {phase}: {elapsed:.1f}s > {BUDGET_S}s")
 
@@ -630,29 +712,68 @@ def packed_wide_cases() -> dict:
     }
 
 
-def phase_bptt(dev: torch.device, IN: int) -> dict:
-    """B2 against its plain version on the card, on five cases: the
-    forward at every tile that fits against bptt_forward_reference on the
-    same projection (logits, final state and residual streams, the same
-    bits on a rerun), and the whole route (autograd Function) against
-    autograd through the plain loop: logits, final state and every
-    gradient, with the forward at each tile and the backward at one and
-    two rows per block (where two fit), and the flagship cases also with
-    tokens that need no gradient (the backward then computes no dtokens);
-    and B1's trainable wrapper against the same plain version. Returns the
-    tiles each case ran at and the forward's largest error."""
+def bptt_case_inputs(name: str, dev: torch.device, IN: int) -> tuple:
+    """(cfg, B, T, params, tokens, cotangents, state_fn) of phase_bptt's
+    case `name` on `dev`: one of bptt_cases() (seed 300 + its index),
+    "e_wconv_zero" (wconv_zero_case) or "b1_trainable" (the flagship at
+    B=2, T=65, seed 330)."""
     from ntm_tracker_tpu_torch.config import NTMConfig
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
-    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
-    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt, ntm_scan_fused_bptt_reference
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import MAX_SMEM_BYTES, ntm_scan_fused_trainable
 
-    def compare(name, ncfg, B, T, scan, params, tokens, cot, state_fn, variants=((None, None, True),)):
-        torch.cuda.synchronize()
+    if name == "e_wconv_zero":
+        ncfg, B, params, tokens, cot, zero_state, _, _ = wconv_zero_case(dev, IN)
+        return ncfg, B, 1, params, tokens, cot, zero_state
+    cases = bptt_cases()
+    ncfg, B, T = cases[name] if name in cases else (NTMConfig(), 2, 65)
+    seed = 300 + list(cases).index(name) if name in cases else 330
+    params, tokens, cot = scan_case(ncfg, B, T, seed, dev, IN)
+    return ncfg, B, T, params, tokens, cot, lambda p: init_ntm_state(p, ncfg, B)
+
+
+def bptt_plain_reference(name: str, IN: int) -> tuple:
+    """Autograd through the plain loop (ntm_scan_fused_bptt_reference) on
+    phase_bptt's case `name`, on the CPU from the same seeded inputs
+    (phase_bptt's references, run in the CPU pool from the start): (logits,
+    final state, {name: grad}, seconds)."""
+    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt_reference
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    t0 = time.perf_counter()
+    ncfg, _, _, params, tokens, cot, state_fn = bptt_case_inputs(name, torch.device("cpu"), IN)
+    logits, final, grads = grads_of(ntm_scan_fused_bptt_reference, params, ncfg, tokens, cot, state_fn)
+    return logits, tree_map(lambda t: t.detach(), final), grads, time.perf_counter() - t0
+
+
+def start_bptt_references(IN: int, pool) -> dict:
+    """bptt_plain_reference of every phase_bptt case, submitted to `pool`:
+    {name: future}."""
+    return {name: offload(pool, bptt_plain_reference, name, IN)
+            for name in (*bptt_cases(), "e_wconv_zero", "b1_trainable")}
+
+
+def phase_bptt(dev: torch.device, IN: int, plain: dict) -> dict:
+    """B2 against its plain version, on five cases: the forward at every
+    tile that fits against bptt_forward_reference on the same projection
+    on the card (logits, final state and residual streams, the same bits
+    on a rerun), and the whole route (autograd Function) against autograd
+    through the plain loop on the CPU (`plain`: start_bptt_references'
+    futures): logits, final state and every gradient, with the forward at
+    each tile and the backward at one and two rows per block (where two
+    fit), and the flagship cases also with tokens that need no gradient
+    (the backward then computes no dtokens); and B1's trainable wrapper
+    against the same plain version. Returns the tiles each case ran at and
+    the forward's largest error."""
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
+    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import MAX_SMEM_BYTES, ntm_scan_fused_trainable
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    def compare(name, case, inputs, scan, variants=((None, None, True),)):
+        ncfg, B, T, params, tokens, cot, state_fn = inputs
         t0 = time.perf_counter()
-        pl, pf, pg = grads_of(ntm_scan_fused_bptt_reference, params, ncfg, tokens, cot, state_fn)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t0)
+        pl, pf, pg, plain_s = plain[case].result()
+        wait_s = time.perf_counter() - t0
+        pl, pf, pg = (tree_map(lambda t: t.to(dev), x) for x in (pl, pf, pg))
         worst, kg = 0.0, None
         for frows, brows, token_grads in variants:
             kscan = scan if (frows, brows) == (None, None) else functools.partial(
@@ -669,7 +790,7 @@ def phase_bptt(dev: torch.device, IN: int) -> dict:
             tag = "" if (frows, brows) == (None, None) else f" rows {frows}/{brows}, token grads {token_grads}"
             log("bptt", f"{name} B={B} T={T}{tag}: fwd max_abs={fwd:.3e} (tol {F32_TOL:g}); grads max rel={gerr[gw]:.3e} "
                         f"at {gw} (tol {GRAD_TOL:g}, {len(gerr)} gradients); finite={finite}; fwd+bwd {kernel_ms:.1f} ms, "
-                        f"plain {plain_ms:.1f} ms (host clock, first call)")
+                        f"plain on the CPU {plain_s:.2f} s (a CPU worker; waited {wait_s:.2f} s)")
             if not finite or fwd > F32_TOL or gerr[gw] > GRAD_TOL:
                 raise AssertionError(f"{name}{tag}: the kernels disagree with the plain version")
             worst = max(worst, gerr[gw])
@@ -701,16 +822,15 @@ def phase_bptt(dev: torch.device, IN: int) -> dict:
     def fwd_tiles(ncfg):
         return [r for r in scan_bptt.FORWARD_ROWS if scan_bptt.smem_bytes(ncfg, IN, False, r) <= MAX_SMEM_BYTES]
 
-    cases = bptt_cases()
     out, ran, fwd_ran, fwd_worst = {}, {}, {}, 0.0
-    for i, (name, (ncfg, B, T)) in enumerate(cases.items()):
-        params, tokens, cot = scan_case(ncfg, B, T, 300 + i, dev, IN)
-        fwd_worst = max(fwd_worst, forward_check(name, ncfg, B, T, params, tokens, init_ntm_state(params, ncfg, B)))
+    for name in bptt_cases():
+        inputs = bptt_case_inputs(name, dev, IN)
+        ncfg, B, T, params, tokens, _, state_fn = inputs
+        fwd_worst = max(fwd_worst, forward_check(name, ncfg, B, T, params, tokens, state_fn(params)))
         ran[name], fwd_ran[name] = bwd_tiles(ncfg), fwd_tiles(ncfg)
         variants = ([(r, None, True) for r in fwd_ran[name]]
                     + [(None, r, g) for r in ran[name] for g in ((True, False) if "flagship" in name else (True,))])
-        out[name] = compare(name, ncfg, B, T, ntm_scan_fused_bptt, params, tokens, cot,
-                            lambda p, ncfg=ncfg, B=B: init_ntm_state(p, ncfg, B), variants)
+        out[name] = compare(name, name, inputs, ntm_scan_fused_bptt, variants)
     log("bptt", f"f32 gradient error vs T: T=65 (B=70) {out['b_flagship']['grad_rel']:.3e}, "
                 f"T=1300 (B=1) {out['a_flagship']['grad_rel']:.3e} relative (tol {GRAD_TOL:g}); forward rows per block "
                 f"run per case {fwd_ran}; backward rows per block {ran} (two backward rows do not fit the two-layer "
@@ -722,8 +842,8 @@ def phase_bptt(dev: torch.device, IN: int) -> dict:
     fwd_worst = max(fwd_worst, forward_check("e_wconv_zero", ncfg, B, 1, params, tokens, zero_state(params)))
     ran["e_wconv_zero"], fwd_ran["e_wconv_zero"] = bwd_tiles(ncfg), fwd_tiles(ncfg)
     for rows in ran["e_wconv_zero"]:
-        res = compare(f"e_wconv_zero rows {rows}", ncfg, B, 1, functools.partial(
-            ntm_scan_fused_bptt, backward_rows_per_block=rows), params, tokens, cot, zero_state)
+        res = compare(f"e_wconv_zero rows {rows}", "e_wconv_zero", (ncfg, B, 1, params, tokens, cot, zero_state),
+                      functools.partial(ntm_scan_fused_bptt, backward_rows_per_block=rows))
         g_gamma = (res["grads"]["heads_b"][cols["gamma"]], res["grads"]["heads_w"][:, cols["gamma"]])
         if any(bool((g != 0).any()) for g in g_gamma):
             raise AssertionError("d/dgamma must be exactly 0 where w_conv is 0 or 1")
@@ -731,10 +851,8 @@ def phase_bptt(dev: torch.device, IN: int) -> dict:
                 f"(heads_b, heads_w gamma columns) exactly 0 and every gradient finite at rows {ran['e_wconv_zero']}")
 
     # B1 with gradients: the kernel's forward, autograd of the plain loop behind it
-    ncfg, B, T = NTMConfig(), 2, 65
-    params, tokens, cot = scan_case(ncfg, B, T, 330, dev, IN)
-    compare("scan_cell.ntm_scan_fused_trainable", ncfg, B, T, lambda p, c, t, st: ntm_scan_fused_trainable(p, c, t, st),
-            params, tokens, cot, lambda p: init_ntm_state(p, ncfg, B))
+    compare("scan_cell.ntm_scan_fused_trainable", "b1_trainable", bptt_case_inputs("b1_trainable", dev, IN),
+            lambda p, c, t, st: ntm_scan_fused_trainable(p, c, t, st))
     return {"backward": ran, "forward": fwd_ran, "forward_max_abs_err": fwd_worst}
 
 
@@ -747,6 +865,74 @@ def reset_counts() -> None:
     ntm_scan_fused.launches = token_projection.launches = 0
     for route in ntm_scan_fused.launches_by_route:
         ntm_scan_fused.launches_by_route[route] = 0
+
+
+def frame_path(cfg, vgg, params, video, region0, dev: torch.device) -> dict:
+    """StreamingTracker at B=1 from `params` on `video`: init on its first
+    frame, then track each later one on B1's cluster route (one launch and
+    one projection a frame, checked), and the same crops through the plain
+    loop (build_frame_step with fused_inference=False): the offsets within
+    F32_TOL. The launch counts are set to 0 first (and held on cuda only)."""
+    from ntm_tracker_tpu_torch.data import geometry
+    from ntm_tracker_tpu_torch.data.image_ops import crop_and_resize
+    from ntm_tracker_tpu_torch.models.core import make_core
+    from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
+    from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN
+    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import token_projection
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+    from ntm_tracker_tpu_torch.tracking.tracker import (
+        StreamingTracker, build_frame_step, first_frame_gt, region_geometry,
+    )
+
+    n_track = len(video) - 1
+    trk = StreamingTracker(cfg, vgg, params, device=dev)
+    init_bbox = geometry.initial_transformed_bbox(cfg.data.cropbox_grid, cfg.data.bbox_grid)
+    reset_counts()
+    trk.init(video[0], region0)
+    per_frame = [ntm_scan_fused.launches]
+    cropboxes, offsets, regions = [list(trk.cropbox)], [], []
+    for t in range(1, 1 + n_track):
+        cropboxes.append(list(trk.cropbox))
+        regions.append(trk.track(video[t]))
+        offsets.append([trk.output_bbox[0] - init_bbox[0], trk.output_bbox[1] - init_bbox[1]])
+        per_frame.append(ntm_scan_fused.launches)
+    launches = ntm_scan_fused.launches
+    routes = dict(ntm_scan_fused.launches_by_route)
+    proj = token_projection.launches
+    if dev.type == "cuda" and per_frame != list(range(1, 2 + n_track)):
+        raise AssertionError(f"kernel launches per frame {per_frame}: expected one per frame")
+    if dev.type == "cuda" and (routes != {"cluster": 1 + n_track, "tile": 0} or proj != 1 + n_track):
+        raise AssertionError(f"the frame path ran B1's routes {routes} and {proj} projections: expected "
+                             f"the cluster route and one projection per frame")
+    offsets = np.asarray(offsets)
+    if offsets.shape != (n_track, 2) or not np.isfinite(offsets).all() or not np.isfinite(regions).all():
+        raise AssertionError(f"bad tracker output: offsets {offsets}")
+
+    # the same crops through the plain loop on the card
+    plain_cfg = dataclasses.replace(cfg, fused_inference=False)
+    step_first, step_rest = build_frame_step(plain_cfg, make_core(plain_cfg), vgg, params, device=dev)
+    mean = torch.as_tensor(VGG_MEAN, device=dev)
+
+    def crop(frame, box):
+        img = torch.as_tensor(frame, device=dev).float() - mean
+        return crop_and_resize(img[None], torch.tensor([box], dtype=torch.float32, device=dev),
+                               (cfg.data.crop_size, cfg.data.crop_size))
+
+    nb, _, tr = region_geometry(cfg.data, (video.shape[2], video.shape[1]), region0)
+    gt = torch.as_tensor(first_frame_gt(cfg, nb, tr).reshape(1, -1), device=dev)
+    with torch.no_grad():
+        pstate = init_ntm_state(trk.params, cfg.ntm, 1)
+    _, pstate = step_first(crop(video[0], cropboxes[0]), gt, pstate)
+    plain_offsets = []
+    for t in range(1, 1 + n_track):
+        off, pstate = step_rest(crop(video[t], cropboxes[t]), pstate)
+        plain_offsets.append(off[0].cpu().numpy())
+    off_err = float(np.abs(offsets - np.asarray(plain_offsets, np.float64)).max())
+    if off_err > F32_TOL:
+        raise AssertionError(f"fused frame step disagrees with the plain loop: {off_err:.3e}")
+    return {"trk": trk, "plain_cfg": plain_cfg, "crop": crop, "cropboxes": cropboxes, "per_frame": per_frame,
+            "launches": launches, "routes": routes, "proj": proj, "offsets": offsets, "regions": regions,
+            "off_err": off_err}
 
 
 def phase_cluster_info(dev: torch.device, IN: int) -> dict:
@@ -1236,42 +1422,52 @@ def report_step(tag: str, err: dict) -> None:
 
 
 def train_reference(dev: torch.device) -> dict:
-    """The training slice's inputs and its float64 referee, in plain
+    """The training slice's inputs and its plain references, in plain
     PyTorch (no kernel of the port), so that main runs them while nvcc
     builds: the config, params, optimizer state, the device batch (cached
     tokens, B=256 rows of L=20 frames, drawn on the card: the host draws
-    only the labels) and the plain loop's gradients in float64 from those
-    params on that batch."""
+    only the labels) and the plain autograd train step from those params on
+    that batch (loss, logits, gradients, params and optimizer state after,
+    its times and peak memory)."""
     from ntm_tracker_tpu_torch.config import TrackerConfig, TrainConfig
-    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, _synthetic_labels
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, device_cached_batch
+    from ntm_tracker_tpu_torch.train.optim import tree_map
 
     base = TrackerConfig(train=TrainConfig(batch_size=TRAIN_B, sequence_length=TRAIN_L))
     exp = OffsetExperiment(base, None, device=dev)  # fused_bptt="auto": the kernels on cuda at f32
     params, opt_state = exp.init(torch.Generator().manual_seed(1))
     t0 = time.perf_counter()
-    # synthetic_cached_batch's layout and range (float16 tokens in [0, 40)),
-    # without its host draws (it first draws and drops an image batch's
-    # worth of numbers, 770M at this shape, to keep the JAX package's order)
-    batch = exp.device_batch(_synthetic_labels(base, np.random.RandomState(0)))
-    n = TRAIN_B * TRAIN_L
-    batch["features"] = (torch.rand(n, base.num_features, base.feature_depth, device=dev,
-                                    generator=torch.Generator(device=dev).manual_seed(0)) * 40).half()
+    # synthetic_cached_batch's layout and range, without its host draws (it
+    # first draws and drops an image batch's worth of numbers, 770M at this
+    # shape, to keep the JAX package's order)
+    batch = device_cached_batch(base, 0, dev)
     batch_s = time.perf_counter() - t0
     expp = OffsetExperiment(dataclasses.replace(base, train=dataclasses.replace(base.train, fused_bptt=False)),
                             None, device=dev)
+    # torch.utils.checkpoint (remat) imports torch._dynamo at its first call,
+    # 8-13 s on the card's machines: first, so that the step's times are its own
+    importlib.import_module("torch._dynamo")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    g64 = offsets_grads(expp, params, batch, torch.float64)[2]
-    return {"base": base, "exp": exp, "expp": expp, "params": params, "opt_state": opt_state, "batch": batch,
-            "batch_s": batch_s, "g64": g64, "g64_s": time.perf_counter() - t0}
+    loss, logits, grads, fwd_ms, bwd_ms = offsets_grads(expp, params, batch)
+    it = iter(grads)
+    q, s = exp.optimizer().update(tree_map(lambda _: next(it), params), opt_state, params)
+    torch.cuda.synchronize()
+    plain = {"loss": loss, "logits": logits, "grads": grads, "params": q, "opt_state": s, "fwd_ms": fwd_ms,
+             "bwd_ms": bwd_ms, "step_ms": 1e3 * (time.perf_counter() - t0),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return {"base": base, "exp": exp, "params": params, "opt_state": opt_state, "batch": batch, "batch_s": batch_s,
+            "plain": plain}
 
 
 def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     """The training slice at full width: OffsetExperiment on cached tokens,
     B=256 rows of L=20 frames (T=1300), through the fused BPTT kernels;
     the main path's first step held against the plain autograd step from
-    the same params at the same shape (and again at B=8), and both against
-    `ref`'s float64 gradients (train_reference); then the kernels' own
-    times."""
+    the same params at the same shape (`ref`'s: train_reference), and
+    again at B=8, where both are held against the plain loop in float64;
+    then the kernels' own times."""
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
     from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
     from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused, route_for, run_route
@@ -1279,7 +1475,7 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     from ntm_tracker_tpu_torch.train.optim import tree_leaves, tree_map
     from ntm_tracker_tpu_torch.train.serialize import serialize_tokens
 
-    base, exp, expp, batch = ref["base"], ref["exp"], ref["expp"], ref["batch"]
+    base, exp, batch, plain = ref["base"], ref["exp"], ref["batch"], ref["plain"]
     params, opt_state = ref["params"], ref["opt_state"]
     ncfg, L = base.ntm, base.ntm.controller_num_layers
     log("train", f"synthetic cached batch B={TRAIN_B} L={TRAIN_L} (float16 tokens {tuple(batch['features'].shape)}) "
@@ -1324,20 +1520,13 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     check_budget("train")
 
     # ---- the main path's first step against the plain autograd step at B=256 ------
-    opt = exp.optimizer()
     floss, flogits, fgrads, _, _ = offsets_grads(exp, params, batch)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ploss, plogits, pgrads, plain_fwd, plain_bwd = offsets_grads(expp, params, batch)
-    it = iter(pgrads)
-    qp, sp = opt.update(tree_map(lambda _: next(it), params), opt_state, params)
-    torch.cuda.synchronize()
-    plain_step = 1e3 * (time.perf_counter() - t0)
-    log("train", f"{smi}: plain autograd train step B={TRAIN_B} T={base.total_steps} (remat full: each step checkpointed) "
-                 f"{plain_step:.1f} ms = {TRAIN_B * TRAIN_L / plain_step * 1e3:.1f} frames/s "
-                 f"(forward {plain_fwd:.1f} ms, backward {plain_bwd:.1f} ms, CUDA events); "
-                 f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; loss {ploss:.6f}")
+    ploss, plogits, pgrads, qp, sp = (plain[k] for k in ("loss", "logits", "grads", "params", "opt_state"))
+    plain_step, plain_fwd, plain_bwd = plain["step_ms"], plain["fwd_ms"], plain["bwd_ms"]
+    log("train", f"{smi}: plain autograd train step B={TRAIN_B} T={base.total_steps} (remat full: each step checkpointed; "
+                 f"while the kernels built, the compilers niced) {plain_step:.1f} ms = "
+                 f"{TRAIN_B * TRAIN_L / plain_step * 1e3:.1f} frames/s (forward {plain_fwd:.1f} ms, backward "
+                 f"{plain_bwd:.1f} ms, CUDA events); peak {plain['peak_gb']:.2f} GB; loss {ploss:.6f}")
     fwd_err256 = max_abs(flogits, plogits)
     err256 = step_errors(params, (losses[0], fgrads, p1, s1), (ploss, pgrads, qp, sp))
     with torch.no_grad():
@@ -1349,19 +1538,8 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     report_step(f"B={TRAIN_B} main path's first step vs plain", err256)
     if fwd_err256 > F32_TOL or eval_err > F32_TOL or abs(floss - losses[0]) > F32_TOL * max(1.0, abs(ploss)):
         raise AssertionError("the fused forward disagrees with the plain one at the main path's shape")
-    # both float32 routes against the plain loop in float64: which of them
-    # carries the gap between them
-    g64 = ref.pop("g64")
-    names = list(named_leaves(params))
-    vs64 = {tag: grad_errors(dict(zip(names, g)), dict(zip(names, g64))) for tag, g in (("fused", fgrads), ("plain", pgrads))}
-    log("train", f"B={TRAIN_B} gradients vs the plain loop in float64 ({ref['g64_s']:.1f}s, while the kernels built), "
-                 f"max rel per parameter, fused / plain float32: "
-                 + ", ".join(f"{k} {vs64['fused'][k]:.2e} / {vs64['plain'][k]:.2e}" for k in names))
-    worst64 = max(vs64["fused"].values())
-    if worst64 > GRAD_TOL:
-        raise AssertionError(f"the fused gradients are {worst64:.2e} from the float64 ones (tol {GRAD_TOL:g})")
-    f64_err = {"fused": worst64, "plain": max(vs64["plain"].values())}
-    del fgrads, pgrads, g64, qp, sp
+    del fgrads, pgrads, qp, sp
+    ref.pop("plain")
     check_budget("train")
 
     # ---- one fused step against one plain autograd step at B=8 --------------------
@@ -1372,9 +1550,9 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
                                                                fused_bptt=True))
     cfg8p = dataclasses.replace(cfg8, train=dataclasses.replace(cfg8.train, fused_bptt=False))
     batch8 = exp.device_batch(synthetic_cached_batch(cfg8, np.random.RandomState(1)))
-    runs, ms8 = {}, {}
+    runs, ms8, exps = {}, {}, {}
     for tag, c in (("fused", cfg8), ("plain", cfg8p)):
-        e = OffsetExperiment(c, None, device=dev)
+        e = exps[tag] = OffsetExperiment(c, None, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         q, s8, mm = e.make_train_step()(params, opt_state, batch8)
@@ -1383,7 +1561,21 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     report_step(f"B=8 T={cfg8.total_steps} one step fused vs plain autograd (remat full), "
                 f"step {ms8['fused']:.1f} ms fused vs {ms8['plain']:.1f} ms plain (host clock)",
                 step_errors(params, runs["fused"], runs["plain"]))
-    del runs
+    # both float32 routes against the plain loop in float64, here at B=8
+    # (at the main path's shape it cost 23-65 s of host dispatch): which of
+    # them carries the gap between them
+    t0 = time.perf_counter()
+    g64 = offsets_grads(exps["plain"], params, batch8, torch.float64)[2]
+    names = list(named_leaves(params))
+    vs64 = {tag: grad_errors(dict(zip(names, runs[tag][1])), dict(zip(names, g64))) for tag in ("fused", "plain")}
+    log("train", f"B=8 T={cfg8.total_steps} gradients vs the plain loop in float64 ({time.perf_counter() - t0:.1f}s), "
+                 f"max rel per parameter, fused / plain float32: "
+                 + ", ".join(f"{k} {vs64['fused'][k]:.2e} / {vs64['plain'][k]:.2e}" for k in names))
+    worst64 = max(vs64["fused"].values())
+    if worst64 > GRAD_TOL:
+        raise AssertionError(f"the fused gradients are {worst64:.2e} from the float64 ones (tol {GRAD_TOL:g})")
+    f64_err = {"fused": worst64, "plain": max(vs64["plain"].values()), "B": 8, "T": cfg8.total_steps}
+    del runs, g64
     check_budget("train")
 
     # ---- the kernels alone at the main path's shape ---------------------------------
@@ -1541,18 +1733,44 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     }
 
 
-def initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_names, b2, b4, rows: int = 4) -> dict:
+def plain_initial_state_grads(params, ncfg, tokens, state, dlogits, dfinal) -> tuple:
+    """The plain loop's initial-state gradients in float64 and in float32
+    on the CPU (state as scan_bptt.flatten_state lists its tensors), and
+    the seconds they took: initial_state_referee's references."""
+    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused_reference
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    L = ncfg.controller_num_layers
+    t0 = time.perf_counter()
+
+    def plain(dtype):
+        with torch.enable_grad():
+            p = tree_map(lambda t: t.detach().to(dtype), params)
+            leaves = [t.detach().to(dtype).requires_grad_() for t in state]
+            st = {"M": leaves[0], "w": leaves[1], "read": leaves[2],
+                  "controller_state": list(zip(leaves[3:3 + L], leaves[3 + L:3 + 2 * L]))}
+            logits, final = ntm_scan_fused_reference(p, ncfg, tokens.to(dtype), st)
+            loss = (logits * dlogits.to(dtype)).sum() + sum(
+                (a * b.to(dtype)).sum() for a, b in zip(scan_bptt.flatten_state(final), dfinal))
+            return torch.autograd.grad(loss, leaves)
+
+    return plain(torch.float64), plain(torch.float32), time.perf_counter() - t0
+
+
+def initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_names, b2, b4, pool=None,
+                          rows: int = 4):
     """Which of B2 and B4 carries their gap on the initial-state
     gradients: both kernels' gradients (b2, b4, in grad_names order, on the
     same params, tokens, state and cotangents) and the plain loop's in
     float32 against the plain loop in float64, on the `rows` batch rows
     where the kernels differ most on c0. A row's initial-state gradient
-    depends on that row alone, so the plain loops run those rows only.
-    Returns, per initial-state tensor, max |x - float64| / max |float64|
-    over those rows for each of B2, B4 and the plain float32 loop, and the
-    rows."""
+    depends on that row alone, so the plain loops run those rows only, on
+    the CPU, in `pool` (plain_initial_state_grads). Returns a function
+    that waits for them and returns, per initial-state tensor, max |x -
+    float64| / max |float64| over those rows for each of B2, B4 and the
+    plain float32 loop, and the rows."""
     from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused_reference
     from ntm_tracker_tpu_torch.train.optim import tree_map
 
     L = ncfg.controller_num_layers
@@ -1561,31 +1779,27 @@ def initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_nam
     c0 = grad_names.index("c0[0]")
     gap = (b4[c0].double() - b2[c0].double()).abs().reshape(b4[c0].shape[0], -1).amax(1)
     pick = torch.topk(gap, rows).indices.sort().values
-    t0 = time.perf_counter()
+    cpu = functools.partial(tree_map, lambda t: t.detach().cpu())
+    job = offload(pool, plain_initial_state_grads, cpu(params), ncfg, tokens[pick].cpu(),
+                  [t[pick].cpu() for t in scan_bptt.flatten_state(state)], dlogits[pick].cpu(),
+                  [t[pick].cpu() for t in scan_bptt.flatten_state(dfinal)])
+    b2_rows, b4_rows = [b2[i][pick].cpu() for i in at], [b4[i][pick].cpu() for i in at]
 
-    def plain(dtype):
-        with torch.enable_grad():
-            p = tree_map(lambda t: t.detach().to(dtype), params)
-            leaves = [t[pick].detach().to(dtype).requires_grad_() for t in scan_bptt.flatten_state(state)]
-            st = {"M": leaves[0], "w": leaves[1], "read": leaves[2],
-                  "controller_state": list(zip(leaves[3:3 + L], leaves[3 + L:3 + 2 * L]))}
-            logits, final = ntm_scan_fused_reference(p, ncfg, tokens[pick].to(dtype), st)
-            loss = (logits * dlogits[pick].to(dtype)).sum() + sum(
-                (a * b[pick].to(dtype)).sum() for a, b in zip(scan_bptt.flatten_state(final),
-                                                              scan_bptt.flatten_state(dfinal)))
-            return torch.autograd.grad(loss, leaves)
+    def finish() -> dict:
+        g64, g32, secs = job.result()
+        out = {}
+        for name, g, h, k2, k4 in zip(names, g64, g32, b2_rows, b4_rows):
+            scale = max(float(g.abs().max()), 1e-30)
+            out[name] = {"b2": max_abs(k2, g) / scale, "b4": max_abs(k4, g) / scale,
+                         "plain_f32": max_abs(h, g) / scale}
+        log("packed", f"initial-state gradients at B={tokens.shape[0]} T={tokens.shape[1]} on rows {pick.tolist()} "
+                      f"(the {rows} where B4 and B2 differ most on c0; the plain loops on the CPU beside the later "
+                      f"phases, {secs:.1f}s) against the plain loop in float64, max rel B2 / B4 / the plain loop in "
+                      f"float32: " + ", ".join(f"{k} {v['b2']:.2e} / {v['b4']:.2e} / {v['plain_f32']:.2e}"
+                                               for k, v in out.items()))
+        return {"rows": pick.tolist(), "max_rel": out}
 
-    g64, g32 = plain(torch.float64), plain(torch.float32)
-    out = {}
-    for name, i, g, h in zip(names, at, g64, g32):
-        scale = max(float(g.abs().max()), 1e-30)
-        out[name] = {"b2": max_abs(b2[i][pick], g) / scale, "b4": max_abs(b4[i][pick], g) / scale,
-                     "plain_f32": max_abs(h, g) / scale}
-    log("packed", f"initial-state gradients at B={tokens.shape[0]} T={tokens.shape[1]} on rows {pick.tolist()} (the "
-                  f"{rows} where B4 and B2 differ most on c0; {time.perf_counter() - t0:.1f}s) against the plain loop in "
-                  f"float64, max rel B2 / B4 / the plain loop in float32: "
-                  + ", ".join(f"{k} {v['b2']:.2e} / {v['b4']:.2e} / {v['plain_f32']:.2e}" for k, v in out.items()))
-    return {"rows": pick.tolist(), "max_rel": out}
+    return finish
 
 
 def packed_tiles(ncfg, IN: int, backward: bool) -> list:
@@ -1695,7 +1909,117 @@ def packed_probe_split(dev, smi, params, ncfg, tokens, state, proj, res, dlogits
     return out
 
 
-def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
+def phase_orbax(dev: torch.device, smi: str) -> dict:
+    """The JAX package's orbax checkpoints, read by the port alone (no JAX,
+    orbax or tensorstore on this machine): (a) the full-width fixture at
+    ORBAX_DIR, every leaf's sha256 against its record, the read's ms and
+    MB/s (host work, the files warm in the page cache); (b) restored into
+    OffsetExperiment(TrackerConfig())'s template on `dev`, one train step
+    through B2 on the record's batch: the loss and the pre-clip gradient
+    norm against the JAX package's (ORBAX_LOSS_RTOL, ORBAX_GNORM_RTOL) and
+    the step against the plain route on the card (report_step); (c)
+    StreamingTracker from the restored params on B1's cluster route against
+    the plain loop (frame_path)."""
+    import hashlib
+
+    from ntm_tracker_tpu_torch.config import TrackerConfig
+    from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, gradient_step
+    from ntm_tracker_tpu_torch.train.harness import CheckpointManager
+    from ntm_tracker_tpu_torch.train.optim import global_norm, tree_leaves
+    from ntm_tracker_tpu_torch.utils import zstd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, ORBAX_DIR)
+    with open(path + ".json") as f:
+        record = json.load(f)
+    step_dir = os.path.join(path, str(record["step"]))
+
+    def flat(tree, prefix=()):
+        if isinstance(tree, dict):
+            return {p: v for k in tree for p, v in flat(tree[k], prefix + (str(k),)).items()}
+        if isinstance(tree, (list, tuple)):
+            return {p: v for i, x in enumerate(tree) for p, v in flat(x, prefix + (str(i),)).items()}
+        return {"/".join(prefix): tree}
+
+    # ---- (a) every leaf against its record -------------------------------------
+    read_s = []
+    for _ in range(2):  # the first read also loads libzstd
+        t0 = time.perf_counter()
+        raw = CheckpointManager(path).restore(record["step"])
+        read_s.append(time.perf_counter() - t0)
+    leaves = flat(raw)
+    got = {p: None if v is None else hashlib.sha256(v.contiguous().numpy().tobytes()).hexdigest()
+           for p, v in leaves.items()}
+    want = {r["path"]: r["sha256"] for r in record["leaves"]}
+    disk = sum(os.path.getsize(os.path.join(d, n)) for d, _, names in os.walk(step_dir) for n in names)
+    tensor_b = sum(v.numel() * v.element_size() for v in leaves.values() if v is not None)
+    same = got == want
+    log("orbax", f"{ORBAX_DIR} step {record['step']} (written by {record['written_by']}) read by the port alone "
+                 f"(libzstd {zstd.version()}): {len(got)} leaves, {tensor_b / 1e6:.3f} MB of tensors from "
+                 f"{disk / 1e6:.3f} MB of files, warm, in {read_s[0] * 1e3:.1f} ms then {read_s[1] * 1e3:.1f} ms "
+                 f"= {disk / 1e6 / read_s[1]:.1f} MB/s of files, {tensor_b / 1e6 / read_s[1]:.1f} MB/s of tensors "
+                 f"(host); every sha256 equal to the record: {same}")
+    if not same:
+        raise AssertionError(f"the fixture's leaves differ from its record: "
+                             f"{sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))}")
+    check_budget("orbax_read")
+
+    # ---- (b) one B2 step from the restored params and optimizer state ----------
+    nb = record["next_batch"]
+    base = TrackerConfig()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, batch_size=nb["batch_size"],
+                                                              sequence_length=nb["sequence_length"]))
+    exp = OffsetExperiment(cfg, None, device=dev)  # fused_bptt="auto": B2 on cuda at f32
+    params, opt_state = exp.init(torch.Generator().manual_seed(0))
+    restored = CheckpointManager(path).restore(record["step"], template={"params": params, "opt_state": opt_state})
+    params, opt_state = restored["params"], restored["opt_state"]
+    with np.load(os.path.join(os.path.dirname(path), nb["file"])) as z:
+        batch = exp.device_batch({k: z[k] for k in z.files})
+    reset_all_counts()
+    q, s, m = gradient_step(exp.loss_fn, exp.optimizer(), keep_grads=True)(params, opt_state, batch)
+    loss, gnorm = float(m["loss"]), float(global_norm(m["grads"]))
+    counts = kernel_counts()
+    expp = OffsetExperiment(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, fused_bptt=False)), None,
+                            device=dev)
+    qp, sp, mp = gradient_step(expp.loss_fn, expp.optimizer(), keep_grads=True)(params, opt_state, batch)
+    loss_rel = abs(loss - record["loss"]) / abs(record["loss"])
+    gnorm_rel = abs(gnorm - record["grad_norm"]) / abs(record["grad_norm"])
+    expected = {"ntm_scan_fused": 0, "bptt_forward": 1, "token_projection": 1, "bptt_backward": 1,
+                "grad_reduce": cfg.ntm.controller_num_layers + 1}
+    log("orbax", f"{smi}: restored into OffsetExperiment(TrackerConfig())'s template on {dev}, one train step at "
+                 f"B={cfg.train.batch_size} T={cfg.total_steps} on the record's batch: loss {loss:.8f} / JAX's "
+                 f"{record['loss']:.8f}, rel {loss_rel:.2e} (tol {ORBAX_LOSS_RTOL:g}); pre-clip gradient norm "
+                 f"{gnorm:.6f} / JAX's {record['grad_norm']:.6f}, rel {gnorm_rel:.2e} (tol {ORBAX_GNORM_RTOL:g}); "
+                 f"launches {counts} (expected {expected})")
+    report_step(f"orbax: the resumed step, B2 vs the plain route on the card at B={cfg.train.batch_size}",
+                step_errors(params, (loss, tree_leaves(m["grads"]), q, s),
+                            (float(mp["loss"]), tree_leaves(mp["grads"]), qp, sp)))
+    if loss_rel > ORBAX_LOSS_RTOL or gnorm_rel > ORBAX_GNORM_RTOL or not np.isfinite([loss, gnorm]).all():
+        raise AssertionError(f"the resumed step is off the JAX package's: loss rel {loss_rel:.2e}, "
+                             f"gradient norm rel {gnorm_rel:.2e}")
+    if dev.type == "cuda" and {k: counts[k] for k in expected} != expected:
+        raise AssertionError(f"the resumed step did not run through B2 as expected: {counts}")
+    check_budget("orbax_step")
+
+    # ---- (c) the streaming tracker from the restored params --------------------
+    vgg = init_vgg_params(torch.Generator().manual_seed(0), dev)
+    video, region0 = synthetic_video(seed=0, frames=1 + ORBAX_FRAMES)
+    reset_all_counts()
+    fp = frame_path(base, vgg, params, video, region0, dev)
+    tracker_counts = kernel_counts()
+    log("orbax", f"StreamingTracker B=1 from the restored params: init + {ORBAX_FRAMES} frames, launches "
+                 f"{tracker_counts}; region[-1]={[round(float(v), 2) for v in fp['regions'][-1]]}; fused vs plain "
+                 f"loop on the same crops: max_abs(offsets)={fp['off_err']:.3e} (tol {F32_TOL:g})")
+    # frame_path holds B1's counts; the tracker trains nothing
+    if dev.type == "cuda" and any(tracker_counts[k] for k in ("bptt_forward", "bptt_backward", "grad_reduce")):
+        raise AssertionError(f"the tracker from the restored params launched a training kernel: {tracker_counts}")
+    check_budget("orbax")
+    return {"read_ms": [1e3 * t for t in read_s], "file_mb": disk / 1e6, "tensor_mb": tensor_b / 1e6,
+            "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel, "step_counts": counts, "tracker_counts": tracker_counts}
+
+
+def phase_packed(dev: torch.device, smi: str, IN: int, train: dict, pool=None) -> dict:
     """The lane-packed kernels (B4) against their plain version and against
     the row kernels, the counterpart of tests/hw_check_pallas.py's
     check_packed: (a) phase_bptt's five cases and packed_wide_cases' three,
@@ -1705,8 +2029,9 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
     shape B=1, T=65 against B1; (c) the train path's shape B=256, T=1300 on
     phase_train's params and tokens against B2's kernels, the same bits on
     a rerun, the backward without dtokens the same bits as with them but
-    for dtokens, both kernels' initial-state gradients against float64,
-    and the times at the rule's tiles beside B2's and the bounds, and at
+    for dtokens, both kernels' initial-state gradients against float64
+    (the plain loops in `pool`: "referee" is the function that waits for
+    them), and the times at the rule's tiles beside B2's and the bounds, and at
     T=PACKED_PLAIN_T beside the plain version's on the same inputs; (d) the shared-memory mirror against the kernel; the token
     projection's launches on B4's path. No main path launches B4 (checked:
     its counts are 0 on entry); the launches are this phase's own."""
@@ -1872,7 +2197,8 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
             worst["grad_abs_train"] = max(worst.get("grad_abs_train", 0.0), gabs)
             train_out[(rows, brows)] = {"peak_gb": peak_gb, "fwd_abs": fwd, "grad_rel": gerr}
             if (rows, brows) == rule:
-                referee = initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_names, ref, got)
+                referee = initial_state_referee(params, ncfg, tokens, state, dlogits, dfinal, grad_names, ref, got,
+                                                pool)
             del got, lo, fi
             check_budget("packed")
         # one row per block, the rule's tiles and the probe's (the other
@@ -1991,7 +2317,7 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict) -> dict:
             "ms": ms, "rule": rule, "rule_by_batch": rule_by_batch, "worst": worst,
             "short": {"T": Ts, "ms": short, "plain_ms": plain_short,
                                                        "bounds": bounds_short},
-            "bounds": bounds, "smem": smem, "B": B, "T": T, "initial_state_referee": referee}
+            "bounds": bounds, "smem": smem, "B": B, "T": T, "referee": referee}
 
 
 
@@ -2019,14 +2345,87 @@ def reset_all_counts() -> None:
         getattr(scan_bptt, name).launches = 0
 
 
-def phase_accuracy(dev: torch.device, smi: str) -> dict:
+def dnc_loss_and_grads(exp, p, batch, features) -> tuple:
+    """The DNC check's train-step loss and gradients (tree_leaves order) in
+    float64 on `features` (the card's VGG tokens of the batch), through
+    exp's device."""
+    from ntm_tracker_tpu_torch.train.optim import tree_leaves, tree_map
+    from ntm_tracker_tpu_torch.train.serialize import offsets_loss, serialize_tokens
+
+    cfg = exp.cfg
+    live = tree_map(lambda t: t.detach().double().requires_grad_(), p)
+    b = exp.device_batch(batch)
+    f = features.to(exp.device)
+    B, L = f.shape[0], cfg.train.sequence_length
+    tokens = serialize_tokens(f, b["gts"].double().reshape(B, L, -1)[:, 0])
+    state = tree_map(lambda t: t.double(), exp.core.init_state(p, B))
+    logits, _ = exp.core.unroll(live, tokens, state)
+    loss = offsets_loss(logits, exp._targets(b, B).double(), cfg.num_features)
+    return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(live))
+
+
+def dnc_check_inputs(dev: torch.device) -> dict:
+    """The inputs of phase_accuracy's DNC check, made on the card: the
+    demo DNC config at ACC_DNC_L frames a clip, the experiment on the demo
+    VGG (seed 0), params and optimizer state (seed 2), a training batch
+    (seed 1) and the card's VGG tokens of it in float64 (given to both
+    sides: the DNC's gradient jumps at near-tied usages even in float64
+    when the inputs differ, as the convs' float32 rounding on two devices
+    makes them, ~1e-6)."""
+    from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
+    from ntm_tracker_tpu_torch.tracking.demo import demo_config, training_batch
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment
+
+    dcfg = demo_config(core="dnc")
+    dcfg = dataclasses.replace(dcfg, train=dataclasses.replace(dcfg.train, sequence_length=ACC_DNC_L))
+    vgg = init_vgg_params(torch.Generator().manual_seed(0), dev)
+    dexp = OffsetExperiment(dcfg, vgg, image_mode="cropped", device=dev)
+    dparams, dopt = dexp.init(torch.Generator().manual_seed(2))
+    dbatch = training_batch(dcfg, np.random.RandomState(1), dev)
+    with torch.no_grad():
+        features = dexp.batch_features(dexp.device_batch(dbatch)).double()
+    return {"cfg": dcfg, "exp": dexp, "params": dparams, "opt_state": dopt, "batch": dbatch, "features": features}
+
+
+def dnc_cpu_reference(dcfg, params, batch, features) -> tuple:
+    """The DNC check's CPU side (CPU tensors in, run in the CPU pool): the
+    train step's float32 loss on the CPU (its VGG on the batch's crops),
+    the float64 loss and gradients on `features`, and the seconds taken."""
+    from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cexp = OffsetExperiment(dcfg, init_vgg_params(torch.Generator().manual_seed(0), cpu), image_mode="cropped",
+                            device=cpu)
+    with torch.no_grad():
+        loss = float(cexp.loss_fn(params, batch)[0])
+    loss64, grads64 = dnc_loss_and_grads(cexp, params, batch, features)
+    return loss, loss64, grads64, time.perf_counter() - t0
+
+
+def start_dnc_check(dev: torch.device, pool) -> dict:
+    """dnc_check_inputs, with the CPU side submitted to `pool` at once (a
+    2-thread worker needs a few times the inline time, so it starts phases
+    ahead of the check): the inputs and "cpu", its future."""
+    from ntm_tracker_tpu_torch.train.optim import tree_map
+
+    inputs = dnc_check_inputs(dev)
+    batch = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in inputs["batch"].items()}
+    inputs["cpu"] = offload(pool, dnc_cpu_reference, inputs["cfg"], tree_map(lambda t: t.cpu(), inputs["params"]),
+                            batch, inputs["features"].cpu())
+    return inputs
+
+
+def phase_accuracy(dev: torch.device, smi: str, dnc: dict) -> dict:
     """The accuracy path on the card: (a) the demo config's NTM trains
     ACC_STEPS steps through B2 on synthetic clips, its loss must fall, then
     tracks a held-out clip through the streaming tracker (B1's cluster
     route) and the device loop, held to the artifact's tripwires; (b) the
-    DNC's train step on the card against the same step on the CPU, then a
-    DNC StreamingTracker; (c) the flagship width: build_dataset, then
-    ACC_FLAG_STEPS full-batch steps whose loss must fall."""
+    DNC's train step on the card against the same step on the CPU (`dnc`:
+    start_dnc_check's), then a DNC StreamingTracker; (c) the flagship
+    width: build_dataset, then ACC_FLAG_STEPS full-batch steps whose loss
+    must fall."""
     from ntm_tracker_tpu_torch.data.synthetic import make_video
     from ntm_tracker_tpu_torch.models.core import make_core
     from ntm_tracker_tpu_torch.models.vgg import init_vgg_params
@@ -2037,8 +2436,6 @@ def phase_accuracy(dev: torch.device, smi: str) -> dict:
     )
     from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker
     from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment
-    from ntm_tracker_tpu_torch.train.optim import tree_leaves, tree_map
-    from ntm_tracker_tpu_torch.train.serialize import offsets_loss, serialize_tokens
 
     out = {}
     # ---- (a) the demo config's NTM ------------------------------------------
@@ -2107,45 +2504,18 @@ def phase_accuracy(dev: torch.device, smi: str) -> dict:
     # sorted before it), so two float32 runs, or two runs on inputs that
     # differ by rounding, that order a near-tie apart differ by ~1e-3 of a
     # gradient's largest entry however right both are.
-    dcfg = demo_config(core="dnc")
-    dcfg = dataclasses.replace(dcfg, train=dataclasses.replace(dcfg.train, sequence_length=ACC_DNC_L))
-    cpu = torch.device("cpu")
-    dexp = OffsetExperiment(dcfg, vgg, image_mode="cropped", device=dev)
-    dparams, dopt = dexp.init(torch.Generator().manual_seed(2))
-    dbatch = training_batch(dcfg, np.random.RandomState(1), dev)
-    cexp = OffsetExperiment(dcfg, tree_map(lambda t: t.to(cpu), vgg), image_mode="cropped", device=cpu)
-    to_cpu = functools.partial(tree_map, lambda t: t.to(cpu))
-    cbatch = {k: v.to(cpu) if isinstance(v, torch.Tensor) else v for k, v in dbatch.items()}
-
-    # the card's VGG tokens, given to both sides: the DNC's gradient jumps
-    # at near-tied usages even in float64 when the inputs differ (the
-    # convs' float32 rounding on two devices, ~1e-6)
-    with torch.no_grad():
-        features = dexp.batch_features(dexp.device_batch(dbatch)).double()
-
-    def loss_and_grads(e, p, b):
-        """The train step's loss and gradients in float64 on `features`."""
-        live = tree_map(lambda t: t.detach().double().requires_grad_(), p)
-        b = e.device_batch(b)
-        f = features.to(e.device)
-        B, L = f.shape[0], dcfg.train.sequence_length
-        tokens = serialize_tokens(f, b["gts"].double().reshape(B, L, -1)[:, 0])
-        state = tree_map(lambda t: t.double(), e.core.init_state(p, B))
-        logits, _ = e.core.unroll(live, tokens, state)
-        loss = offsets_loss(logits, e._targets(b, B).double(), dcfg.num_features)
-        return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(live))
-
+    dcfg, dexp, dparams, dopt, dbatch = (dnc[k] for k in ("cfg", "exp", "params", "opt_state", "batch"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d_new, _, d_m = dexp.make_train_step()(dparams, dopt, dbatch)
     d_loss = float(d_m["loss"])
     card_s = time.perf_counter() - t0
-    with torch.no_grad():
-        c_loss = float(cexp.loss_fn(to_cpu(dparams), cbatch)[0])
     t0 = time.perf_counter()
-    d64_loss, d64_grads = loss_and_grads(dexp, dparams, dbatch)
+    d64_loss, d64_grads = dnc_loss_and_grads(dexp, dparams, dbatch, dnc["features"])
     card64_s = time.perf_counter() - t0
-    c64_loss, c64_grads = loss_and_grads(cexp, to_cpu(dparams), cbatch)
+    t0 = time.perf_counter()
+    c_loss, c64_loss, c64_grads, cpu_s = dnc["cpu"].result()
+    wait_s = time.perf_counter() - t0
     loss_rel = abs(d_loss - c_loss) / abs(c_loss)
     loss64_rel = abs(d64_loss - c64_loss) / abs(c64_loss)
     grad_rel = max(max_abs(g.cpu(), r) / max(float(r.abs().max()), 1e-30) for g, r in zip(d64_grads, c64_grads))
@@ -2154,7 +2524,8 @@ def phase_accuracy(dev: torch.device, smi: str) -> dict:
                     f"{d_loss:.6f} / {c_loss:.6f}, rel {loss_rel:.2e} (tol {DNC_LOSS_RTOL:g}); float64 on the same "
                     f"tokens: loss rel {loss64_rel:.2e}, gradients max rel {grad_rel:.2e} (tol {GRAD_TOL:g}); float32 against "
                     f"float64 loss rel {abs(d_loss - c64_loss) / abs(c64_loss):.2e}; the train step on the card "
-                    f"{card_s:.2f}s, float64 loss and gradients on the card {card64_s:.2f}s")
+                    f"{card_s:.2f}s, float64 loss and gradients on the card {card64_s:.2f}s; the CPU side in a CPU "
+                    f"worker {cpu_s:.2f}s, started phases ahead, waited {wait_s:.2f}s here")
     if loss_rel > DNC_LOSS_RTOL or loss64_rel > DNC_LOSS_RTOL or grad_rel > GRAD_TOL:
         raise AssertionError(f"the DNC's train step on the card disagrees with the CPU's: loss {loss_rel:.2e} "
                              f"(float64 {loss64_rel:.2e}), gradients {grad_rel:.2e}")
@@ -2226,7 +2597,7 @@ def run_periods_ms(run: dict) -> tuple:
     return float(np.median(periods)), float(waits[0]), float(sum(waits[1:len(starts)]) / window)
 
 
-def phase_data(dev: torch.device, smi: str, root: str = None) -> dict:
+def phase_data(dev: torch.device, smi: str, root: str = None, pool=None) -> dict:
     """The real-data training path through the port's CLI, at
     TrackerConfig()'s width, on a synthetic VID tree built here: (a)
     preprocess, also --augment; (b) cache-features: float16, base and flip,
@@ -2238,8 +2609,11 @@ def phase_data(dev: torch.device, smi: str, root: str = None) -> dict:
     resize: the step-0 batch's tokens against the float32 cache's, the two
     runs' step-0 losses against each other; (e) a resume from (c)'s
     checkpoint, its first validation against the CPU's from the restored
-    params. The tree is built under `root` and left there for the lab
-    phase; root=None builds it in a temporary directory, removed after."""
+    params; (f) one step resumed from the JAX package's orbax directory
+    (ORBAX_DIR), B2 once and B1 once, its loss finite. The CPU's losses of
+    (c) and (e) run in `pool` beside (d)-(f). The tree is built under
+    `root` and left there for the lab phase; root=None builds it in a
+    temporary directory, removed after."""
     import os
     import shutil
     import tempfile
@@ -2370,27 +2744,21 @@ def phase_data(dev: torch.device, smi: str, root: str = None) -> dict:
         params0 = ckpt.restore(0, map_location=cpu)["params"]
         tb = next(token_batch_iterator(train, B, "cache_float16", 8, shuffle=True, seed=seed, epochs=1))
         batch = {k: getattr(tb, k) for k in ("features", "gts", "y_offsets", "x_offsets")}
-        cpu_exp = OffsetExperiment(cfg, None, device=cpu)
-        t0 = time.perf_counter()
-        cpu_loss = float(cpu_exp.loss_fn(params0, batch)[0])
-        cpu_s = time.perf_counter() - t0
-        loss_rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+        cpu_step0 = offload(pool, cpu_offsets_loss, cfg, params0, batch)
         evals = len(val_losses)
         log("data", f"{smi}: train-offsets --feature_cache B={B} L={L}: {run['steps']} steps, step {step_ms:.2f} ms "
                     f"(median, the loss read every step); waiting on the prefetcher {wait0_s * 1e3:.2f} ms before step "
                     f"0, then {wait_share:.2%} of the run from step 0's start to the last step's; loss "
-                    f"{losses[0]:.4f} -> {losses[-1]:.4f}, val {val_losses}; step 0 against the CPU from the same "
-                    f"params and batch: {losses[0]:.6f} / {cpu_loss:.6f}, rel {loss_rel:.2e} (tol {DATA_TOL:g}; the "
-                    f"CPU's plain loop {cpu_s:.1f}s); launches {counts}")
+                    f"{losses[0]:.4f} -> {losses[-1]:.4f}, val {val_losses}; launches {counts}")
         steps = run["steps"]
-        if loss_rel > DATA_TOL or not np.isfinite(losses + val_losses).all() or steps != DATA_EPOCHS * (len(train) // B):
-            raise AssertionError(f"the cached run: step-0 loss rel {loss_rel:.2e}, {steps} steps")
+        if not np.isfinite(losses + val_losses).all() or steps != DATA_EPOCHS * (len(train) // B):
+            raise AssertionError(f"the cached run: losses {losses}, {steps} steps")
         if dev.type == "cuda" and not (
                 counts["bptt_forward"] == counts["bptt_backward"] == steps and counts["grad_reduce"] == 2 * steps
                 and counts["token_projection"] == steps + evals and counts["ntm_scan_fused"] == evals == 1):
             raise AssertionError(f"the cached run did not launch B2 once a step and B1 once a validation: {counts}")
         out["cached"] = {"steps": steps, "step_ms": step_ms, "wait0_ms": wait0_s * 1e3, "wait_share": wait_share,
-                         "losses": losses, "loss_rel_cpu": loss_rel, "counts": counts}
+                         "losses": losses, "counts": counts}
         check_budget("data_cached")
 
         # ---- (d) train-offsets on decoded frames, host and device resize ---------
@@ -2449,19 +2817,52 @@ def phase_data(dev: torch.device, smi: str, root: str = None) -> dict:
         val0 = next(r["val_loss"] for r in recs if "val_loss" in r)
         vb = next(token_batch_iterator(val, B, "cache_float16", 8, shuffle=True, seed=seed, epochs=1))
         vbatch = {k: getattr(vb, k) for k in ("features", "gts", "y_offsets", "x_offsets")}
-        ref_val = float(cpu_exp.loss_fn(last, vbatch)[0])
-        val_rel = abs(val0 - ref_val) / abs(ref_val)
+        cpu_val = offload(pool, cpu_offsets_loss, cfg, last, vbatch)
         with torch.no_grad():
             card_val = float(exp.make_eval_step()(ckpt.restore(ckpt.latest_step())["params"], vbatch)["loss"])
         log("data", f"{smi}: resumed from step {ckpt.latest_step()}'s checkpoint: {resumed['steps']} more step(s); "
-                    f"its first validation {val0:.6f}, the CPU's from the restored params on the same batch "
-                    f"{ref_val:.6f}, rel {val_rel:.2e} (tol {DATA_TOL:g}), the card's eval step's {card_val:.6f}; "
-                    f"launches {counts}")
-        if (resumed["steps"] != len(train) // B or val_rel > DATA_TOL
-                or abs(val0 - card_val) > 1e-6 * abs(card_val)):
-            raise AssertionError(f"the resumed run: {resumed['steps']} steps, validation {val0} vs the CPU's "
-                                 f"{ref_val} and the card's eval step's {card_val}")
-        out["resumed"] = {"steps": resumed["steps"], "val_rel_cpu": val_rel, "counts": counts}
+                    f"its first validation {val0:.6f}, the card's eval step's from the restored params on the same "
+                    f"batch {card_val:.6f}; launches {counts}")
+        if resumed["steps"] != len(train) // B or abs(val0 - card_val) > 1e-6 * abs(card_val):
+            raise AssertionError(f"the resumed run: {resumed['steps']} steps, validation {val0} vs the card's eval "
+                                 f"step's {card_val}")
+        out["resumed"] = {"steps": resumed["steps"], "counts": counts}
+        check_budget("data_resume")
+
+        # ---- (f) resume from the JAX package's full-width orbax checkpoint ------
+        jax_ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), ORBAX_DIR)
+        args = parser.parse_args(["--device", d, "train-offsets", *common, "--feature_cache", "cache_float16",
+                                  "--batch_size", str(B), "--num_epochs", "1", "--limit", str(B),
+                                  "--ckpt_path", jax_ckpt, "--log_dir", "log_orbax"])
+        reset_all_counts()
+        run = cli.train_offsets(args)
+        counts = kernel_counts()
+        recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
+        jl = [r["train_loss"] for r in recs if "train_loss" in r]
+        jv = [r["val_loss"] for r in recs if "val_loss" in r]
+        log("data", f"{smi}: train-offsets --ckpt_path {ORBAX_DIR} (the JAX package's orbax directory) B={B} L={L}: "
+                    f"{run['steps']} step(s), losses {jl}, val {jv}; launches {counts}")
+        if run["steps"] != 1 or not np.isfinite(jl + jv).all() or len(jl) != 1:
+            raise AssertionError(f"the run resumed from the orbax directory: {run['steps']} steps, losses {jl}")
+        if dev.type == "cuda" and not (
+                counts["bptt_forward"] == counts["bptt_backward"] == 1 and counts["grad_reduce"] == 2
+                and counts["ntm_scan_fused"] == len(jv) == 1 and counts["token_projection"] == 2):
+            raise AssertionError(f"the run resumed from the orbax directory did not launch B2 once and B1 once: "
+                                 f"{counts}")
+        out["orbax_resume"] = {"steps": run["steps"], "losses": jl, "counts": counts}
+
+        # ---- the CPU's references of (c) and (e), computed beside (d)-(f) -------
+        (cpu_loss, cpu_s), (ref_val, val_s) = cpu_step0.result(), cpu_val.result()
+        loss_rel = abs(out["cached"]["losses"][0] - cpu_loss) / abs(cpu_loss)
+        val_rel = abs(val0 - ref_val) / abs(ref_val)
+        log("data", f"the CPU from the same params and batch (its plain loop in a worker, {cpu_s:.1f}s and "
+                    f"{val_s:.1f}s): (c)'s step 0 {out['cached']['losses'][0]:.6f} / {cpu_loss:.6f}, rel "
+                    f"{loss_rel:.2e}; (e)'s first validation {val0:.6f} / {ref_val:.6f}, rel {val_rel:.2e} "
+                    f"(tol {DATA_TOL:g} each)")
+        if loss_rel > DATA_TOL or val_rel > DATA_TOL:
+            raise AssertionError(f"the card's losses disagree with the CPU's: (c) step 0 rel {loss_rel:.2e}, (e) "
+                                 f"validation rel {val_rel:.2e}")
+        out["cached"]["loss_rel_cpu"], out["resumed"]["val_rel_cpu"] = loss_rel, val_rel
         check_budget("data")
     finally:
         os.chdir(cwd)
@@ -2800,17 +3201,18 @@ def finish_subprocess(tag: str, proc, log_f, timeout: float = 300) -> str:
 
 def start_serving_exports(dev: torch.device, work: str) -> dict:
     """`export-serving` for cuda at batch 1 and at batch SERVE_FLEET with the
-    device loop, each a CLI subprocess started before the build (the export
-    needs no kernel), niced so that nvcc and the timed phases come first:
-    {tag: (process, log file, artifact path)}."""
+    device loop, each a CLI subprocess, started with the parallel ranks
+    after the packed phase (a CPU-heavy trace: beside the build it slowed
+    main's plain references), at LATER_NICE: {tag: (process, log file,
+    artifact path)}."""
     import os
 
     out = {}
     for tag, extra in (("b1", []), (f"b{SERVE_FLEET}", ["--batch", str(SERVE_FLEET), "--device_loop",
                                                        f"{FLEET_HW[0]}x{FLEET_HW[1]}"])):
         path = os.path.join(work, f"serving_{tag}.npz")
-        out[tag] = (*cli_subprocess(dev, work, f"export_{tag}", ["export-serving", *extra, "--out", path], nice=10),
-                    path)
+        out[tag] = (*cli_subprocess(dev, work, f"export_{tag}", ["export-serving", *extra, "--out", path],
+                                    nice=LATER_NICE), path)
     return out
 
 
@@ -2900,7 +3302,7 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
     """The serving and evaluation path on the card, at TrackerConfig()'s
     width on the CLI's seeded weights: (a) export-serving for cuda at batch 1
     and at batch SERVE_FLEET with --device_loop 360x640 (CLI subprocesses
-    that main starts before the build, start_serving_exports, and the TraX
+    that main starts after the packed phase, start_serving_exports, and the TraX
     servers before the lab phase, start_trax_servers; started here when
     `exports` / `trax` is None); a SERVE_CLIP-frame clip through the live B1
     tracker, then its crops through the batch-1 artifact and the live plain
@@ -2987,7 +3389,7 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
         os.chdir(root)
         t_phase = time.perf_counter()
 
-        # ---- (a) the exports (started before the build), then track-vot ----------
+        # ---- (a) the exports (started phases ahead), then track-vot ----------------
         video, region0 = synthetic_video(seed=3, frames=1 + SERVE_CLIP, hw=FLEET_HW)
         paths = []
         for t in range(1 + SERVE_CLIP):
@@ -3010,7 +3412,7 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
         t0 = time.perf_counter()
         m1 = ServingModel(b1_path, dev)
         load_s = time.perf_counter() - t0
-        log("serving", f"export-serving for cuda (CLI subprocesses started before the build; waited {wait_s:.2f}s "
+        log("serving", f"export-serving for cuda (CLI subprocesses started phases ahead; waited {wait_s:.2f}s "
                        f"here): batch 1 {out['export']['b1']['seconds']:.2f}s {out['export']['b1']['mb']:.1f} MB; "
                        f"batch {SERVE_FLEET} + device loop {FLEET_HW[0]}x{FLEET_HW[1]} "
                        f"{out['export'][f'b{SERVE_FLEET}']['seconds']:.2f}s "
@@ -3381,9 +3783,10 @@ def start_parallel_subprocesses(dev: torch.device, work: str) -> dict:
 def start_bench_tools(dev: torch.device, work: str, after: list) -> tuple:
     """phase_bench's (b): tools/bench_train, tools/bench_bptt_knee and
     tools/profile_train at BENCH_TOOLS' sizes, each a CLI subprocess, run
-    beside the data phase: a thread starts them once the processes `after`
-    (the parallel phase's ranks, whose train steps are timed) have exited,
-    and join_bench_tools waits for them before the lab phase's timings.
+    beside the accuracy and data phases: a thread starts them once the
+    processes `after` (the parallel phase's ranks, whose train steps are
+    timed) have exited, and join_bench_tools waits for them before the lab
+    phase's timings.
     (thread, {tool: (process, log file)}, a list that gets the tools' start
     time), both filled by the thread."""
     import threading
@@ -3413,6 +3816,7 @@ def join_bench_tools(started_tools: tuple) -> dict:
         proc.wait(timeout=max(10.0, BUDGET_S - (time.perf_counter() - T_START)))
     log("bench", f"the tools started at t={started[0] - T_START:.1f}s (after the parallel ranks exited); "
                  f"waited {time.perf_counter() - t0:.1f}s for them after the data phase")
+    check_budget("bench_tools_join")
     return tools
 
 
@@ -3715,7 +4119,7 @@ def phase_parallel(dev: torch.device, smi: str, root: str, procs: dict) -> dict:
     out["scale_head"] = result
     out["counts"] = counts
     out["s"] = time.perf_counter() - t_phase
-    log("parallel", f"the phase in {out['s']:.1f}s (its subprocesses started before the data phase)")
+    log("parallel", f"the phase in {out['s']:.1f}s (its subprocesses started before the accuracy phase)")
     check_budget("parallel")
     return out
 
@@ -3774,7 +4178,7 @@ def phase_bench(dev: torch.device, smi: str, tools: dict) -> dict:
     if counts != expected:
         failed.append(f"launches {counts}")
 
-    # (b) the tools, run beside the data phase
+    # (b) the tools, run beside the accuracy and data phases
     tool_lines = {}
     for tool, (proc, log_f) in tools.items():
         text = finish_subprocess(tool, proc, log_f)
@@ -3796,8 +4200,8 @@ def phase_bench(dev: torch.device, smi: str, tools: dict) -> dict:
     fused_fwd = next(line for line in tool_lines["profile_train"] if line["variant"] == "fused_fwd_f32")
     if fused_fwd["launches"]["ntm_scan_fused_by_route"] != {"cluster": 2, "tile": 0}:
         failed.append(f"profile_train fused_fwd_f32 ran B1's routes {fused_fwd['launches']['ntm_scan_fused_by_route']}")
-    log("bench", f"phase {time.perf_counter() - t0:.1f}s (the bench {bench_s:.1f}s; the tools ran beside the data "
-                 f"phase, so their ms are taken on a shared card)")
+    log("bench", f"phase {time.perf_counter() - t0:.1f}s (the bench {bench_s:.1f}s; the tools ran beside the accuracy "
+                 f"and data phases, so their ms are taken on a shared card)")
     if failed:
         raise AssertionError(f"bench phase: {failed}")
     check_budget("bench")
@@ -3811,21 +4215,19 @@ def main() -> int:
 
     from ntm_tracker_tpu_torch import _build
     from ntm_tracker_tpu_torch.config import NTMConfig, TrackerConfig
-    from ntm_tracker_tpu_torch.data import geometry
-    from ntm_tracker_tpu_torch.data.image_ops import crop_and_resize
-    from ntm_tracker_tpu_torch.models.core import make_core
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_params, init_ntm_state
-    from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN, extract_features, init_vgg_params, vgg16_features
+    from ntm_tracker_tpu_torch.models.vgg import extract_features, init_vgg_params, vgg16_features
     from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import token_projection
     from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
         CLUSTER_WAVES, flatten_state, ntm_scan_fused, ntm_scan_fused_reference, run_route,
     )
-    from ntm_tracker_tpu_torch.tracking.tracker import (
-        StreamingTracker, build_frame_step, first_frame_gt, region_geometry,
-    )
+    from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker
     from ntm_tracker_tpu_torch.train.experiments import frame_tokens
 
     dev = torch.device("cuda")
+    cpu_pool = start_cpu_pool()
+    # the bptt phase's plain references, in the CPU pool from now
+    bptt_plain = start_bptt_references(TrackerConfig().input_depth, cpu_pool)
 
     # ---- 1. device ---------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -3839,35 +4241,41 @@ def main() -> int:
     import tempfile
 
     serve_work = tempfile.mkdtemp(prefix="ntm_serve_exports_")
-    serve_exports = start_serving_exports(dev, serve_work)
 
     # ---- 2. build ----------------------------------------------------------
-    # one nvcc per library, all started together (scan_packed.cu builds
-    # three: its forward, its backward, their probe variants); every build
-    # ends before the first timed phase; meanwhile the train phase's inputs
-    # and float64 referee, plain PyTorch on the idle card
+    # one nvcc per library: B1's, B2's and B3's together, then B4's three
+    # together (scan_packed.cu: its forward, its backward, their probe
+    # variants; PACKED_LIBRARIES), needed first by the packed phase (with
+    # all six, the serving exports and the CPU workers beside it, the main
+    # thread's plain step ran 1.6x slower); meanwhile the train phase's
+    # inputs and its plain step at the main path's shape, plain PyTorch on
+    # the idle card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    def build_niced(names):
+    def build_niced(names, nice):
         # Linux keeps a nice value per thread, and the compilers inherit
-        # this thread's: the referee's host dispatch on the main thread
-        # goes first
-        os.setpriority(os.PRIO_PROCESS, 0, 5)
+        # this thread's: the plain step's host dispatch, and later the
+        # phases', goes first, then B1's, B2's and B3's compilers, then
+        # B4's (needed a few phases later)
+        os.setpriority(os.PRIO_PROCESS, 0, nice)
         return _build.build_all(names)
 
-    with ThreadPoolExecutor(1) as pool:
-        built = pool.submit(build_niced, ["scan_cell", "scan_bptt", "addressing", "scan_packed", "scan_packed_bwd",
-                                          "scan_packed_probe"])
-        ref = train_reference(dev)
-        ref_s = time.perf_counter() - t0
-        paths = built.result()
+    compile_pool = ThreadPoolExecutor(1)
+    built = compile_pool.submit(build_niced, ["scan_cell", "scan_bptt", "addressing"], BUILD_NICE)
+    built_packed = compile_pool.submit(build_niced, list(PACKED_LIBRARIES), LATER_NICE)
+    compile_pool.shutdown(wait=False)
+    ref = train_reference(dev)
+    ref_s = time.perf_counter() - t0
+    paths = built.result()
     for name in paths:
         _build.load_library(name)
-    log("build", f"all libraries ready in {time.perf_counter() - t0:.2f}s (parallel nvcc; "
-                 f"{', '.join(p.name for p in paths.values())}); the train phase's batch and float64 referee "
-                 f"meanwhile in {ref_s:.2f}s")
+    log("build", f"B1's, B2's and B3's libraries ready in {time.perf_counter() - t0:.2f}s (parallel nvcc, B4's "
+                 f"next; {', '.join(p.name for p in paths.values())}); the train phase's batch and plain "
+                 f"B={TRAIN_B} step meanwhile in {ref_s:.2f}s (the step {ref['plain']['step_ms'] / 1e3:.2f}s)")
     check_budget("build")
+    # the accuracy phase's DNC check: its CPU side in the CPU pool from now
+    dnc = start_dnc_check(dev, cpu_pool)
 
     # ---- 3. kernel vs plain version on the card ----------------------------
     IN = TrackerConfig().input_depth
@@ -3932,7 +4340,8 @@ def main() -> int:
     check_budget("kernel")
 
     # ---- 3b. the training kernels (B2) vs their plain version -----------------
-    bptt_tiles = phase_bptt(dev, IN)
+    bptt_tiles = phase_bptt(dev, IN, bptt_plain)
+    del bptt_plain
     check_budget("bptt")
 
     # ---- 3c. the addressing kernel (B3) vs its plain version, and its times ----
@@ -3946,56 +4355,14 @@ def main() -> int:
     params = init_ntm_params(cfg.ntm, cfg.input_depth, gen, dev)
     n_track = 8
     video, region0 = synthetic_video(seed=0, frames=1 + n_track)
-    trk = StreamingTracker(cfg, vgg, params, device="cuda")
-    init_bbox = geometry.initial_transformed_bbox(cfg.data.cropbox_grid, cfg.data.bbox_grid)
-
-    reset_counts()
-    trk.init(video[0], region0)
-    per_frame = [ntm_scan_fused.launches]
-    cropboxes, offsets, regions = [list(trk.cropbox)], [], []
-    for t in range(1, 1 + n_track):
-        cropboxes.append(list(trk.cropbox))
-        regions.append(trk.track(video[t]))
-        offsets.append([trk.output_bbox[0] - init_bbox[0], trk.output_bbox[1] - init_bbox[1]])
-        per_frame.append(ntm_scan_fused.launches)
-    main_path_launches = ntm_scan_fused.launches
-    frame_routes = dict(ntm_scan_fused.launches_by_route)
-    frame_proj = token_projection.launches
-    if per_frame != list(range(1, 2 + n_track)):
-        raise AssertionError(f"kernel launches per frame {per_frame}: expected one per frame")
-    if frame_routes != {"cluster": 1 + n_track, "tile": 0} or frame_proj != 1 + n_track:
-        raise AssertionError(f"the frame path ran B1's routes {frame_routes} and {frame_proj} projections: expected "
-                             f"the cluster route and one projection per frame")
-    offsets = np.asarray(offsets)
-    if offsets.shape != (n_track, 2) or not np.isfinite(offsets).all() or not np.isfinite(regions).all():
-        raise AssertionError(f"bad tracker output: offsets {offsets}")
-
-    # the same crops through the plain loop on the card
-    plain_cfg = dataclasses.replace(cfg, fused_inference=False)
-    step_first, step_rest = build_frame_step(plain_cfg, make_core(plain_cfg), vgg, params, device=dev)
-    mean = torch.as_tensor(VGG_MEAN, device=dev)
-
-    def crop(frame, box):
-        img = torch.as_tensor(frame, device=dev).float() - mean
-        return crop_and_resize(img[None], torch.tensor([box], dtype=torch.float32, device=dev),
-                               (cfg.data.crop_size, cfg.data.crop_size))
-
-    nb, _, tr = region_geometry(cfg.data, (video.shape[2], video.shape[1]), region0)
-    gt = torch.as_tensor(first_frame_gt(cfg, nb, tr).reshape(1, -1), device=dev)
-    with torch.no_grad():
-        pstate = init_ntm_state(trk.params, cfg.ntm, 1)
-    _, pstate = step_first(crop(video[0], cropboxes[0]), gt, pstate)
-    plain_offsets = []
-    for t in range(1, 1 + n_track):
-        off, pstate = step_rest(crop(video[t], cropboxes[t]), pstate)
-        plain_offsets.append(off[0].cpu().numpy())
-    off_err = float(np.abs(offsets - np.asarray(plain_offsets, np.float64)).max())
+    fp = frame_path(cfg, vgg, params, video, region0, dev)
+    trk, plain_cfg, crop, cropboxes = fp["trk"], fp["plain_cfg"], fp["crop"], fp["cropboxes"]
+    main_path_launches, frame_routes, frame_proj = fp["launches"], fp["routes"], fp["proj"]
     log("frame", f"StreamingTracker full width: init + {n_track} frames, launches per frame "
-                 f"{np.diff([0] + per_frame).tolist()} (B1 by route {frame_routes}, projections {frame_proj}), offsets[-1]={offsets[-1].tolist()} "
-                 f"region[-1]={[round(float(v), 2) for v in regions[-1]]}; fused vs plain loop on the same crops: "
-                 f"max_abs(offsets)={off_err:.3e} tol={F32_TOL:g}")
-    if off_err > F32_TOL:
-        raise AssertionError(f"fused frame step disagrees with the plain loop: {off_err:.3e}")
+                 f"{np.diff([0] + fp['per_frame']).tolist()} (B1 by route {frame_routes}, projections {frame_proj}), "
+                 f"offsets[-1]={fp['offsets'][-1].tolist()} "
+                 f"region[-1]={[round(float(v), 2) for v in fp['regions'][-1]]}; "
+                 f"fused vs plain loop on the same crops: max_abs(offsets)={fp['off_err']:.3e} tol={F32_TOL:g}")
 
     # the receptive-field slice gives the full map's tokens
     c0 = crop(video[0], cropboxes[0])
@@ -4007,6 +4374,9 @@ def main() -> int:
     if tuple(fast.shape) != (1, 64, 512) or tok_err > 1e-4:
         raise AssertionError("VGG token paths disagree")
     check_budget("frame")
+
+    # ---- 4a. the JAX package's orbax checkpoint: read, resumed, served -------
+    orbax = phase_orbax(dev, smi)
 
     # ---- 5. times --------------------------------------------------------------
     params, ncfg, toks, state = flag_args
@@ -4054,29 +4424,34 @@ def main() -> int:
     train = phase_train(dev, smi, IN, ref)
 
     # ---- 7b. the lane-packed kernels (B4) at the frame and train shapes -------
-    packed = phase_packed(dev, smi, IN, train)
+    for name in built_packed.result():
+        _build.load_library(name)
+    log("build", f"B4's libraries ready at t={time.perf_counter() - T_START:.1f}s")
+    packed = phase_packed(dev, smi, IN, train, cpu_pool)
 
-    # ---- 7c. the accuracy path: training learns, the trackers track ---------
-    accuracy = phase_accuracy(dev, smi)
-
-    # ---- 7d. the real-data path: preprocess, cache-features, train-offsets ----
-    # ---- 7e. the experiment lab, on the data path's tree and token cache -----
     import shutil
     import tempfile
 
+    # ---- 7c. the accuracy path: training learns, the trackers track ---------
+    # ---- 7d. the real-data path: preprocess, cache-features, train-offsets ----
+    # ---- 7e. the experiment lab, on the data path's tree and token cache -----
     # ---- 7f. serving and evaluation, on the same tree -----------------------
     # ---- 7g. data parallelism and the scan knobs, on the same tree ---------
+    # the parallel phase's ranks, then the bench tools, run beside the
+    # accuracy and data phases, which put no timing into the kernels line
     tree = tempfile.mkdtemp(prefix="ntm_data_")
     par_work = tempfile.mkdtemp(prefix="ntm_parallel_")
     try:
         # the subprocesses share the card: hand back this process's cached blocks
         torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info(dev)
-        log("data", f"before the subprocesses: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB, this process "
-                    f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
+        log("accuracy", f"before the subprocesses: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB, this process "
+                        f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
         par_procs = start_parallel_subprocesses(dev, par_work)
+        serve_exports = start_serving_exports(dev, serve_work)
         bench_tools = start_bench_tools(dev, par_work, [par_procs[f"rank{r}"][0] for r in range(2)])
-        data = phase_data(dev, smi, tree)
+        accuracy = phase_accuracy(dev, smi, dnc)
+        data = phase_data(dev, smi, tree, cpu_pool)
         bench_tools = join_bench_tools(bench_tools)
         trax_servers = start_trax_servers(dev, serve_work, serve_exports)
         lab = phase_lab(dev, smi, tree)
@@ -4088,9 +4463,12 @@ def main() -> int:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(serve_work, ignore_errors=True)
         shutil.rmtree(par_work, ignore_errors=True)
+    # the packed phase's referee, computed beside the phases since
+    packed["initial_state_referee"] = packed.pop("referee")()
+    check_budget("packed_referee_join")
     data_counts = {"data_cached_train": data["cached"]["counts"], "data_raw_host_resize":
                    data["raw"]["host_resize"]["counts"], "data_raw_device_resize": data["raw"]["device_resize"]["counts"],
-                   "data_resume": data["resumed"]["counts"]}
+                   "data_resume": data["resumed"]["counts"], "data_orbax_resume": data["orbax_resume"]["counts"]}
     lab_counts = {f"lab_{k}": c for k, c in lab["counts"].items()}
     serving_counts = serving["counts"]
     parallel_counts = parallel["counts"]
@@ -4115,6 +4493,8 @@ def main() -> int:
                              "accuracy_device_loop": accuracy["ntm"]["loop_counts"]["ntm_scan_fused"],
                              "accuracy_demo_train": accuracy["ntm"]["train_counts"]["ntm_scan_fused"],
                              "accuracy_flagship_train": accuracy["flagship"]["counts"]["ntm_scan_fused"],
+                             "orbax_tracker": orbax["tracker_counts"]["ntm_scan_fused"],
+                             "orbax_resumed_step": orbax["step_counts"]["ntm_scan_fused"],
                              **{k: c["ntm_scan_fused"] for k, c in data_counts.items()},
                              **{k: c["ntm_scan_fused"] for k, c in lab_counts.items()},
                              **{k: c["ntm_scan_fused"] for k, c in serving_counts.items()},
@@ -4122,6 +4502,7 @@ def main() -> int:
                              **{k: c["ntm_scan_fused"] for k, c in bench_counts.items()}},
         "route_by_path": {"frame_step": frame_routes, "fleet": fleet["fleet_routes"],
                           "device_loop": {"cluster": 0, "tile": 0}, "train": train["eval_routes"],
+                          "orbax_tracker": orbax["tracker_counts"]["ntm_scan_fused_by_route"],
                           **{k: c["ntm_scan_fused_by_route"] for k, c in data_counts.items()},
                           **{k: c["ntm_scan_fused_by_route"] for k, c in lab_counts.items()},
                           **{k: c["ntm_scan_fused_by_route"] for k, c in parallel_counts.items()},
@@ -4150,6 +4531,8 @@ def main() -> int:
                                           "flagship_train": accuracy["flagship"]["counts"][launches],
                                           "clip": accuracy["ntm"]["host_counts"][launches]},
             "launches_on_data_path": {k: c[launches] for k, c in data_counts.items()},
+            "launches_on_orbax_path": {"orbax_resumed_step": orbax["step_counts"][launches],
+                                       "orbax_tracker": orbax["tracker_counts"][launches]},
             "launches_on_lab_path": {k: c[launches] for k, c in lab_counts.items()},
             "launches_on_serving_path": {"serving_profile_train": serving_counts["serving_profile_train"][launches]},
             "launches_on_parallel_path": {k: c[launches] for k, c in parallel_counts.items()},
@@ -4252,6 +4635,9 @@ def main() -> int:
     step_ms = bench["result"]["train_step_ms_cached"]
     log("train", f"{smi}: the train step at B={train['b1']['B']} T={train['b1']['T']} (the bench's): {step_ms:.2f} ms = "
                  f"{TRAIN_B * TRAIN_L / step_ms * 1e3:.1f} trained frames/s, peak {train['peak_gb']:.2f} GB")
+    cpu_pool.shutdown()
+    log("phases", json.dumps({"seconds": {k: round(v, 2) for k, v in PHASE_S.items()},
+                              "total": round(time.perf_counter() - T_START, 2), "budget": BUDGET_S}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

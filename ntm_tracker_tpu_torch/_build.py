@@ -87,9 +87,11 @@ def library_path(name: str) -> Path:
 def build_all(names) -> dict:
     """Compile the library of every name not built yet (csrc/<name>.cu, its
     VARIANTS entry, or native/<name>.cpp), one compiler each, all started
-    together; prints each compile time and ptxas's register, shared-memory
-    and spill report to stderr (stdout may be a protocol stream: track-vot's
-    TraX wire). Returns {name: library path}."""
+    together; prints each compile time (to its own end) and ptxas's
+    register, shared-memory and spill report to stderr (stdout may be a
+    protocol stream: track-vot's TraX wire). Returns {name: library path}."""
+    import tempfile
+
     outs = {name: library_path(name) for name in names}
     running = []
     for name, out in outs.items():
@@ -99,23 +101,35 @@ def build_all(names) -> dict:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         compiler, source, flags = _source_and_flags(name)
         cmd = [compiler(), *flags, "-o", str(tmp), str(source), *HOST_LIBRARIES.get(name, ())]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        running.append((name, out, tmp, proc, time.perf_counter()))
+        # the compiler's report goes to a file: a full pipe would stall it
+        report = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(cmd, stdout=report, stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, cmd, proc, report, time.perf_counter()))
     failed = []
-    for name, out, tmp, proc, t0 in running:
-        try:
-            stdout, stderr = proc.communicate(timeout=NVCC_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            stdout, stderr = proc.communicate()
-            failed.append(f"the compiler timed out after {NVCC_TIMEOUT_S} s building {name}")
-            continue
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{cmd[0]} exited {proc.returncode} building {name}:\n{stdout}{stderr}")
-            continue
-        print(f"[build] {name}: {os.path.basename(cmd[0])} {secs:.2f} s\n{stderr.strip()}", file=sys.stderr, flush=True)
-        os.replace(tmp, out)
+    pending = list(running)
+    while pending:
+        for item in list(pending):
+            name, out, tmp, cmd, proc, report, t0 = item
+            secs = time.perf_counter() - t0
+            if proc.poll() is None:
+                if secs < NVCC_TIMEOUT_S:
+                    continue
+                proc.kill()
+                proc.wait()
+                failed.append(f"the compiler timed out after {NVCC_TIMEOUT_S} s building {name}")
+            else:
+                report.seek(0)
+                text = report.read().strip()
+                if proc.returncode != 0:
+                    failed.append(f"{cmd[0]} exited {proc.returncode} building {name}:\n{text}")
+                else:
+                    print(f"[build] {name}: {os.path.basename(cmd[0])} {secs:.2f} s\n{text}", file=sys.stderr,
+                          flush=True)
+                    os.replace(tmp, out)
+            report.close()
+            pending.remove(item)
+        if pending:
+            time.sleep(0.05)
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs

@@ -59,8 +59,9 @@ _TRACK_RESERVE_S = 3 * 240.0 + 31.0 + 31.3
 
 # Each secondary phase's estimate in seconds on the card, with margin over
 # the full bench run recorded in PERF.md (NVIDIA H100 80GB HBM3, 700.00 W:
-# the cached train step 14.0 s, most of it synthetic_cached_batch's host
-# draws; the device loop at B=1024 18.5 s; the sweep over four batches 40.0 s).
+# the cached train step 14.0 s, most of it the batch's host draws, since
+# made on the card; the device loop at B=1024 18.5 s; the sweep over four
+# batches 40.0 s).
 _EST_S = {"cached_train": 25.0, "device_loop": 30.0, "sweep_batch": 30.0}
 
 # Regression tripwire against the previous recorded bench of this card:
@@ -609,14 +610,16 @@ def _cached_train_throughput(B: int = 256, L: int = 20, iters: int = 10, device=
     (frames/s, step ms). On cuda at float32 the step takes B2
     (fused_bptt "auto"); nothing falls back. `base` is the config whose
     train shape is set to (B, L) (TrackerConfig() by default)."""
-    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, synthetic_cached_batch
+    from ntm_tracker_tpu_torch.train.experiments import OffsetExperiment, device_cached_batch
 
     base = TrackerConfig() if base is None else base
     cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, batch_size=B, sequence_length=L))
     exp = OffsetExperiment(cfg, None, image_mode="cropped", device=device)
     params, opt_state = exp.init(torch.Generator().manual_seed(1))
     step = exp.make_train_step()
-    batch = exp.device_batch(synthetic_cached_batch(cfg, np.random.RandomState(0)))
+    # drawn on the device, outside the timed steps (the host draws of
+    # synthetic_cached_batch took ~10 s at B=256, L=20)
+    batch = device_cached_batch(cfg, 0, exp.device)
     p, o, m = step(params, opt_state, batch)
     _sync(m["loss"])
     t0 = time.perf_counter()

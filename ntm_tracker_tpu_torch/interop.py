@@ -87,8 +87,9 @@ ntm_params_from_flat = dnc_params_from_flat = params_from_flat
 
 def _rmsprop_trees(opt_state: Any):
     """(ms, mom) of the port's {"ms", "mom"} dict, or of the JAX package's
-    optimizer state: a TFRMSPropState, or an optax chain holding one. The
-    trees are shaped like the params, of either core."""
+    optimizer state: a TFRMSPropState, or an optax chain holding one (as
+    orbax restores it, the state a {"ms", "mom"} dict in a list). The trees
+    are shaped like the params, of either core."""
     if isinstance(opt_state, Mapping):
         return opt_state["ms"], opt_state["mom"]
     if hasattr(opt_state, "ms") and hasattr(opt_state, "mom"):
@@ -96,6 +97,8 @@ def _rmsprop_trees(opt_state: Any):
     for part in opt_state:
         if hasattr(part, "ms") and hasattr(part, "mom"):
             return part.ms, part.mom
+        if isinstance(part, Mapping) and "ms" in part and "mom" in part:  # a chain read back from orbax
+            return part["ms"], part["mom"]
     raise ValueError("no TF RMSProp state (ms, mom) found in the optimizer state")
 
 

@@ -297,6 +297,21 @@ def synthetic_cached_batch(cfg: TrackerConfig, rng: np.random.RandomState) -> Di
     return batch
 
 
+def device_cached_batch(cfg: TrackerConfig, seed: int, device) -> Dict[str, torch.Tensor]:
+    """synthetic_cached_batch's layout and ranges on `device` (float16 tokens
+    in [0, 40)), without its host draws: the labels from
+    RandomState(seed), the tokens drawn on the device from a generator
+    seeded with `seed`. Not the JAX package's numbers; the bench's and the
+    smoke's set-up (at B=256, L=20 the host draws take ~10 s)."""
+    n = cfg.train.batch_size * cfg.train.sequence_length
+    device = torch.device(device)
+    labels = _synthetic_labels(cfg, np.random.RandomState(seed))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in labels.items()}
+    batch["features"] = (torch.rand(n, cfg.num_features, cfg.feature_depth, device=device,
+                                    generator=torch.Generator(device=device).manual_seed(seed)) * 40).half()
+    return batch
+
+
 @dataclasses.dataclass
 class HeatmapExperiment(OffsetExperiment):
     """The heatmap-output variants: the core emits per-location logits and

@@ -6,6 +6,11 @@ tensors) at <directory>/<step>.pt, with the reference's save_path.txt
 breadcrumb naming the latest one (direct_offset_output.py:329-333). A
 NamedTuple (the DNC's states) is saved as a dict of its fields, as orbax
 saves it for the JAX package; a restore with a template rebuilds it.
+
+The manager also restores the JAX package's checkpoints: the orbax step
+directories <directory>/<step>/ that its CheckpointManager writes, read by
+train/orbax_ckpt.py without JAX. They count among the steps; a `.pt` of
+the same step is read first. The port never writes or prunes them.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Any, Callable, Iterable, Optional
 import torch
 
 _CKPT = re.compile(r"^(\d+)\.pt$")
+_ORBAX_STEP = re.compile(r"^(\d+)$")  # orbax's in-flight <step>.orbax-checkpoint-tmp-* never match
 
 
 @dataclasses.dataclass
@@ -45,7 +51,8 @@ class MetricLogger:
 
 
 class CheckpointManager:
-    """save / restore / latest_step over torch.save files."""
+    """save / restore / latest_step over torch.save files, and restore /
+    latest_step over the JAX package's orbax step directories."""
 
     def __init__(self, directory: str, max_to_keep: int = 1000):
         self._dir = os.path.abspath(directory)
@@ -55,14 +62,24 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self._dir, f"{step}.pt")
 
-    def steps(self) -> list:
+    def _pt_steps(self) -> list:
         return sorted(int(m.group(1)) for m in map(_CKPT.match, os.listdir(self._dir)) if m)
+
+    def _orbax_steps(self) -> list:
+        from ntm_tracker_tpu_torch.train.orbax_ckpt import is_orbax_step
+
+        return sorted(int(m.group(1)) for m in map(_ORBAX_STEP.match, os.listdir(self._dir))
+                      if m and is_orbax_step(os.path.join(self._dir, m.group(0))))
+
+    def steps(self) -> list:
+        """The steps of the port's `.pt` files and of the JAX package's orbax directories."""
+        return sorted(set(self._pt_steps()) | set(self._orbax_steps()))
 
     def save(self, step: int, state: Any):
         tmp = self._path(step) + ".tmp"
         torch.save(_saveable(state), tmp)
         os.replace(tmp, self._path(step))
-        for old in self.steps()[:-self._max_to_keep]:
+        for old in self._pt_steps()[:-self._max_to_keep]:
             os.remove(self._path(old))
         with open(os.path.join(self._dir, "save_path.txt"), "w") as f:
             f.write(os.path.join(self._dir, str(step)))
@@ -75,12 +92,26 @@ class CheckpointManager:
         each tensor on its template tensor's device; the saved tree must
         have the template's keys, or with partial=True hold them (a
         subtree, such as the params without the optimizer state: the
-        weights-only restore of inference)."""
+        weights-only restore of inference).
+
+        A JAX-written step comes back as orbax's raw restore gives it (lists
+        for tuples, None for the optax chain's EmptyState), its tensors on
+        the CPU unless map_location says otherwise. Where the template holds
+        the port's optimizer state {"ms", "mom"}, a saved optax chain gives
+        its TF-RMSProp state (interop._rmsprop_trees' rule)."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self._dir}")
-        raw = torch.load(self._path(step), map_location=map_location, weights_only=True)
+        orbax_dir = os.path.join(self._dir, str(step))
+        if os.path.exists(self._path(step)) or not os.path.isdir(orbax_dir):
+            raw = torch.load(self._path(step), map_location=map_location, weights_only=True)
+        else:
+            from ntm_tracker_tpu_torch.train.orbax_ckpt import read_step
+
+            raw = read_step(orbax_dir)
+            if map_location is not None:
+                raw = _to_device(raw, map_location)
         if template is None:
             return raw
         return _extract(template, raw, partial, "")
@@ -101,8 +132,21 @@ def _saveable(tree: Any) -> Any:
     return tree
 
 
+def _to_device(tree: Any, device) -> Any:
+    """The tree with every tensor on `device`."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
 def _extract(tmpl: Any, value: Any, partial: bool, where: str) -> Any:
     """`value` in the structure of `tmpl` (see CheckpointManager.restore)."""
+    if isinstance(tmpl, dict) and set(tmpl) == {"ms", "mom"} and isinstance(value, (list, tuple)):
+        from ntm_tracker_tpu_torch.interop import _rmsprop_trees
+
+        value = dict(zip(("ms", "mom"), _rmsprop_trees(value)))
     if isinstance(tmpl, dict) or (isinstance(tmpl, tuple) and hasattr(tmpl, "_fields")):
         keys = tmpl._fields if isinstance(tmpl, tuple) else list(tmpl)
         if not isinstance(value, dict):

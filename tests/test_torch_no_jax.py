@@ -1,6 +1,7 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package: the
-card's machine has no JAX. Read from the source (an AST walk), since a
-test process may already have JAX loaded."""
+"""The port and chip_smoke.py import neither JAX nor the JAX package, nor
+the libraries that read orbax checkpoints: the card's machine has none.
+Read from the source (an AST walk), since a test process may already have
+JAX loaded."""
 
 import ast
 import pathlib
@@ -8,7 +9,9 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "ntm_tracker_tpu"}
+# the orbax reader (train/ocdbt.py, train/orbax_ckpt.py) is written from the
+# format: none of the libraries that read it either
+FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "ntm_tracker_tpu", "tensorstore", "zarr", "numcodecs", "zstandard"}
 SOURCES = sorted((ROOT / "ntm_tracker_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
