@@ -64,6 +64,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ntm_tracker_tpu_torch.benchmarks import kernel_launches
+from ntm_tracker_tpu_torch.utils.profiling import counter, reset as reset_counters
+
 T_START = time.perf_counter()
 # the whole run, the kernel build included, must end inside this budget
 BUDGET_S = 300.0
@@ -856,15 +859,18 @@ def phase_bptt(dev: torch.device, IN: int, plain: dict) -> dict:
     return {"backward": ran, "forward": fwd_ran, "forward_max_abs_err": fwd_worst}
 
 
+def zero_launches(*fns) -> None:
+    """Set the wrappers' launch counts to 0 (B1's by route with its own)."""
+    reset_counters(*(f"launches.{fn.__name__}" for fn in fns))
+
+
 def reset_counts() -> None:
     """Set B1's launch counts (in all, by route) and the token projection's
     to 0: both B1 routes launch the projection first."""
     from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import token_projection
     from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
 
-    ntm_scan_fused.launches = token_projection.launches = 0
-    for route in ntm_scan_fused.launches_by_route:
-        ntm_scan_fused.launches_by_route[route] = 0
+    zero_launches(ntm_scan_fused, token_projection)
 
 
 def frame_path(cfg, vgg, params, video, region0, dev: torch.device) -> dict:
@@ -878,8 +884,6 @@ def frame_path(cfg, vgg, params, video, region0, dev: torch.device) -> dict:
     from ntm_tracker_tpu_torch.models.core import make_core
     from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
     from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN
-    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import token_projection
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
     from ntm_tracker_tpu_torch.tracking.tracker import (
         StreamingTracker, build_frame_step, first_frame_gt, region_geometry,
     )
@@ -889,16 +893,16 @@ def frame_path(cfg, vgg, params, video, region0, dev: torch.device) -> dict:
     init_bbox = geometry.initial_transformed_bbox(cfg.data.cropbox_grid, cfg.data.bbox_grid)
     reset_counts()
     trk.init(video[0], region0)
-    per_frame = [ntm_scan_fused.launches]
+    per_frame = [kernel_launches()["ntm_scan_fused"]]
     cropboxes, offsets, regions = [list(trk.cropbox)], [], []
     for t in range(1, 1 + n_track):
         cropboxes.append(list(trk.cropbox))
         regions.append(trk.track(video[t]))
         offsets.append([trk.output_bbox[0] - init_bbox[0], trk.output_bbox[1] - init_bbox[1]])
-        per_frame.append(ntm_scan_fused.launches)
-    launches = ntm_scan_fused.launches
-    routes = dict(ntm_scan_fused.launches_by_route)
-    proj = token_projection.launches
+        per_frame.append(kernel_launches()["ntm_scan_fused"])
+    b1_launches = kernel_launches()["ntm_scan_fused"]
+    routes = kernel_launches()["ntm_scan_fused_by_route"]
+    proj = kernel_launches()["token_projection"]
     if dev.type == "cuda" and per_frame != list(range(1, 2 + n_track)):
         raise AssertionError(f"kernel launches per frame {per_frame}: expected one per frame")
     if dev.type == "cuda" and (routes != {"cluster": 1 + n_track, "tile": 0} or proj != 1 + n_track):
@@ -931,7 +935,7 @@ def frame_path(cfg, vgg, params, video, region0, dev: torch.device) -> dict:
     if off_err > F32_TOL:
         raise AssertionError(f"fused frame step disagrees with the plain loop: {off_err:.3e}")
     return {"trk": trk, "plain_cfg": plain_cfg, "crop": crop, "cropboxes": cropboxes, "per_frame": per_frame,
-            "launches": launches, "routes": routes, "proj": proj, "offsets": offsets, "regions": regions,
+            "launches": b1_launches, "routes": routes, "proj": proj, "offsets": offsets, "regions": regions,
             "off_err": off_err}
 
 
@@ -1109,9 +1113,9 @@ def phase_addressing(dev: torch.device, smi: str) -> dict:
         loss = sum((o * c).sum() for o, c in zip(fn(*leaves, **kw(ncfg)), cot))
         return torch.autograd.grad(loss, leaves)
 
-    before = fused_ntm_addressing.launches
+    before = kernel_launches()["fused_ntm_addressing"]
     gk = grads(fused_ntm_addressing)
-    through_kernel = fused_ntm_addressing.launches - before
+    through_kernel = kernel_launches()["fused_ntm_addressing"] - before
     gp = grads(fused_ntm_addressing_reference)
     gerr = max(max_abs(a, b) for a, b in zip(gk, gp))
     log("addressing", f"gradient B={B} through the autograd Function ({through_kernel} launch) vs autograd of the plain "
@@ -1167,7 +1171,6 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
 
     from ntm_tracker_tpu_torch.models.core import make_core
     from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
-    from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import token_projection
     from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
     from ntm_tracker_tpu_torch.tracking.fleet import FleetTracker
     from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker, build_frame_step, make_device_track_step
@@ -1192,8 +1195,7 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
 
     fleet._step_rest = recording_rest
     reset_counts()
-    for k in kernels:
-        k.launches = 0
+    zero_launches(*kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     slots = [fleet.add(video[0], r) for r in regions]
@@ -1202,9 +1204,9 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
     outs = [fleet.step({s: video[t] for s in slots}) for t in range(1, 1 + FLEET_STEPS)]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    fleet_counts = {k.__name__: k.launches for k in kernels}
-    fleet_counts["token_projection"] = token_projection.launches
-    fleet_routes = dict(ntm_scan_fused.launches_by_route)
+    fleet_counts = {k.__name__: kernel_launches()[k.__name__] for k in kernels}
+    fleet_counts["token_projection"] = kernel_launches()["token_projection"]
+    fleet_routes = kernel_launches()["ntm_scan_fused_by_route"]
     expected = {"ntm_scan_fused": FLEET_CAP, "fused_ntm_addressing": T * FLEET_STEPS, "token_projection": FLEET_CAP}
     arr = np.asarray([[out[s] for s in slots] for out in outs], np.float64)
     log("fleet", f"FleetTracker use_pallas=True capacity {FLEET_CAP} on {FLEET_HW[0]}x{FLEET_HW[1]} frames: {FLEET_CAP} adds "
@@ -1234,8 +1236,7 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
     bbox = torch.as_tensor(normalized_bboxes(regions), device=dev)
     state = core_p.init_state(params, FLEET_CAP)
     reset_counts()
-    for k in kernels:
-        k.launches = 0
+    zero_launches(*kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = init_fn(frames[0], bbox, state)
@@ -1245,8 +1246,8 @@ def phase_fleet(dev: torch.device, smi: str, cfg, vgg, params) -> dict:
         loop_regions.append(region)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    loop_counts = {k.__name__: k.launches for k in kernels}
-    loop_counts["token_projection"] = token_projection.launches
+    loop_counts = {k.__name__: kernel_launches()[k.__name__] for k in kernels}
+    loop_counts["token_projection"] = kernel_launches()["token_projection"]
     loop_expected = {"ntm_scan_fused": 0, "fused_ntm_addressing": T * (1 + FLEET_STEPS), "token_projection": 0}
     loop_arr = torch.stack(loop_regions).cpu().double().numpy()
     log("fleet", f"make_device_track_step use_pallas=True B={FLEET_CAP}: init + {FLEET_STEPS} steps {loop_s:.2f}s; "
@@ -1488,8 +1489,7 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     # (the step is timed in the bench phase: benchmarks.main's cached train
     # step at the same shape)
     reset_counts()
-    for k in kernels:
-        k.launches = 0
+    zero_launches(*kernels)
     torch.cuda.reset_peak_memory_stats()
     p1, s1, m = train_step(params, opt_state, batch)
     losses = [float(m["loss"])]
@@ -1499,8 +1499,8 @@ def phase_train(dev: torch.device, smi: str, IN: int, ref: dict) -> dict:
     aux = eval_step(p1, batch)
     eval_loss = float(aux["loss"])
     eval_ms = 1e3 * (time.perf_counter() - t0)
-    counts = {k.__name__: k.launches for k in kernels}
-    eval_routes = dict(ntm_scan_fused.launches_by_route)
+    counts = {k.__name__: kernel_launches()[k.__name__] for k in kernels}
+    eval_routes = kernel_launches()["ntm_scan_fused_by_route"]
     expected = {"ntm_scan_fused": 1, "bptt_forward": 1, "token_projection": 2, "bptt_backward": 1,
                 "grad_reduce": L + 1}
     log("train", f"main path launches {counts} (expected {expected}: a projection per train step and one for the "
@@ -1979,7 +1979,7 @@ def phase_orbax(dev: torch.device, smi: str) -> dict:
     reset_all_counts()
     q, s, m = gradient_step(exp.loss_fn, exp.optimizer(), keep_grads=True)(params, opt_state, batch)
     loss, gnorm = float(m["loss"]), float(global_norm(m["grads"]))
-    counts = kernel_counts()
+    counts = kernel_launches()
     expp = OffsetExperiment(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, fused_bptt=False)), None,
                             device=dev)
     qp, sp, mp = gradient_step(expp.loss_fn, expp.optimizer(), keep_grads=True)(params, opt_state, batch)
@@ -2007,7 +2007,7 @@ def phase_orbax(dev: torch.device, smi: str) -> dict:
     video, region0 = synthetic_video(seed=0, frames=1 + ORBAX_FRAMES)
     reset_all_counts()
     fp = frame_path(base, vgg, params, video, region0, dev)
-    tracker_counts = kernel_counts()
+    tracker_counts = kernel_launches()
     log("orbax", f"StreamingTracker B=1 from the restored params: init + {ORBAX_FRAMES} frames, launches "
                  f"{tracker_counts}; region[-1]={[round(float(v), 2) for v in fp['regions'][-1]]}; fused vs plain "
                  f"loop on the same crops: max_abs(offsets)={fp['off_err']:.3e} (tol {F32_TOL:g})")
@@ -2042,7 +2042,7 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict, pool=None) -
     from ntm_tracker_tpu_torch.train.optim import tree_map
 
     kernels = (scan_packed.packed_forward, scan_packed.packed_forward_residuals, scan_packed.packed_backward)
-    entry = {k.__name__: k.launches for k in kernels}
+    entry = {k.__name__: counter(f"launches.{k.__name__}") for k in kernels}
     if any(entry.values()):
         raise AssertionError(f"a main path launched B4: {entry}")
     smem = packed_smem_check(IN)
@@ -2293,17 +2293,16 @@ def phase_packed(dev: torch.device, smi: str, IN: int, train: dict, pool=None) -
                  f"{train['b1']['ms']:.3f} ms (phase train)")
 
     # ---- (d) B4's path: the projection launched once per call -------------------------
-    phase_counts = {k.__name__: k.launches for k in kernels}
+    phase_counts = {k.__name__: counter(f"launches.{k.__name__}") for k in kernels}
     ncfg = NTMConfig()
     params, tokens, cot = scan_case(ncfg, 2, 65, 360, dev, IN)
-    for k in kernels:
-        k.launches = 0
-    proj0 = scan_bptt.token_projection.launches
+    zero_launches(*kernels)
+    proj0 = kernel_launches()["token_projection"]
     with torch.no_grad():
         scan_packed.ntm_scan_packed(params, ncfg, tokens, init_ntm_state(params, ncfg, 2))
     grads_of(scan_packed.ntm_scan_packed_bptt, params, ncfg, tokens, cot, lambda p: init_ntm_state(p, ncfg, 2), False)
-    path = {"token_projection": scan_bptt.token_projection.launches - proj0,
-            **{k.__name__: k.launches for k in kernels}}
+    path = {"token_projection": kernel_launches()["token_projection"] - proj0,
+            **{k.__name__: counter(f"launches.{k.__name__}") for k in kernels}}
     expected = {"token_projection": 2, "packed_forward": 1, "packed_forward_residuals": 1, "packed_backward": 1}
     log("packed", f"B4's path, one forward and one train step (fwd + bwd, tokens without gradients): launches {path} "
                   f"(expected {expected}); launches in this phase before it {phase_counts}")
@@ -2326,23 +2325,12 @@ def loss_fell(losses: list, window: int) -> tuple:
     return float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
 
 
-def kernel_counts() -> dict:
-    """The launch counts of B1 (and by route) and of B2's four wrappers."""
-    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
-
-    out = {"ntm_scan_fused": ntm_scan_fused.launches, "ntm_scan_fused_by_route": dict(ntm_scan_fused.launches_by_route)}
-    for name in ("bptt_forward", "token_projection", "bptt_backward", "grad_reduce"):
-        out[name] = getattr(scan_bptt, name).launches
-    return out
-
-
 def reset_all_counts() -> None:
     from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
 
     reset_counts()
-    for name in ("bptt_forward", "token_projection", "bptt_backward", "grad_reduce"):
-        getattr(scan_bptt, name).launches = 0
+    zero_launches(*(getattr(scan_bptt, name) for name in ("bptt_forward", "token_projection", "bptt_backward",
+                                                          "grad_reduce")))
 
 
 def dnc_loss_and_grads(exp, p, batch, features) -> tuple:
@@ -2455,7 +2443,7 @@ def phase_accuracy(dev: torch.device, smi: str, dnc: dict) -> dict:
             log("accuracy", f"demo NTM step {i}: loss {float(losses[-1]):.4f}")
     losses = [float(v) for v in losses]
     train_s = time.perf_counter() - t0
-    train_counts = kernel_counts()
+    train_counts = kernel_launches()
     first, last = loss_fell(losses, ACC_WINDOW)
     log("accuracy", f"{smi}: demo NTM (B={cfg.train.batch_size}, T={cfg.total_steps}, memory "
                     f"{cfg.ntm.mem_size}x{cfg.ntm.mem_dim}, hidden {cfg.ntm.controller_hidden_size}): {ACC_STEPS} steps "
@@ -2472,10 +2460,10 @@ def phase_accuracy(dev: torch.device, smi: str, dnc: dict) -> dict:
     t0 = time.perf_counter()
     host = eval_streaming_iou(cfg, vgg, params, 0, ACC_CLIP_FRAMES, device=dev)
     host_s = time.perf_counter() - t0
-    host_counts = kernel_counts()
+    host_counts = kernel_launches()
     reset_all_counts()
     device = eval_device_iou(cfg, vgg, params, 0, ACC_CLIP_FRAMES, device=dev)
-    loop_counts = kernel_counts()
+    loop_counts = kernel_launches()
     core = make_core(cfg)
     drift_px, drift_frac, step1_px, step1_frac = serve_precision_drift(cfg, core, vgg, params, 0, ACC_CLIP_FRAMES,
                                                                        device=dev)
@@ -2541,7 +2529,7 @@ def phase_accuracy(dev: torch.device, smi: str, dnc: dict) -> dict:
         t0 = time.perf_counter()
         region = trk.track(frames[t])
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    dnc_counts = kernel_counts()
+    dnc_counts = kernel_launches()
     log("accuracy", f"{smi}: DNC StreamingTracker {ACC_DNC_FRAMES} frames of {frames.shape[1]}x{frames.shape[2]}: "
                     f"{', '.join(f'{v:.1f}' for v in frame_ms)} ms a frame (65 plain DNC steps each), region[-1] "
                     f"{[round(float(v), 2) for v in region]}; kernel launches {dnc_counts}")
@@ -2570,7 +2558,7 @@ def phase_accuracy(dev: torch.device, smi: str, dnc: dict) -> dict:
         fparams, fopt, m = fstep(fparams, fopt, fbatch)
         flosses.append(float(m["loss"]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    flag_counts = kernel_counts()
+    flag_counts = kernel_launches()
     first, last = loss_fell(flosses, ACC_FLAG_WINDOW)
     log("accuracy", f"{smi}: flagship width B={ACC_FLAG_SEQS} T={fcfg.total_steps}: build_dataset "
                     f"{tuple(fbatch['features'].shape)} in {dataset_s:.2f}s; {ACC_FLAG_STEPS} full-batch steps, "
@@ -2685,7 +2673,7 @@ def phase_data(dev: torch.device, smi: str, root: str = None, pool=None) -> dict
             secs = time.perf_counter() - t0
             n = sum(m["num_frames"] for m in mans)
             builds[store] = {"s": secs, "frames": n, "frames_per_s": n / secs}
-        decode = {r: dict(c) for r, c in loader.DECODE_ROUTES.items()}
+        decode = loader.decode_routes()
         from ntm_tracker_tpu_torch.data import native_jpeg
 
         try:
@@ -2715,7 +2703,7 @@ def phase_data(dev: torch.device, smi: str, root: str = None, pool=None) -> dict
                     f"{builds['float32']['frames']} in {builds['float32']['s']:.2f}s = "
                     f"{builds['float32']['frames_per_s']:.1f} frames/s; decode + resize by route (unique frames a "
                     f"batch) {decode}, ms a frame { {r: round(v, 3) for r, v in ms_frame.items()} }; native jpeg "
-                    f"pipeline: {native_note}; record reader {dict(loader.RECORD_ROUTES)}")
+                    f"pipeline: {native_note}; record reader {loader.record_routes()}")
         log("data", f"cached float32 tokens of {len(frames)} records against the CPU's VGG on the same crops: rel "
                     f"max_abs {tok_err:.2e} (tol {DATA_TOL:g}); the card's on these {len(frames)} crops alone "
                     f"{card_err:.2e} (cuDNN's algorithm differs with the batch); float16 cache vs float32 {f16_err:.2e}")
@@ -2723,7 +2711,7 @@ def phase_data(dev: torch.device, smi: str, root: str = None, pool=None) -> dict
             raise AssertionError(f"cached tokens disagree: vs CPU {tok_err:.2e}, vs the card's {card_err:.2e}, "
                                  f"float16 {f16_err:.2e}")
         out.update(builds=builds, decode=decode, decode_ms_frame=ms_frame, native_jpeg=native_note,
-                   token_rel_err=tok_err, f16_rel_err=f16_err, record_routes=dict(loader.RECORD_ROUTES))
+                   token_rel_err=tok_err, f16_rel_err=f16_err, record_routes=loader.record_routes())
         check_budget("data_cache")
 
         # ---- (c) train-offsets --feature_cache -----------------------------------
@@ -2733,7 +2721,7 @@ def phase_data(dev: torch.device, smi: str, root: str = None, pool=None) -> dict
                                   "--batch_size", str(B), "--num_epochs", str(DATA_EPOCHS), "--log_dir", "log_cached"])
         reset_all_counts()
         run = cli.train_offsets(args)
-        counts = kernel_counts()
+        counts = kernel_launches()
         step_ms, wait0_s, wait_share = run_periods_ms(run)
         recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
         losses = [r["train_loss"] for r in recs if "train_loss" in r]
@@ -2777,13 +2765,13 @@ def phase_data(dev: torch.device, smi: str, root: str = None, pool=None) -> dict
             loader.reset_route_counts()
             reset_all_counts()
             run = cli.train_offsets(args)
-            counts = kernel_counts()
+            counts = kernel_launches()
             step_ms, wait0_s, wait_share = run_periods_ms(run)
             recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
             rl = [r["train_loss"] for r in recs if "train_loss" in r]
             raw[name] = {"steps": run["steps"], "step_ms": step_ms, "wait0_ms": wait0_s * 1e3, "wait_share": wait_share,
                          "losses": rl, "counts": counts,
-                         "decode": {r: dict(c) for r, c in loader.DECODE_ROUTES.items()}}
+                         "decode": loader.decode_routes()}
             log("data", f"{smi}: train-offsets on decoded frames ({name}) B={DATA_RAW_B} L={L}: {run['steps']} steps, "
                         f"step {step_ms:.2f} ms (median; VGG on the card every step); waiting on the prefetcher "
                         f"{wait0_s * 1e3:.2f} ms before step 0, then {wait_share:.2%} of the run from step 0's start "
@@ -2812,7 +2800,7 @@ def phase_data(dev: torch.device, smi: str, root: str = None, pool=None) -> dict
         last = ckpt.restore(ckpt.latest_step(), map_location=cpu)["params"]
         reset_all_counts()
         resumed = cli.train_offsets(args)
-        counts = kernel_counts()
+        counts = kernel_launches()
         recs = [json.loads(line) for line in open(os.path.join(resumed["log_dir"], "metrics.jsonl"))]
         val0 = next(r["val_loss"] for r in recs if "val_loss" in r)
         vb = next(token_batch_iterator(val, B, "cache_float16", 8, shuffle=True, seed=seed, epochs=1))
@@ -2836,7 +2824,7 @@ def phase_data(dev: torch.device, smi: str, root: str = None, pool=None) -> dict
                                   "--ckpt_path", jax_ckpt, "--log_dir", "log_orbax"])
         reset_all_counts()
         run = cli.train_offsets(args)
-        counts = kernel_counts()
+        counts = kernel_launches()
         recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
         jl = [r["train_loss"] for r in recs if "train_loss" in r]
         jv = [r["val_loss"] for r in recs if "val_loss" in r]
@@ -2910,7 +2898,7 @@ def lab_first_step(tag: str, exp, plain_exp, params, batch, zero=()) -> dict:
     vanish in exact arithmetic (LAB_ZERO_TOL)."""
     reset_all_counts()
     loss, g, ms = lab_grads(exp, params, batch)
-    counts = kernel_counts()
+    counts = kernel_launches()
     ploss, pg, pms = lab_grads(plain_exp, params, batch)
     largest = max(float(np.abs(v).max()) for v in pg.values())
     rel = {k: float(np.abs(g[k] - v).max()) / max(float(np.abs(v).max()), 1e-30) for k, v in pg.items() if k not in zero}
@@ -2997,7 +2985,7 @@ def phase_lab(dev: torch.device, smi: str, root: str) -> dict:
                                       str(LAB_L), "--num_epochs", str(LAB_STEPS), "--log_dir", f"log_{tag}"])
             reset_all_counts()
             run = cli.train_offsets(args)
-            counts[tag] = kernel_counts()
+            counts[tag] = kernel_launches()
             recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
             losses = [r["train_loss"] for r in recs if "train_loss" in r]
             vals = [r["val_loss"] for r in recs if "val_loss" in r]
@@ -3054,7 +3042,7 @@ def phase_lab(dev: torch.device, smi: str, root: str) -> dict:
                                       "--log_dir", f"log_{tag}"])
             reset_all_counts()
             run = (cli.train_wholeframe if command == "train-wholeframe" else cli.train_active_resize)(args)
-            counts[tag] = c = kernel_counts()
+            counts[tag] = c = kernel_launches()
             steps, losses = run["steps"], run["losses"]
             step_ms = float(np.median(np.diff(run["step_starts"]))) * 1e3
             per = 1 if command == "train-wholeframe" else L
@@ -3079,7 +3067,7 @@ def phase_lab(dev: torch.device, smi: str, root: str) -> dict:
         t0 = time.perf_counter()
         run = cli.train_offsets(args)
         run_s = time.perf_counter() - t0
-        counts["save_imgs"] = c = kernel_counts()
+        counts["save_imgs"] = c = kernel_launches()
         recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
         val0 = next(r["val_loss"] for r in recs if "val_loss" in r)
         pngs = sorted(f for f in os.listdir(run["log_dir"]) if f.endswith(".png"))
@@ -3095,7 +3083,7 @@ def phase_lab(dev: torch.device, smi: str, root: str) -> dict:
         params0 = ckpt.restore(0)["params"]
         reset_all_counts()
         eval_loss = float(exp.make_eval_step()(params0, vbatch)["loss"])
-        eval_counts = kernel_counts()
+        eval_counts = kernel_launches()
         rel = abs(val0 - eval_loss) / abs(eval_loss)
         log("lab", f"{smi}: train-offsets --save_imgs B={LAB_B} L={LAB_L} (T={T}): {run['steps']} step and one "
                    f"validation through eval_with_views (unroll_states at stride {stride}: {chunks} B1 calls) in "
@@ -3334,7 +3322,6 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
     from ntm_tracker_tpu_torch.models.vgg import VGG_MEAN, vgg16_conv43_tokens
     from ntm_tracker_tpu_torch.models.vgg_int8 import vgg16_conv43_tokens_int8
     from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
     from ntm_tracker_tpu_torch.tools.export_serving import ServingModel
     from ntm_tracker_tpu_torch.tracking import validate as tval
     from ntm_tracker_tpu_torch.tracking.fleet import FleetTracker
@@ -3372,10 +3359,11 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
 
     def reset():
         reset_all_counts()
-        fused_ntm_addressing.launches = 0
+        zero_launches(fused_ntm_addressing)
 
-    def launches():
-        return {"ntm_scan_fused": ntm_scan_fused.launches, "fused_ntm_addressing": fused_ntm_addressing.launches}
+    def b1_b3_launches():
+        n = kernel_launches()
+        return {"ntm_scan_fused": n["ntm_scan_fused"], "fused_ntm_addressing": n["fused_ntm_addressing"]}
 
     try:
         if own:
@@ -3436,7 +3424,7 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
         for t in range(1, 1 + SERVE_CLIP):
             boxes.append(list(live.cropbox))
             live.track(video[t])
-        counts["serving_clip_live"] = launches()
+        counts["serving_clip_live"] = b1_b3_launches()
         mean = torch.as_tensor(VGG_MEAN, device=dev)
 
         def crop(frame, box):
@@ -3465,7 +3453,7 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
                 o, state = rest(crops[t], state)
                 offs[tag].append(o[0].cpu().numpy())
             offs[tag] = np.asarray(offs[tag], np.float64)
-            counts[f"serving_clip_{tag}"] = launches()
+            counts[f"serving_clip_{tag}"] = b1_b3_launches()
         err_plain = float(np.abs(offs["artifact"] - offs["plain"]).max())
         err_b1 = float(np.abs(offs["artifact"] - offs["b1_route"]).max())
         log("serving", f"{SERVE_CLIP}-frame clip at {FLEET_HW[0]}x{FLEET_HW[1]}, the same crops: artifact vs live "
@@ -3532,7 +3520,7 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
              "--batch_size", str(DATA_B), "--sequence_length", str(TRAIN_L), "--num_epochs", "3",
              "--validation_interval", "1000", "--log_interval", "1", "--profile_steps", "1:2",
              "--log_dir", os.path.join(work, "log_profile")]))
-        counts["serving_profile_train"] = dict(kernel_counts(), fused_ntm_addressing=fused_ntm_addressing.launches)
+        counts["serving_profile_train"] = kernel_launches()
         trace = os.path.join(run["profile_dir"], "steps_1_2.pt.trace.json")
         with open(trace) as f:
             events = json.load(f)["traceEvents"]
@@ -3573,7 +3561,7 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
             r_l, bbox_l, st_l = step_fn(frames8[t], bbox_l, st_l)
             r_a, bbox_a, lv_a = m8.device_step(frames8[t], bbox_a, lv_a)
             loop_err = max(loop_err, max_abs(r_a, r_l))
-        counts["serving_b8_live_and_artifact"] = launches()
+        counts["serving_b8_live_and_artifact"] = b1_b3_launches()
         log("serving", f"the batch-{B} artifact, loaded in {out['export'][f'b{B}']['load_s']:.2f}s: step vs the live "
                        f"frame step at B={B} (the "
                        f"plain loop by the rule) max_abs(offsets)={step8_err:.3e} (tol {F32_TOL:g}); dinit + 3 dstep vs "
@@ -3594,7 +3582,7 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
             t0 = time.perf_counter()
             ious[tag] = tval.validate_tracker(parser.parse_args(
                 ["--device", d, "validate", "--pickle_path", pkl, "--fleet", str(SERVE_FLEET), *extra]))
-            counts[f"serving_validate_{tag}"] = dict(launches(), seconds=time.perf_counter() - t0)
+            counts[f"serving_validate_{tag}"] = dict(b1_b3_launches(), seconds=time.perf_counter() - t0)
         # the artifact's route, live: the same fleet on the plain cell loop;
         # it and a second live replay record, before each step, how many of
         # every crop's sample rows and columns fall outside the frame
@@ -3667,7 +3655,7 @@ def phase_serving(dev: torch.device, smi: str, root: str = None, exports: dict =
             reset()
             trk.init(decoded[0], region0)
             ref[tag] = np.asarray([trk.track(f) for f in decoded[1:]])
-            counts[f"serving_streaming_tracker_inprocess_{tag}"] = launches()
+            counts[f"serving_streaming_tracker_inprocess_{tag}"] = b1_b3_launches()
         trax_err = {k: float(np.abs(served[k] - ref[k]).max()) for k in served}
         live_vs_art = float(np.abs(served["live"] - served["artifact"]).max())
         log("serving", f"track-vot --vot_mode trax over pipes, two processes started before the lab phase (both sessions "
@@ -3753,7 +3741,7 @@ def dp_worker(rank: int, world: int, port: int, out: str, device: str = "cuda") 
         ms.append((time.perf_counter() - t0) * 1e3)
         grads.append(tree_map(lambda t: t.cpu(), m["grads"]))
     torch.save({"losses": losses, "grads": grads, "params": tree_map(lambda t: t.cpu(), params), "ms": ms,
-                "counts": kernel_counts(), "device": str(dev), "mesh": [str(d) for d in mesh.devices],
+                "counts": kernel_launches(), "device": str(dev), "mesh": [str(d) for d in mesh.devices],
                 "backend": dist.get_backend(), "world": dist.get_world_size()}, out)
     dist.destroy_process_group()
 
@@ -3896,7 +3884,7 @@ def phase_parallel(dev: torch.device, smi: str, root: str, procs: dict) -> dict:
         params, opt_state, m = single(params, opt_state, batch)
         ref_losses.append(float(m["loss"]))
         ref_grads.append(m["grads"])
-    counts["parallel_single_process"] = kernel_counts()
+    counts["parallel_single_process"] = kernel_launches()
     ranks = []
     for r in range(2):
         proc, log_f, path = procs[f"rank{r}"]
@@ -3951,7 +3939,7 @@ def phase_parallel(dev: torch.device, smi: str, root: str, procs: dict) -> dict:
             run = cli.train_offsets(parser.parse_args([*common, "--log_dir", f"log_par_{tag}", *extra]))
             recs = [json.loads(line) for line in open(os.path.join(run["log_dir"], "metrics.jsonl"))]
             runs[tag] = {"losses": [r["train_loss"] for r in recs if "train_loss" in r],
-                         "val": [r["val_loss"] for r in recs if "val_loss" in r], "counts": kernel_counts(),
+                         "val": [r["val_loss"] for r in recs if "val_loss" in r], "counts": kernel_launches(),
                          "backend": run["backend"], "world": run["world"], "steps": run["steps"]}
         rels = [abs(a - b) / abs(b) for a, b in zip(runs["nccl"]["losses"], runs["plain"]["losses"])]
         c = runs["nccl"]["counts"]
@@ -4031,7 +4019,7 @@ def phase_parallel(dev: torch.device, smi: str, root: str, procs: dict) -> dict:
         slots = [fleet.add(video[0], r) for r in regions[:cap]]
         stepped = [fleet.step({s: video[t] for s in slots}) for t in range(1, 1 + PAR_FLEET_FRAMES)]
         offsets[tag] = np.asarray([[out[s] for s in slots] for out in stepped])
-        counts[f"parallel_fleet_{tag}"] = kernel_counts()
+        counts[f"parallel_fleet_{tag}"] = kernel_launches()
     fleet_err = float(np.abs(offsets["mesh"] - offsets["plain"]).max())
     half_err = float(np.abs(offsets["mesh"][:, :half] - offsets["half"]).max())
     log("parallel", f"{smi}: (d) FleetTracker(mesh={[str(x) for x in mesh.devices]}) capacity "
@@ -4084,11 +4072,11 @@ def phase_parallel(dev: torch.device, smi: str, root: str, procs: dict) -> dict:
     T = PAR_KNOB_L * 65
     kparams, ktokens, _ = scan_case(tcfg.ntm, PAR_KNOB_B, T, 361, dev, tcfg.input_depth)
     reset_all_counts()
-    fused_ntm_addressing.launches = 0
+    zero_launches(fused_ntm_addressing)
     with torch.no_grad():
         _, dn_logits, _ = ntm_tracker_unroll(kparams, dataclasses.replace(tcfg.ntm, use_pallas=True), ktokens,
                                              remat=False, layout="dn")
-        counts["parallel_dn_use_pallas"] = dict(kernel_counts(), fused_ntm_addressing=fused_ntm_addressing.launches)
+        counts["parallel_dn_use_pallas"] = kernel_launches()
         _, nd_logits, _ = ntm_tracker_unroll(kparams, tcfg.ntm, ktokens, remat=False, layout="nd")
     dn_err = max_abs(dn_logits, nd_logits)
     log("parallel", f"{smi}: (e) layout dn with use_pallas at B={PAR_KNOB_B} T={T}: B3 launches "
@@ -4096,7 +4084,7 @@ def phase_parallel(dev: torch.device, smi: str, root: str, procs: dict) -> dict:
                     f"max_abs {dn_err:.3e} (tol {F32_TOL:g})")
     if dn_err > F32_TOL or dev.type == "cuda" and counts["parallel_dn_use_pallas"]["fused_ntm_addressing"] != T:
         raise AssertionError(f"layout dn with use_pallas: {dn_err:.3e}, {counts['parallel_dn_use_pallas']}")
-    out["knobs"]["dn_use_pallas"] = {"max_abs": dn_err, "b3_launches": fused_ntm_addressing.launches}
+    out["knobs"]["dn_use_pallas"] = {"max_abs": dn_err, "b3_launches": kernel_launches()["fused_ntm_addressing"]}
     del kparams, ktokens, dn_logits, nd_logits
     check_budget("parallel_knobs")
 
@@ -4141,7 +4129,7 @@ def phase_bench(dev: torch.device, smi: str, tools: dict) -> dict:
 
     t0 = time.perf_counter()
     reset_all_counts()
-    fused_ntm_addressing.launches = 0
+    zero_launches(fused_ntm_addressing)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         returned = benchmarks.main(device=dev, deadline=time.time() + 3600, **BENCH_KW)
@@ -4299,12 +4287,12 @@ def main() -> int:
         params = init_ntm_params(ncfg, IN, gen, dev)
         state = init_ntm_state(params, ncfg, B)
         toks = torch.tensor(np.random.RandomState(200 + i).randn(B, 65, IN).astype(np.float32), device=dev)
-        before = dict(ntm_scan_fused.launches_by_route)
+        before = kernel_launches()["ntm_scan_fused_by_route"]
         run = (functools.partial(ntm_scan_fused, params, ncfg, toks, state, compute_dtype=cd) if forced is None
                else functools.partial(run_route, forced, params, ncfg, toks, state, cd))
         logits, final = run()
         torch.cuda.synchronize()
-        route = [r for r, n in ntm_scan_fused.launches_by_route.items() if n != before[r]]
+        route = [r for r, n in kernel_launches()["ntm_scan_fused_by_route"].items() if n != before[r]]
         again = run()
         same = torch.equal(logits, again[0]) and all(
             torch.equal(a, b) for a, b in zip(flatten_state(final), flatten_state(again[1])))
@@ -4332,9 +4320,10 @@ def main() -> int:
         raise AssertionError(f"routes {case_routes}, expected {expected_routes}")
     # T = 0 echoes the state and launches nothing
     params, ncfg, toks, state = flag_args
-    before = ntm_scan_fused.launches
+    before = kernel_launches()["ntm_scan_fused"]
     logits0, state0 = ntm_scan_fused(params, ncfg, toks[:, :0], state)
-    if state0 is not state or tuple(logits0.shape) != (1, 0, ncfg.output_dim) or ntm_scan_fused.launches != before:
+    if (state0 is not state or tuple(logits0.shape) != (1, 0, ncfg.output_dim)
+            or kernel_launches()["ntm_scan_fused"] != before):
         raise AssertionError("T=0 must echo the state without a launch")
     log("kernel", "T=0 echo ok")
     check_budget("kernel")

@@ -303,16 +303,16 @@ def _sync(t: torch.Tensor) -> None:
 
 
 def kernel_launches() -> dict:
-    """The launch counts of the port's kernel wrappers: B1 (in all and by
-    route), B2's four and B3."""
-    from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
-    from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+    """The launch counts of the port's kernel wrappers (the `launches.*`
+    counters of utils/profiling): B1 (in all and by route), B2's four and
+    B3."""
+    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ROUTES
+    from ntm_tracker_tpu_torch.utils.profiling import counter
 
-    out = {"ntm_scan_fused": ntm_scan_fused.launches, "ntm_scan_fused_by_route": dict(ntm_scan_fused.launches_by_route)}
-    for name in ("token_projection", "bptt_forward", "bptt_backward", "grad_reduce"):
-        out[name] = getattr(scan_bptt, name).launches
-    out["fused_ntm_addressing"] = fused_ntm_addressing.launches
+    out = {"ntm_scan_fused": counter("launches.ntm_scan_fused"),
+           "ntm_scan_fused_by_route": {r: counter(f"launches.ntm_scan_fused.{r}") for r in ROUTES}}
+    for name in ("token_projection", "bptt_forward", "bptt_backward", "grad_reduce", "fused_ntm_addressing"):
+        out[name] = counter(f"launches.{name}")
     return out
 
 

@@ -262,7 +262,7 @@ def _train_offsets(args, rank_dev) -> dict:
     import torch.distributed as dist
 
     from ntm_tracker_tpu_torch.config import resolve_device
-    from ntm_tracker_tpu_torch.data.loader import PrefetchIterator, batch_iterator
+    from ntm_tracker_tpu_torch.data.loader import PrefetchIterator, batch_iterator, device_batch
     from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
     from ntm_tracker_tpu_torch.parallel.distributed import process_shard_sequences
     from ntm_tracker_tpu_torch.parallel.mesh import Mesh, parallel_train_step
@@ -331,15 +331,7 @@ def _train_offsets(args, rank_dev) -> dict:
     grids = dict(cropbox_grid=cfg.data.cropbox_grid, bbox_grid=cfg.data.bbox_grid)
 
     def put(batch):
-        """A host batch (a TokenBatch or a FrameBatch) as tensors on the
-        device, run in the prefetch worker: cached tokens go as stored
-        (float16), frames as decoded (uint8 raw, float32 resized on the
-        host); the experiment casts to float32 on the device."""
-        b = batch._asdict()
-        scales = b.pop("scales")
-        if cfg.predict_scale:
-            b["scales"] = scales / cfg.scale_range
-        return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+        return device_batch(batch, dev, cfg.predict_scale, cfg.scale_range)
 
     if feature_cache:
         from ntm_tracker_tpu_torch.data.feature_cache import token_batch_iterator
@@ -922,13 +914,13 @@ def cmd_track_vot(args) -> int:
         handle.report(vot.Rectangle(x, y, w, h))
         count += 1
     handle.quit()
-    from ntm_tracker_tpu_torch.ops.kernels.addressing import fused_ntm_addressing
-    from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+    from ntm_tracker_tpu_torch.utils.profiling import counter
 
     # in trax mode stdout carries the protocol; the kernels' launch counts
     # are this process's, over the whole session
-    print(f"tracked {count} frames (launches: ntm_scan_fused {ntm_scan_fused.launches}, fused_ntm_addressing "
-          f"{fused_ntm_addressing.launches})", file=sys.stderr if trax_wire else sys.stdout)
+    print(f"tracked {count} frames (launches: ntm_scan_fused {counter('launches.ntm_scan_fused')}, "
+          f"fused_ntm_addressing {counter('launches.fused_ntm_addressing')})",
+          file=sys.stderr if trax_wire else sys.stdout)
     return 0
 
 

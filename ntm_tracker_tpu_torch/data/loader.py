@@ -13,33 +13,47 @@ the same frame order).
 A batch covers batch_size sequences x seq_len frames, flattened to
 [B*L, ...] like the reference's get_input(batch*seq_len).
 
-`DECODE_ROUTES` counts, by route, the batches, frames and seconds of
-decoding (and resizing on the host); `RECORD_ROUTES` the batches of
-records read by each reader.
+Counters (utils/profiling's registry; `decode_routes()` and
+`record_routes()` read them): `decode.<route>.batches|frames|seconds`,
+the batches, frames and seconds of decoding (and resizing on the host) by
+route ("native", the libjpeg pipeline; "pil"), and `records.<reader>`,
+the batches of records read by each reader ("native", record_loader.cpp;
+"python"). Spans (on by utils/profiling's rule): `loader.read`,
+the worker's wait for a host batch from the wrapped iterator;
+`loader.upload`, its `device_put`; `loader.wait`, the consumer's wait for
+a batch in `PrefetchIterator.__next__`.
 """
 
 from __future__ import annotations
 
-import collections
 import queue
 import threading
 import time
 from typing import Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ntm_tracker_tpu_torch.data.preprocess import read_frame_record
+from ntm_tracker_tpu_torch.utils import profiling
 
-# route -> Counter(batches=, frames=, seconds=); routes: "native" (libjpeg
-# pipeline), "pil"
-DECODE_ROUTES: "collections.defaultdict[str, collections.Counter]" = collections.defaultdict(collections.Counter)
-# reader -> batches: "native" (record_loader.cpp), "python"
-RECORD_ROUTES: collections.Counter = collections.Counter()
+_DECODERS = ("native", "pil")
+_READERS = ("native", "python")
 
 
 def reset_route_counts() -> None:
-    DECODE_ROUTES.clear()
-    RECORD_ROUTES.clear()
+    profiling.reset("decode", "records")
+
+
+def decode_routes() -> dict:
+    """{route: {"batches", "frames", "seconds"}} of the routes that decoded."""
+    return {r: {k: profiling.counter(f"decode.{r}.{k}") for k in ("batches", "frames", "seconds")}
+            for r in _DECODERS if profiling.counter(f"decode.{r}.batches")}
+
+
+def record_routes() -> dict:
+    """{reader: batches} of the readers that read records."""
+    return {r: profiling.counter(f"records.{r}") for r in _READERS if profiling.counter(f"records.{r}")}
 
 
 class FrameBatch(NamedTuple):
@@ -119,7 +133,9 @@ def _decode_images_parallel(paths: Sequence[str], resize_hw, workers: int = 8, e
 
             with ThreadPoolExecutor(max_workers=min(workers, len(unique))) as ex:
                 out = np.stack(list(ex.map(lambda p: _decode_image(p, resize_hw), unique)))
-    DECODE_ROUTES[route].update(batches=1, frames=len(unique), seconds=time.perf_counter() - t0)
+    profiling.count(f"decode.{route}.batches")
+    profiling.count(f"decode.{route}.frames", len(unique))
+    profiling.count(f"decode.{route}.seconds", time.perf_counter() - t0)
     row = {p: i for i, p in enumerate(unique)}
     index = [row[p] for p in paths]
     if not expand:
@@ -137,7 +153,7 @@ def load_record_arrays(frame_paths: Sequence[str], gt_width: int = 8, use_native
             from ntm_tracker_tpu_torch.data.native_loader import load_records_native
 
             crops, bboxes, offsets, gts, img_paths = load_records_native(frame_paths, gt_width)
-            RECORD_ROUTES["native"] += 1
+            profiling.count("records.native")
             return (np.asarray(crops, np.float32), offsets, gts,
                     list(img_paths), np.asarray(bboxes, np.float32))
         except RuntimeError:
@@ -147,7 +163,7 @@ def load_record_arrays(frame_paths: Sequence[str], gt_width: int = 8, use_native
     offsets = np.array([[r["y_offset"], r["x_offset"]] for r in recs], np.float32)
     gts = np.stack([r["gt"] for r in recs]).astype(np.float32)
     bboxes = np.asarray([r["bbox"] for r in recs], np.float32)
-    RECORD_ROUTES["python"] += 1
+    profiling.count("records.python")
     return crops, offsets, gts, [r["image_path"] for r in recs], bboxes
 
 
@@ -230,11 +246,27 @@ def load_frame_batch(
     return batch
 
 
+def device_batch(batch, device, predict_scale: bool = False, scale_range: float = 1.0) -> dict:
+    """A host batch (a TokenBatch or a FrameBatch) as a dict of tensors on
+    `device`: cached tokens go as stored (float16), frames as decoded
+    (uint8 raw, float32 resized on the host); the experiment casts to
+    float32 on the device. The raw log-scale targets go, divided by
+    scale_range, only when the head predicts the scale."""
+    b = batch._asdict()
+    scales = b.pop("scales")
+    if predict_scale:
+        b["scales"] = scales / scale_range
+    return {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+
+
 class PrefetchIterator:
     """Wrap a batch iterator with a background thread that keeps
     `prefetch` batches ahead, each passed through `device_put` there. A
     worker's error is raised in the consumer, not taken for the end.
-    `waits` holds the seconds the consumer waited in each __next__."""
+    `waits` holds the seconds the consumer waited in each __next__, timed
+    whether spans are on or off (the `loader.wait` spans' timing); the
+    worker's reads and device_puts are the `loader.read` and
+    `loader.upload` spans, and the worker reads no clock with spans off."""
 
     def __init__(self, it: Iterator, prefetch: int = 2, device_put=None):
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
@@ -244,10 +276,14 @@ class PrefetchIterator:
 
         def worker():
             try:
+                t0 = profiling.stamp()
                 for item in it:
+                    profiling.record("loader.read", t0)
                     if device_put is not None:
-                        item = device_put(item)
+                        with profiling.span("loader.upload"):
+                            item = device_put(item)
                     self._q.put(item)
+                    t0 = profiling.stamp()
             except BaseException as e:  # noqa: BLE001 -- raised again in __next__
                 self._error = e
             finally:
@@ -260,9 +296,11 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         item = self._q.get()
-        self.waits.append(time.perf_counter() - t0)
+        t1 = time.time_ns()
+        self.waits.append((t1 - t0) * 1e-9)
+        profiling.record("loader.wait", t0, t1)
         if item is self._sentinel:
             if self._error is not None:
                 raise self._error

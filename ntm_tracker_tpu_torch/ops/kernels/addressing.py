@@ -39,6 +39,7 @@ from ntm_tracker_tpu_torch.ops.memory import (
     batched_smooth_cosine_similarity,
     sharpen,
 )
+from ntm_tracker_tpu_torch.utils import profiling
 
 # one block's dynamic shared memory on the card (H100: 227 KB)
 MAX_SMEM_BYTES = 232448
@@ -326,7 +327,7 @@ def _launch(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, R: int, write_fir
     if err != 0:
         raise RuntimeError(f"addressing kernel launch failed: CUDA error {err}")
     if stamps is None:
-        fused_ntm_addressing.launches += 1
+        profiling.count("launches.fused_ntm_addressing")
     return M, w, read
 
 
@@ -363,7 +364,7 @@ def fused_ntm_addressing(k: torch.Tensor, beta: torch.Tensor, g: torch.Tensor, s
     Returns:
       (M [B,N,D], w [B,H,N], read [B,R,D]). CPU tensors run the plain
       version; CUDA tensors launch the kernel (counted in
-      `fused_ntm_addressing.launches`) or raise. Differentiable wrt every
+      `launches.fused_ntm_addressing`) or raise. Differentiable wrt every
       input.
     """
     inputs = (k, beta, g, sw, gamma, erase, add, M_prev, w_prev)
@@ -376,9 +377,6 @@ def fused_ntm_addressing(k: torch.Tensor, beta: torch.Tensor, g: torch.Tensor, s
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return _Addressing.apply(read_heads, write_first, slotwise, *inputs)
     return _launch(*inputs, read_heads, write_first, slotwise)
-
-
-fused_ntm_addressing.launches = 0
 
 
 # ---- the per-phase probe (chip_smoke.py) -------------------------------------
@@ -400,7 +398,7 @@ def addressing_probe(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, *, read_
                      write_first: bool = False, slotwise: bool = False) -> Tuple[Outputs, Dict[str, torch.Tensor]]:
     """B3's probe variant on CUDA tensors: the same outputs, and each
     block's clock64() cycles per span ({name: int64 [B]}, PROBE_SPANS).
-    Not counted in `fused_ntm_addressing.launches`."""
+    Not counted in `launches.fused_ntm_addressing`."""
     B, device = M_prev.shape[0], M_prev.device
     stamps = torch.zeros(B, _library().ntm_addressing_probe_slots(), dtype=torch.int64, device=device)
     out = _launch(k, beta, g, sw, gamma, erase, add, M_prev, w_prev, read_heads, write_first, slotwise, stamps)

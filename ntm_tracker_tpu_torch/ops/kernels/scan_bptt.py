@@ -48,6 +48,7 @@ from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
     unflatten_scan_args,
     unflatten_state,
 )
+from ntm_tracker_tpu_torch.utils import profiling
 
 # the GEMM kernels' slab of contraction rows (csrc/scan_bptt.cu GK) and
 # their block tiles (rows, columns), with the blocks of each resident per
@@ -182,7 +183,7 @@ def bptt_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torc
     reads no token). rows_per_block picks the tile (forward_rows).
     Returns (logits [B,T,O], final state, residuals (M [B,T,N,D],
     w [B,T,H,N], read [B,T,R*D], c [B,T,L,Hc], h [B,T,L,Hc]): each step's
-    input state). One launch, counted in `bptt_forward.launches`; CPU
+    input state). One launch, counted in `launches.bptt_forward`; CPU
     tensors run bptt_forward_reference."""
     check_inputs(params, cfg, tokens, state)
     B, T, IN = tokens.shape
@@ -193,11 +194,8 @@ def bptt_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torc
     if device.type == "cpu":
         return bptt_forward_reference(params, cfg, tokens, state, proj)
     out = _forward_launch(params, cfg, tokens, state, proj, forward_tile(cfg, IN, B, device, rows_per_block))
-    bptt_forward.launches += 1
+    profiling.count("launches.bptt_forward")
     return out
-
-
-bptt_forward.launches = 0
 
 
 def _forward_launch(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torch.Tensor, rows: int,
@@ -271,7 +269,7 @@ def token_projection(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Ten
     """X W0[:IN] + b0 over every step: [B*T, 4Hc] from tokens [B, T, IN]
     and layer 0's kernel [IN + R*D + Hc, 4Hc] and bias [4Hc], the token
     part of each step's layer-0 product. One launch of csrc/scan_bptt.cu's
-    GEMM, counted in `token_projection.launches`; CPU tensors run
+    GEMM, counted in `launches.token_projection`; CPU tensors run
     token_projection_reference."""
     B, T, IN = tokens.shape
     device = tokens.device
@@ -291,11 +289,8 @@ def token_projection(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Ten
     )
     if err != 0:
         raise RuntimeError(f"scan_bptt token projection launch failed: CUDA error {err}")
-    token_projection.launches += 1
+    profiling.count("launches.token_projection")
     return out
-
-
-token_projection.launches = 0
 
 
 def token_projection_reference(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -318,7 +313,7 @@ def bptt_backward(params, cfg: NTMConfig, tokens: torch.Tensor, proj: torch.Tens
     logits') feed weight_grads.
     need_dtokens=False computes, writes and allocates no dtokens.
     rows_per_block picks the tile (backward_rows). One launch, counted in
-    `bptt_backward.launches`."""
+    `launches.bptt_backward`."""
     B, T, IN = tokens.shape
     device = tokens.device
     N, D, H = cfg.mem_size, cfg.mem_dim, cfg.num_heads
@@ -363,13 +358,10 @@ def bptt_backward(params, cfg: NTMConfig, tokens: torch.Tensor, proj: torch.Tens
     )
     if err != 0:
         raise RuntimeError(f"scan_bptt backward kernel launch failed: CUDA error {err}")
-    bptt_backward.launches += 1
+    profiling.count("launches.bptt_backward")
     dstate0 = {"M": dM0, "w": dw0, "read": dread0,
                "controller_state": [(dc0[l], dh0[l]) for l in range(L)]}
     return dtokens, dstate0, (li, dgates, ctrl_out, dctl)
-
-
-bptt_backward.launches = 0
 
 
 def gemm_tile(rows: int, cols: int) -> Tuple[int, int]:
@@ -411,7 +403,7 @@ def grad_reduce(A: torch.Tensor, G: torch.Tensor, K: int) -> torch.Tensor:
     [K, J] with its bias gradient as row K. A [M, >=K] and G [M, J] are
     contiguous float32 on cuda. One launch (two kernels: the chunks'
     partial sums, then their sum in order), counted in
-    `grad_reduce.launches`."""
+    `launches.grad_reduce`."""
     M, J = G.shape
     device = G.device
     if A.dim() != 2 or A.shape[0] != M or A.shape[1] < K:
@@ -428,11 +420,8 @@ def grad_reduce(A: torch.Tensor, G: torch.Tensor, K: int) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"scan_bptt reduction kernel launch failed: CUDA error {err}")
-    grad_reduce.launches += 1
+    profiling.count("launches.grad_reduce")
     return out
-
-
-grad_reduce.launches = 0
 
 
 def grad_reduce_reference(A: torch.Tensor, G: torch.Tensor, K: int) -> torch.Tensor:

@@ -37,6 +37,7 @@ from ntm_tracker_tpu_torch.ops.kernels.addressing import (
     addressing_supported,
     fused_ntm_addressing_reference,
 )
+from ntm_tracker_tpu_torch.utils import profiling
 
 # the kernels' limits: layer pointers travel in fixed arrays, and one
 # block's dynamic shared memory is capped by the card (H100: 227 KB)
@@ -209,6 +210,10 @@ def cluster_smem_bytes(cfg: NTMConfig, IN: int, C: int = CLUSTER_SIZE) -> int:
               + (Pc + O) * (Hc | 1) + L * 4 * U + Pc + O
               + 2 * (R * D + L * Hc) + (NT_THREADS // 32) * 4 * U)
     return 4 * floats
+
+
+# B1's routes, each counted in `launches.ntm_scan_fused.<route>`
+ROUTES = ("cluster", "tile")
 
 
 def scan_route(B: int, sms: int, cluster_smem: int, max_clusters: Optional[int] = None,
@@ -445,8 +450,8 @@ def ntm_scan_fused(
     Returns:
       (logits [B, T, output_dim], final state). CPU tensors run the plain
       version; CUDA tensors run the token projection, then scan_route's
-      route (run_route: counted in `ntm_scan_fused.launches`, one per
-      call, and in `ntm_scan_fused.launches_by_route`), or raise.
+      route (run_route: counted in `launches.ntm_scan_fused`, one per
+      call, and in `launches.ntm_scan_fused.<route>`), or raise.
     """
     B, T, IN = tokens.shape
     if T == 0:
@@ -458,11 +463,8 @@ def ntm_scan_fused(
     if device.type != "cuda":
         raise ValueError(f"ntm_scan_fused runs on cuda or cpu tensors, got {device}")
     out = run_route(route_for(cfg, B, IN, device), params, cfg, tokens, state, compute_dtype)
-    ntm_scan_fused.launches += 1
+    profiling.count("launches.ntm_scan_fused")
     return out
-
-
-ntm_scan_fused.launches = 0
 
 
 def _stream(device: torch.device) -> Tuple[int, int]:
@@ -477,9 +479,9 @@ def run_route(route: str, params, cfg: NTMConfig, tokens: torch.Tensor, state,
     on the card, with a zero bias), then "cluster" (csrc/scan_cell.cu) or
     "tile" (csrc/scan_bptt.cu's forward without residuals, at
     forward_tile's rows per block; at bf16 on weights rounded on the card).
-    Counted in `ntm_scan_fused.launches_by_route[route]`; ntm_scan_fused
+    Counted in `launches.ntm_scan_fused.<route>`; ntm_scan_fused
     calls it with scan_route's choice."""
-    if route not in ntm_scan_fused.launches_by_route:
+    if route not in ROUTES:
         raise ValueError(f"unknown route {route!r}")
     bf = _is_bf16(compute_dtype)
     check_inputs(params, cfg, tokens, state)
@@ -503,11 +505,8 @@ def run_route(route: str, params, cfg: NTMConfig, tokens: torch.Tensor, state,
         logits, final, _ = bptt._forward_launch(weights, cfg, tokens, state, proj,
                                                 bptt.forward_tile(cfg, IN, B, device), residuals=False, bf16=bf)
         out = (logits, final)
-    ntm_scan_fused.launches_by_route[route] += 1
+    profiling.count(f"launches.ntm_scan_fused.{route}")
     return out
-
-
-ntm_scan_fused.launches_by_route = {"cluster": 0, "tile": 0}
 
 
 def _cluster_launch(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torch.Tensor,

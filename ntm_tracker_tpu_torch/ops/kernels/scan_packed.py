@@ -56,6 +56,7 @@ from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
 )
 from ntm_tracker_tpu_torch.ops.lstm import multi_lstm_step
 from ntm_tracker_tpu_torch.ops.memory import circular_convolution_shifts
+from ntm_tracker_tpu_torch.utils import profiling
 
 # the tile sizes csrc/scan_packed.cu instantiates (rows per block), for the
 # forward kernels and for the backward
@@ -297,13 +298,10 @@ def packed_forward(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: to
     """Launch the packed forward (no residuals) on proj [B*T, 4Hc], the
     token projection of these tokens and layer 0's weights (the kernel
     reads no token): (logits [B,T,O], final state). rows_per_block picks
-    the tile (tile_rows). One launch, counted in `packed_forward.launches`."""
+    the tile (tile_rows). One launch, counted in `launches.packed_forward`."""
     logits, final, _ = _forward(params, cfg, tokens, state, proj, False, rows_per_block)
-    packed_forward.launches += 1
+    profiling.count("launches.packed_forward")
     return logits, final
-
-
-packed_forward.launches = 0
 
 
 def packed_forward_residuals(params, cfg: NTMConfig, tokens: torch.Tensor, state, proj: torch.Tensor,
@@ -312,13 +310,10 @@ def packed_forward_residuals(params, cfg: NTMConfig, tokens: torch.Tensor, state
     packed_forward takes it: (logits, final state, residuals (Mp [B,T,D*N],
     w [B,T,H,N], read [B,T,R*D], c [B,T,L,Hc], h [B,T,L,Hc]): each step's
     input state, memory packed). One launch, counted in
-    `packed_forward_residuals.launches`."""
+    `launches.packed_forward_residuals`."""
     out = _forward(params, cfg, tokens, state, proj, True, rows_per_block)
-    packed_forward_residuals.launches += 1
+    profiling.count("launches.packed_forward_residuals")
     return out
-
-
-packed_forward_residuals.launches = 0
 
 
 def packed_backward(params, cfg: NTMConfig, tokens: torch.Tensor, proj: torch.Tensor, res, dlogits: torch.Tensor,
@@ -334,9 +329,9 @@ def packed_backward(params, cfg: NTMConfig, tokens: torch.Tensor, proj: torch.Te
     logits'), bptt_backward's layout, feed scan_bptt.weight_grads.
     need_dtokens=False computes, writes and allocates no dtokens.
     rows_per_block picks the tile (tile_rows). One launch, counted in
-    `packed_backward.launches`."""
+    `launches.packed_backward`."""
     out = _backward(params, cfg, tokens, proj, res, dlogits, dfinal, need_dtokens, rows_per_block)
-    packed_backward.launches += 1
+    profiling.count("launches.packed_backward")
     return out
 
 
@@ -393,8 +388,6 @@ def _backward(params, cfg: NTMConfig, tokens: torch.Tensor, proj: torch.Tensor, 
                "controller_state": [(dc0[l], dh0[l]) for l in range(L)]}
     return dtokens, dstate0, (li, dgates, ctrl_out, dctl)
 
-
-packed_backward.launches = 0
 
 # the probe variants' phases (csrc/scan_packed.cu Probe: thread 0 of block
 # 0, clock64() after each barrier): per step, each layer's products and

@@ -40,6 +40,7 @@ from ntm_tracker_tpu_torch.train.zoo import (
     whole_frame_ce_loss,
     whole_frame_tokens,
 )
+from ntm_tracker_tpu_torch.utils import profiling
 
 IMAGE_MODES = ("raw", "resized", "cropped")
 
@@ -77,20 +78,22 @@ def gradient_step(loss_fn: Callable, opt: TFRMSProp, reduce: Optional[Callable] 
     (grads, loss), when given, runs between the gradient and the update,
     on the gradients in tree_leaves order (parallel/mesh.py's all-reduce
     over the process group). keep_grads adds the gradients the update
-    took, before its clip, under "grads"."""
+    took, before its clip, under "grads". A step is the span `train.step`
+    (utils/profiling): the host's time to issue it."""
 
     def train_step(params, opt_state, batch):
-        leaves = tree_leaves(params)
-        live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, _ = loss_fn(live, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        loss = loss.detach()
-        if reduce is not None:
-            grads, loss = reduce(grads, loss)
-        fill = iter(grads)
-        grad_tree = tree_map(lambda _: next(fill), params)
-        params, opt_state = opt.update(grad_tree, opt_state, params)
+        with profiling.span("train.step"):
+            leaves = tree_leaves(params)
+            live = tree_map(lambda p: p.detach().requires_grad_(), params)
+            loss, _ = loss_fn(live, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+            loss = loss.detach()
+            if reduce is not None:
+                grads, loss = reduce(grads, loss)
+            fill = iter(grads)
+            grad_tree = tree_map(lambda _: next(fill), params)
+            params, opt_state = opt.update(grad_tree, opt_state, params)
         metrics = {"loss": loss}
         if keep_grads:
             metrics["grads"] = grad_tree

@@ -23,6 +23,7 @@ from ntm_tracker_tpu_torch.models.core import make_core
 from ntm_tracker_tpu_torch.models.ntm_tracker import ntm_tracker_unroll
 from ntm_tracker_tpu_torch.ops.kernels import addressing, scan_bptt, scan_cell
 from ntm_tracker_tpu_torch.tracking.tracker import build_frame_step
+from ntm_tracker_tpu_torch.utils import profiling
 
 # tests/test_pallas_addressing.py's bound for the kernel against the jnp math
 KERNEL_ATOL = 2e-6
@@ -72,9 +73,9 @@ def test_multi_write_heads_match_jax_kernel():
 
 
 def test_cpu_tensors_never_launch():
-    before = addressing.fused_ntm_addressing.launches
+    before = profiling.counter("launches.fused_ntm_addressing")
     _both(_raw(4, 2, 5, 8, 1, 3), 4, False)
-    assert addressing.fused_ntm_addressing.launches == before == 0
+    assert profiling.counter("launches.fused_ntm_addressing") == before == 0
 
 
 def _cell_pair(**over):

@@ -26,6 +26,7 @@ from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
     scan_route,
 )
 from ntm_tracker_tpu_torch.ops.memory import circular_convolution_shifts
+from ntm_tracker_tpu_torch.utils import profiling
 
 # tests/test_pallas_addressing.py's bound for the kernel against the jnp
 # math (tests/test_torch_addressing.py holds the plain version to it)
@@ -123,11 +124,11 @@ def test_configs_the_phases_refuse():
     with pytest.raises(ValueError):
         addressing.addressing_split_reference(*[torch.tensor(v) for v in _inputs(0, 300, 4, 2, 1, 3, 1).values()],
                                               read_heads=1)
-    before = addressing.fused_ntm_addressing.launches
+    before = profiling.counter("launches.fused_ntm_addressing")
     with FakeTensorMode():
         p = {k: torch.empty(v.shape, device="cuda") for k, v in _inputs(0, 300, 4, 2, 1, 3, 1).items()}
         with pytest.raises(ValueError, match="slots"):
             addressing._launch(*[p[k] for k in ORDER], 1, False, False)
-    assert addressing.fused_ntm_addressing.launches == before
+    assert profiling.counter("launches.fused_ntm_addressing") == before
     assert route_for(NTMConfig(mem_size=300), 1, 514, torch.device("cuda")) == "tile"
     assert route_for(NTMConfig(mem_size=2, shift_range=2), 1, 514, torch.device("cuda")) == "tile"

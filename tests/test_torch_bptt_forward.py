@@ -17,6 +17,7 @@ from ntm_tracker_tpu.ops.pallas.scan_bptt import _fwd_call
 from ntm_tracker_tpu_torch.interop import flatten_ntm_params, ntm_params_from_flat
 from ntm_tracker_tpu_torch.models.ntm_cell import init_ntm_state
 from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
+from ntm_tracker_tpu_torch.utils import profiling
 
 from tests.pallas_harness import B, CONFIGS, setup_case
 from tests.torch_grad_parity import FWD_TOL, port_cfg
@@ -69,14 +70,14 @@ def test_cpu_tensors_take_the_plain_versions_without_launches():
     tok = torch.tensor(np.asarray(tokens))
     layer0 = tp["controller"][0]
     state = init_ntm_state(tp, tcfg, B)
-    before = (scan_bptt.token_projection.launches, scan_bptt.bptt_forward.launches)
+    before = (profiling.counter("launches.token_projection"), profiling.counter("launches.bptt_forward"))
     proj = scan_bptt.token_projection(tok, layer0["kernel"], layer0["bias"])
     assert torch.equal(proj, scan_bptt.token_projection_reference(tok, layer0["kernel"], layer0["bias"]))
     logits, final, res = scan_bptt.bptt_forward(tp, tcfg, tok, state, proj)
     r_logits, r_final, r_res = scan_bptt.bptt_forward_reference(tp, tcfg, tok, state, proj)
     assert torch.equal(logits, r_logits) and torch.equal(final["M"], r_final["M"])
     assert all(torch.equal(a, b) for a, b in zip(res, r_res))
-    assert (scan_bptt.token_projection.launches, scan_bptt.bptt_forward.launches) == before
+    assert (profiling.counter("launches.token_projection"), profiling.counter("launches.bptt_forward")) == before
     with pytest.raises(ValueError, match="proj has shape"):
         scan_bptt.bptt_forward(tp, tcfg, tok, state, proj[1:])
     with pytest.raises(ValueError, match="fewer than the token width"):

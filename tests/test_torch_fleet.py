@@ -32,6 +32,7 @@ from ntm_tracker_tpu_torch.ops.kernels import addressing
 from ntm_tracker_tpu_torch.parallel.mesh import make_mesh
 from ntm_tracker_tpu_torch.tracking.fleet import FleetTracker
 from ntm_tracker_tpu_torch.tracking.tracker import StreamingTracker, make_device_track_step
+from ntm_tracker_tpu_torch.utils import profiling
 
 # Fleet (matmul crop) vs StreamingTracker (gather crop), both float32 on
 # the CPU: the crops differ by float32 rounding (3e-5 of 255), which one
@@ -323,7 +324,7 @@ def test_cpu_fleet_never_launches(use_pallas):
     img = _img(5, 64, 96)
     fleet = FleetTracker(cfg, vgg, params, capacity=2, core=core, device="cpu")
     fleet.step({fleet.add(img, (30.0, 20.0, 20.0, 16.0)): img})
-    assert addressing.fused_ntm_addressing.launches == 0
+    assert profiling.counter("launches.fused_ntm_addressing") == 0
 
 
 # ---- the fleet from an exported artifact (export-serving --batch N) -------------

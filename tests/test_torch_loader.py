@@ -18,6 +18,7 @@ from ntm_tracker_tpu_torch.data import loader, native_jpeg, native_loader
 from ntm_tracker_tpu_torch.data.preprocess import PreprocessJob, run_preprocess
 from ntm_tracker_tpu_torch.data.sequences import get_valid_sequences
 from ntm_tracker_tpu_torch.data.synthetic_vid import write_vid_tree
+from ntm_tracker_tpu_torch.utils import profiling
 
 SEQS = [
     ("ILSVRC2015_train_00000000", "train", (160, 96), 6),
@@ -124,7 +125,8 @@ def test_python_and_native_record_routes_agree(in_dataset):
     loader.reset_route_counts()
     native = loader.load_record_arrays(paths, 8, use_native=True)
     python = loader.load_record_arrays(paths, 8, use_native=False)
-    assert loader.RECORD_ROUTES == {"native": 1, "python": 1}
+    assert (profiling.counter("records.native"), profiling.counter("records.python")) == (1, 1)
+    assert loader.record_routes() == {"native": 1, "python": 1}
     for a, b in zip(native, python):
         if isinstance(a, list):
             assert a == b
@@ -153,8 +155,9 @@ def test_decode_routes_are_counted(in_dataset, tmp_path):
     loader.reset_route_counts()
     loader.load_frame_batch(paths, decode_resize_hw=HW)       # native: a batch, resized on the host
     loader.load_frame_batch(paths, decode_resize_hw=None)     # uint8 frames: PIL
-    assert loader.DECODE_ROUTES["native"]["batches"] == 1 and loader.DECODE_ROUTES["native"]["frames"] == 4
-    assert loader.DECODE_ROUTES["pil"]["batches"] == 1 and loader.DECODE_ROUTES["pil"]["frames"] == 4
+    assert profiling.counter("decode.native.batches") == 1 and profiling.counter("decode.native.frames") == 4
+    assert profiling.counter("decode.pil.batches") == 1 and profiling.counter("decode.pil.frames") == 4
+    assert set(loader.decode_routes()) == {"native", "pil"} and loader.decode_routes()["pil"]["frames"] == 4
     # a file libjpeg refuses goes to PIL, which raises for it
     bad = tmp_path / "broken.JPEG"
     bad.write_bytes(b"not a jpeg at all")
@@ -214,7 +217,7 @@ def test_shared_frames_decode_once_to_the_same_arrays(in_dataset, resize_hw):
     got = loader._decode_images_parallel(paths, resize_hw)
     np.testing.assert_array_equal(got, jloader._decode_images_parallel(paths, resize_hw))
     route = "native" if resize_hw else "pil"
-    assert loader.DECODE_ROUTES[route]["frames"] == 3 and got.shape[0] == 5
+    assert profiling.counter(f"decode.{route}.frames") == 3 and got.shape[0] == 5
 
 
 @pytest.mark.parametrize("reverse_image", [False, True])
@@ -232,3 +235,38 @@ def test_shared_frames_of_a_multi_object_tree(tmp_path, monkeypatch, reverse_ima
     full = loader.load_frame_batch(paths, reverse_image=reverse_image, decode_resize_hw=HW)
     assert_same_batch(shared._replace(images=shared.images[index]), full)
     assert_same_batch(full, jloader.load_frame_batch(paths, reverse_image=reverse_image, decode_resize_hw=HW))
+
+
+@pytest.mark.parametrize("predict_scale", [False, True])
+@pytest.mark.parametrize("kind", ["tokens", "frames"])
+def test_device_batch_gives_the_train_commands_tensors(kind, predict_scale):
+    """loader.device_batch against the upload train-offsets ran in its
+    prefetch worker before it moved here: every field as a tensor, dtypes
+    kept, the log-scale targets over scale_range only with the scale
+    head."""
+    import torch
+
+    from ntm_tracker_tpu_torch.data.feature_cache import TokenBatch
+
+    rng = np.random.RandomState(3)
+    n = 6
+    labels = dict(gts=rng.rand(n, 8, 8).astype(np.float32), y_offsets=rng.rand(n).astype(np.float32),
+                  x_offsets=rng.rand(n).astype(np.float32), scales=rng.rand(n).astype(np.float32))
+    if kind == "tokens":
+        batch = TokenBatch(features=rng.rand(n, 4, 5).astype(np.float16), **labels)
+    else:
+        batch = loader.FrameBatch(images=(rng.rand(n, 6, 7, 3) * 255).astype(np.uint8),
+                                  cropboxes=rng.rand(n, 4).astype(np.float32), **labels)
+
+    def closure_put(batch):
+        b = batch._asdict()
+        scales = b.pop("scales")
+        if predict_scale:
+            b["scales"] = scales / 0.7
+        return {k: torch.as_tensor(v).to("cpu") for k, v in b.items()}
+
+    got = loader.device_batch(batch, torch.device("cpu"), predict_scale, 0.7)
+    want = closure_put(batch)
+    assert list(got) == list(want) and ("scales" in got) == predict_scale
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k

@@ -20,6 +20,7 @@ from ntm_tracker_tpu_torch.models.ntm_tracker import ntm_tracker_unroll, use_fus
 from ntm_tracker_tpu_torch.ops.kernels import scan_bptt
 from ntm_tracker_tpu_torch.ops.kernels.scan_bptt import ntm_scan_fused_bptt
 from ntm_tracker_tpu_torch.ops.kernels.scan_cell import ntm_scan_fused
+from ntm_tracker_tpu_torch.utils import profiling
 
 from tests.pallas_harness import B, CONFIGS, jnp_unroll, make_loss, setup_case
 from tests.torch_grad_parity import (
@@ -125,15 +126,12 @@ def test_gamma_gradient_is_zero_where_w_conv_is_zero():
 
 def test_cpu_tensors_take_the_plain_version_without_launches():
     _, tcfg, params, tokens, cot = case("flagship_shape")
-    before = (ntm_scan_fused.launches, scan_bptt.bptt_forward.launches,
-              scan_bptt.bptt_backward.launches, scan_bptt.grad_reduce.launches)
+    before = profiling.snapshot()["counters"]
     port_value_and_grad(ntm_scan_fused_bptt, tcfg, params, tokens, cot)
     with torch.no_grad():
         tp = ntm_params_from_flat(flatten_ntm_params(params))
         ntm_scan_fused_bptt(tp, tcfg, torch.tensor(np.asarray(tokens)), init_ntm_state(tp, tcfg, B))
-    after = (ntm_scan_fused.launches, scan_bptt.bptt_forward.launches,
-             scan_bptt.bptt_backward.launches, scan_bptt.grad_reduce.launches)
-    assert after == before
+    assert profiling.snapshot()["counters"] == before
 
 
 def test_other_devices_raise():

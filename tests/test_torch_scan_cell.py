@@ -24,6 +24,7 @@ from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
     ntm_scan_fused_reference,
     ntm_scan_fused_trainable,
 )
+from ntm_tracker_tpu_torch.utils import profiling
 
 from tests import torch_grad_parity as parity
 
@@ -80,19 +81,19 @@ def test_zero_steps_echo_the_state():
     jcfg, tcfg, jp, tp, tokens = _setup(CONFIGS["default-ish"], T=0)
     jl, js = jax_scan_fused(jp, jcfg, jnp.asarray(tokens), jinit_state(jp, jcfg, 2), interpret=True)
     state = init_ntm_state(tp, tcfg, 2)
-    before = ntm_scan_fused.launches
+    before = profiling.counter("launches.ntm_scan_fused")
     tl, ts = ntm_scan_fused(tp, tcfg, torch.tensor(tokens), state)
     assert ts is state and tuple(tl.shape) == tuple(jl.shape) == (2, 0, 2)
-    assert ntm_scan_fused.launches == before
+    assert profiling.counter("launches.ntm_scan_fused") == before
     _compare(tl, ts, jl, js, F32_TOL)
 
 
 def test_cpu_tensors_do_not_count_as_launches():
     _, tcfg, _, tp, tokens = _setup(CONFIGS["default-ish"])
-    before = ntm_scan_fused.launches
+    before = profiling.counter("launches.ntm_scan_fused")
     tl, _ = ntm_scan_fused(tp, tcfg, torch.tensor(tokens), init_ntm_state(tp, tcfg, 2))
     rl, _ = ntm_scan_fused_reference(tp, tcfg, torch.tensor(tokens), init_ntm_state(tp, tcfg, 2))
-    assert ntm_scan_fused.launches == before
+    assert profiling.counter("launches.ntm_scan_fused") == before
     np.testing.assert_array_equal(tl.numpy(), rl.numpy())
 
 

@@ -35,6 +35,7 @@ from ntm_tracker_tpu_torch.ops.kernels.scan_cell import (
     scan_route,
     split_projection_reference,
 )
+from ntm_tracker_tpu_torch.utils import profiling
 
 B, T, IN = 3, 7, 10
 CONFIGS = {
@@ -203,7 +204,7 @@ def test_cuda_tensors_without_a_card_raise():
     # a CUDA tensor never falls back to the plain version: without a card
     # the route cannot be chosen, and the call raises
     tcfg, _, _, tp, tokens = _params("flagship_shape")
-    before = (ntm_scan_fused.launches, dict(ntm_scan_fused.launches_by_route))
+    before = profiling.snapshot()["counters"]
     with FakeTensorMode():
         def on_cuda(t):
             return torch.empty(t.shape, device="cuda")
@@ -215,4 +216,4 @@ def test_cuda_tensors_without_a_card_raise():
         assert toks.device.type == "cuda"
         with pytest.raises((RuntimeError, AssertionError)):
             ntm_scan_fused(params, tcfg, toks, init_ntm_state(params, tcfg, B))
-    assert (ntm_scan_fused.launches, ntm_scan_fused.launches_by_route) == before
+    assert profiling.snapshot()["counters"] == before

@@ -34,6 +34,7 @@ from ntm_tracker_tpu_torch.ops.kernels.scan_packed import (
     tile_rows,
     unpack_memory,
 )
+from ntm_tracker_tpu_torch.utils import profiling
 
 from tests.pallas_harness import B, CONFIGS, jnp_unroll
 from tests.test_torch_scan_bptt import _one_hot_wconv_case
@@ -194,13 +195,13 @@ def test_cpu_tensors_take_the_plain_version_without_launches():
     _, tcfg, params, tokens, cot = case("flagship_shape")
     counters = (scan_packed.packed_forward, scan_packed.packed_forward_residuals, scan_packed.packed_backward,
                 scan_bptt.grad_reduce)
-    before = [f.launches for f in counters]
+    before = [profiling.counter(f"launches.{f.__name__}") for f in counters]
     port_value_and_grad(ntm_scan_packed_bptt, tcfg, params, tokens, cot)
     tcfg, tp, tok = port_inputs("flagship_shape")
     with torch.no_grad():
         ntm_scan_packed(tp, tcfg, tok, init_ntm_state(tp, tcfg, B))
         ntm_scan_packed_bptt(tp, tcfg, tok, init_ntm_state(tp, tcfg, B))
-    assert [f.launches for f in counters] == before
+    assert [profiling.counter(f"launches.{f.__name__}") for f in counters] == before
 
 
 @pytest.mark.parametrize("fn", [ntm_scan_packed, ntm_scan_packed_bptt], ids=lambda f: f.__name__)
